@@ -1,0 +1,118 @@
+"""Build and bind the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
+``nvcc`` for Hopper (``sm_90a``) into its own shared library, loaded with
+``ctypes``.  Libraries are built at first use into
+``build/repro_torch_kernels/`` at the repository root (``.gitignore``
+lists ``build/``), keyed on a hash of the source and the flags, so an
+edited source is rebuilt and an unchanged one is loaded as it is.
+:func:`build_all` starts one ``nvcc`` per source, all at once.
+
+Nothing here runs at import time: the CPU tests import every module on a
+machine without ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+# kernel name -> source file; each library exports ``<name>`` and
+# ``<name>_error_string``
+SOURCES = {
+    "stream_stats_fleet": "stream_stats_fleet.cu",
+    "polyfit_moments": "polyfit.cu",
+}
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> pathlib.Path:
+    return CSRC.parents[3] / "build" / "repro_torch_kernels"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for root in (home, "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels are built from source at first use")
+
+
+def lib_path(name: str) -> pathlib.Path:
+    src = (CSRC / SOURCES[name]).read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return build_dir() / f"{name}-{digest[:16]}.so"
+
+
+def build_all(names=None) -> dict:
+    """Compile every missing library, one ``nvcc`` per source in parallel.
+
+    Returns ``{name: seconds}`` (0.0 for a library that was already
+    built).  Raises with the compiler's output if any build fails.
+    """
+    names = list(SOURCES if names is None else names)
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    secs = {}
+    for name in names:
+        target = lib_path(name)
+        if target.exists():
+            secs[name] = 0.0
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, target)
+    failed = []
+    for name, (proc, tmp, target) in procs.items():
+        log, _ = proc.communicate()
+        secs[name] = time.perf_counter() - t0
+        target.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+            continue
+        os.replace(tmp, target)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return secs
+
+
+def load(name: str, argtypes):
+    """The C entry point ``name`` (building its library first if needed)."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = lib_path(name)
+        if not path.exists():
+            build_all([name])
+        lib = ctypes.CDLL(str(path))
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    fn = getattr(lib, name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(name: str, rc: int) -> None:
+    """Raise if a launch returned a CUDA error (``cudaGetLastError()``)."""
+    if rc != 0:
+        msg = getattr(_LIBS[name], f"{name}_error_string")(rc)
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc} "
+                           f"({msg.decode() if msg else '?'})")
