@@ -15,7 +15,15 @@ Phases, one JSON line each; any failed check exits non-zero:
   5. the same scenario at T = 20 with the plain versions on the card,
      held against the kernel path;
   6. the ``fleet_scan`` golden scenario with the payload replay;
-  7. the kernels line, then ``{"ok": true, "device": {...}}`` last.
+  7. slice 2's path: the kernel entry points ``window_moments_xxt`` (the
+     window shapes of ``benchmarks/kernel_bench.py``, f32 and bf16) and
+     ``flash_attention`` (attention heads of yi-9b, gemma3-12b's local
+     layers and whisper-large-v3's cross-attention, and yi-9b heads at the
+     32k prefill length), launch counts asserted, every output held
+     against the plain version on the card;
+  8. those two kernels timed beside their bounds, their plain versions and
+     ``scaled_dot_product_attention`` as the library yardstick;
+  9. the kernels line, then ``{"ok": true, "device": {...}}`` last.
 
 Detailed profiles go to ``chiprun_out/``.
 """
@@ -31,9 +39,11 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 
-# H100 SXM data sheet: HBM3 bandwidth and f32 (non-tensor-core) peak
+# H100 SXM data sheet: HBM3 bandwidth, f32 (non-tensor-core) peak and
+# bf16 dense tensor-core peak
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 
 MAIN = {"n_regions": 4, "sites_per_region": 256, "k": 8, "window": 256,
         "pool": 4, "T": 200, "T_plain": 20}
@@ -47,7 +57,44 @@ KERNELS = {
     "polyfit": (
         "src/repro_torch/kernels/csrc/polyfit.cu",
         "src/repro/kernels/polyfit/kernel.py:55"),
+    "stream_stats": (
+        "src/repro_torch/kernels/csrc/stream_stats.cu",
+        "src/repro/kernels/stream_stats/kernel.py:122"),
+    "flash_attention": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:107"),
 }
+
+# slice 2.  window_moments_xxt: (k, N, dtype), benchmarks/kernel_bench.py's
+# shapes; the kernels line carries the largest in f32.
+WINDOWS = [(8, 4096, "float32"), (32, 8192, "float32"),
+           (64, 16384, "float32"), (64, 16384, "bfloat16")]
+WINDOW_TIMED = 2
+# (rtol, atol): tests/test_kernel_stream_stats.py's f32 tolerance for both
+# types, since kernel and plain version both sum in f32 from the same
+# bf16-rounded inputs
+WINDOW_TOL = {"float32": (2e-5, 1e-2), "bfloat16": (2e-5, 1e-2)}
+# flash_attention at full head width, batch 1:
+# name -> (S, T, H, KV, hd, causal, window, dtype); configs/<model>.py
+ATTENTION = {
+    "a_yi_9b_causal": (4096, 4096, 32, 4, 128, True, 0, "bfloat16"),
+    "b_gemma3_12b_local": (4096, 4096, 16, 8, 240, True, 1024, "bfloat16"),
+    "c_whisper_cross": (448, 1500, 20, 20, 64, False, 0, "bfloat16"),
+    "d_yi_9b_causal_f32": (4096, 4096, 32, 4, 128, True, 0, "float32"),
+    # configs/__init__.py prefill_32k; the plain version's (B, H, S, T)
+    # scores do not fit, so only its last rows are checked
+    "yi_9b_prefill_32k": (32768, 32768, 32, 4, 128, True, 0, "bfloat16"),
+}
+ATTENTION_TIMED = "a_yi_9b_causal"
+LONG_CASE, LONG_ROWS = "yi_9b_prefill_32k", 256
+# f32: max |err| <= atol.  bf16: kernel and plain version compute in f32
+# and each rounds once to bf16, so they differ by at most one bf16 step
+# (2**-7 |want|) per element: every |err| <= atol + rtol |want|, and the
+# RMS of the error <= rms x the RMS of the plain output (a kernel off by a
+# uniform 1.5% fails the RMS test; one returning half the value or zeros
+# fails both)
+ATTENTION_TOL = {"float32": {"atol": 1e-5},
+                 "bfloat16": {"rtol": 1e-2, "atol": 1e-4, "rms": 2e-3}}
 
 
 def emit(obj) -> None:
@@ -76,10 +123,43 @@ def time_cuda(fn, torch, reps: int, warmup: int = 10) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_F32_FLOPS):
+    """The least time the card could take: bytes over the memory rate or
+    operations over ``peak_flops``, whichever is longer."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def live_pairs(S: int, T: int, causal: bool, window: int) -> int:
+    """Unmasked (query, key) pairs of one attention head."""
+    import numpy as np
+    qp = np.arange(S, dtype=np.int64)
+    hi = np.minimum(qp, T - 1) if causal else np.full(S, T - 1)
+    lo = (np.maximum(qp - window + 1, 0) if window > 0
+          else np.zeros(S, np.int64))
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def device_ms(fn, torch, reps: int, match: str) -> float:
+    """Device time per call of the kernels whose names contain ``match``,
+    from torch.profiler over ``reps`` calls (the CUDA-event time of a small
+    kernel also counts its wrapper's host work)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if match in e.key:
+            total += getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0))
+    if total == 0.0:
+        raise AssertionError(f"the profile shows no device time for {match}")
+    return total / 1e3 / reps
 
 
 def main_scenario(k: int, window: int, n_regions: int, sites: int,
@@ -315,7 +395,10 @@ def main() -> int:
               "reference_wan_bytes_cpu": GOLDEN_REF_WAN_BYTES,
               "nrmse": g.nrmse})
 
-    # ---- 7. the kernels line and the result ------------------------------
+    # ---- 7. slice 2's path: the kernel entry points at model widths -----
+    launches.update(slice2_path(torch, dev, results))
+
+    # ---- 9. the kernels line and the result ------------------------------
     emit({"kernels": [dict(name=n, route="cuda", source=KERNELS[n][0],
                            replaces=KERNELS[n][1], launches=launches[n],
                            **results[n]) for n in KERNELS]})
@@ -323,6 +406,157 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def slice2_path(torch, dev, results) -> dict:
+    """Phases 7 and 8: drive ``window_moments_xxt`` and ``flash_attention``
+    through their entry points with the launch counts at 0, hold every
+    output against its plain version, then time the kernels.  Fills
+    ``results`` and returns the launch counts of the run."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, window_moments_xxt
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.stream_stats import ops as ss_ops
+    from repro_torch.kernels.stream_stats.ref import stream_stats_ref
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    xs = [torch.randn(k, n, device=dev, generator=gen).to(getattr(torch, dt))
+          for k, n, dt in WINDOWS]
+    qkv = {}
+    for name, (S, T, H, KV, hd, _, _, dt) in ATTENTION.items():
+        qkv[name] = [torch.randn(1, L, heads, hd, device=dev, generator=gen)
+                     .to(getattr(torch, dt))
+                     for L, heads in ((S, H), (T, KV), (T, KV))]
+
+    # ---- 7. the path, counted --------------------------------------------
+    ss_ops.WINDOW_LAUNCHES = 0
+    fa_ops.LAUNCHES = 0
+    t0 = time.perf_counter()
+    stats = [window_moments_xxt(x) for x in xs]
+    outs = {name: flash_attention(*qkv[name], causal=ATTENTION[name][5],
+                                  window=ATTENTION[name][6])
+            for name in ATTENTION}
+    torch.cuda.synchronize()
+    launches = {"stream_stats": ss_ops.WINDOW_LAUNCHES,
+                "flash_attention": fa_ops.LAUNCHES}
+    emit({"phase": "slice2_path", "seconds": time.perf_counter() - t0,
+          "windows": [list(w) for w in WINDOWS],
+          "attention": {n: list(c) for n, c in ATTENTION.items()},
+          "launches": launches})
+    if launches != {"stream_stats": len(WINDOWS),
+                    "flash_attention": len(ATTENTION)}:
+        raise AssertionError(f"kernel launches on slice 2's path: {launches}")
+
+    ss_err = 0.0
+    for (k, n, dt), x, got in zip(WINDOWS, xs, stats):
+        want = stream_stats_ref(x)
+        rtol, atol = WINDOW_TOL[dt]
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        ok = all(g.shape == w.shape and torch.isfinite(g).all()
+                 and torch.allclose(g, w, rtol=rtol, atol=atol)
+                 for g, w in zip(got, want))
+        emit({"phase": "kernel_check", "kernel": "stream_stats",
+              "shape": [k, n], "dtype": dt, "max_abs_err": err,
+              "rtol": rtol, "atol": atol, "ok": ok})
+        if not ok:
+            raise AssertionError(f"stream_stats disagrees with its plain "
+                                 f"version at {(k, n, dt)}: max |err| {err}")
+        ss_err = max(ss_err, err)
+
+    fa_err = 0.0
+    for name, (S, T, H, KV, hd, causal, window, dt) in ATTENTION.items():
+        q, k, v = qkv[name]
+        got = outs[name]
+        rows = LONG_ROWS if name == LONG_CASE else S
+        want = flash_attention_ref(q[:, S - rows:], k, v, causal=causal,
+                                   window=window, q_offset=S - rows)
+        got = got[:, S - rows:]
+        tol = ATTENTION_TOL[dt]
+        d = (got.float() - want.float()).abs()
+        w = want.float().abs()
+        err = float(d.max())
+        # the largest |err| / (atol + rtol |want|): <= 1 passes
+        scaled = float((d / (tol["atol"] + tol.get("rtol", 0.0) * w)).max())
+        rms = float(d.square().mean().sqrt() / w.square().mean().sqrt())
+        ok = (got.dtype == q.dtype and bool(torch.isfinite(got).all())
+              and scaled <= 1.0 and rms <= tol.get("rms", float("inf")))
+        emit({"phase": "kernel_check", "kernel": "flash_attention",
+              "case": name, "shape": [1, S, T, H, KV, hd],
+              "causal": causal, "window": window, "dtype": dt,
+              "rows_checked": [S - rows, S], "max_abs_err": err,
+              "max_abs_want": float(w.max()), "err_over_tol": scaled,
+              "rms_err_over_rms_want": rms, **tol, "ok": ok})
+        if not ok:
+            raise AssertionError(f"flash_attention disagrees with its plain "
+                                 f"version on {name}: max |err| {err}, "
+                                 f"err/tol {scaled}, RMS ratio {rms}")
+        fa_err = max(fa_err, err)
+        del want, d, w
+    del outs, stats
+
+    # ---- 8. times beside bounds ------------------------------------------
+    for i, ((k, n, dt), x) in enumerate(zip(WINDOWS, xs)):
+        ms = time_cuda(lambda: ss_ops.stream_stats_cuda(x), torch, 50)
+        dev_ms = device_ms(lambda: ss_ops.stream_stats_cuda(x), torch, 20,
+                           "stream_stats_")
+        plain = time_cuda(lambda: stream_stats_ref(x), torch, 50)
+        nbytes = x.numel() * x.element_size() + (4 * k + k * k) * 4
+        flops = k * (k + 1) * n + 7 * k * n   # the upper triangle suffices
+        b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS
+                              if dt == "bfloat16" else PEAK_F32_FLOPS)
+        emit({"phase": "kernel_time", "kernel": "stream_stats",
+              "shape": [k, n], "dtype": dt, "kernel_ms": ms,
+              "kernel_device_ms": dev_ms, "plain_ms": plain,
+              "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+              "flops": flops, "library_ms": None,
+              "library_note": "none: x @ x.T gives only the Gram part"})
+        if i == WINDOW_TIMED:
+            results["stream_stats"] = {
+                "max_abs_err": ss_err, "ms": ms, "plain_ms": plain,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+    for name, (S, T, H, KV, hd, causal, window, dt) in ATTENTION.items():
+        q, k, v = qkv[name]
+        long = name == LONG_CASE
+        reps, warm = (3, 1) if long else (20, 5)
+        ms = time_cuda(lambda: fa_ops.flash_attention_cuda(
+            q, k, v, causal=causal, window=window), torch, reps, warm)
+        plain = None if long else time_cuda(lambda: flash_attention_ref(
+            q, k, v, causal=causal, window=window), torch, 10, 2)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        mask = None
+        if window > 0:
+            qp = torch.arange(S, device=dev)[:, None]
+            kp = torch.arange(T, device=dev)[None, :]
+            mask = (qp - kp < window) & ((kp <= qp) if causal else True)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+                enable_gqa=H != KV)
+        lib = time_cuda(sdpa, torch, reps + 2, warm)
+        lib_diff = float((sdpa().transpose(1, 2).float() - fa_ops
+                          .flash_attention_cuda(q, k, v, causal=causal,
+                                                window=window).float())
+                         .abs().max())
+        nbytes = 2 * q.numel() * q.element_size() \
+            + 2 * k.numel() * k.element_size()
+        flops = 4 * H * hd * live_pairs(S, T, causal, window)
+        b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS
+                              if dt == "bfloat16" else PEAK_F32_FLOPS)
+        emit({"phase": "kernel_time", "kernel": "flash_attention",
+              "case": name, "shape": [1, S, T, H, KV, hd], "dtype": dt,
+              "kernel_ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+              "bound_by": b_by, "bytes": nbytes, "flops": flops,
+              "tflops": flops / ms / 1e9, "library_ms": lib,
+              "library": "scaled_dot_product_attention",
+              "library_max_abs_diff": lib_diff})
+        if name == ATTENTION_TIMED:
+            results["flash_attention"] = {
+                "max_abs_err": fa_err, "ms": ms, "plain_ms": plain,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+    return launches
 
 
 def profile_main_path(ex, windows, torch, n_prof: int = 3) -> None:

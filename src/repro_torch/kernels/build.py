@@ -21,15 +21,21 @@ import shutil
 import subprocess
 import time
 
+import torch
+
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 # kernel name -> source file; each library exports ``<name>`` and
 # ``<name>_error_string``
 SOURCES = {
     "stream_stats_fleet": "stream_stats_fleet.cu",
     "polyfit_moments": "polyfit.cu",
+    "stream_stats": "stream_stats.cu",
+    "flash_attention": "flash_attention.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# element types of the entry points that take a ``dtype`` code
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -92,8 +98,8 @@ def build_all(names=None) -> dict:
     return secs
 
 
-def load(name: str, argtypes):
-    """The C entry point ``name`` (building its library first if needed)."""
+def library(name: str) -> ctypes.CDLL:
+    """The shared library ``name``, built first if needed."""
     lib = _LIBS.get(name)
     if lib is None:
         path = lib_path(name)
@@ -104,7 +110,12 @@ def load(name: str, argtypes):
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
         _LIBS[name] = lib
-    fn = getattr(lib, name)
+    return lib
+
+
+def load(name: str, argtypes):
+    """The C entry point ``name`` (building its library first if needed)."""
+    fn = getattr(library(name), name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn

@@ -1,0 +1,79 @@
+"""Flash attention: the CUDA kernel's wrapper and its dispatch.
+
+Port of ``repro.kernels.flash_attention.ops``.  A CPU tensor takes the
+plain version (:mod:`.ref`); a CUDA tensor launches the hand-written
+kernel (``csrc/flash_attention.cu``) unless the caller passes
+``use_kernel=False``.  A failed build or launch raises.  The kernel masks
+ragged S and T itself, so nothing is padded or sliced here.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+# launches of the CUDA kernel, counted where the wrapper launches it
+LAUNCHES = 0
+
+HEAD_DIMS = (16, 32, 64, 128, 240)   # the kernel's instantiations
+
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, *[ctypes.c_int] * 9, ctypes.c_void_p]
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: int = 0):
+    """Launch the kernel on contiguous CUDA tensors q (B,S,H,hd) and k, v
+    (B,T,KV,hd) of one type, f32 or bf16, with H % KV == 0 and hd in
+    ``HEAD_DIMS``.  Returns o (B,S,H,hd) in q's type."""
+    global LAUNCHES
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda:
+            raise ValueError(f"flash_attention needs CUDA tensors, {name} is "
+                             f"on {t.device}")
+        if t.dtype not in build.DTYPE_CODES or t.dtype != q.dtype:
+            raise TypeError(f"flash_attention needs q, k, v all float32 or "
+                            f"all bfloat16, {name} is {t.dtype} and q "
+                            f"{q.dtype}")
+        if t.dim() != 4 or not t.is_contiguous():
+            raise ValueError(f"flash_attention needs contiguous 4-D tensors, "
+                             f"{name} has shape {tuple(t.shape)}, "
+                             f"contiguous={t.is_contiguous()}")
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: {name} is on {t.device}, q "
+                             f"on {q.device}")
+    b, s, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd
+            or kv == 0 or h % kv != 0):
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} need "
+                         f"q (B,S,H,hd), k = v (B,T,KV,hd), H % KV == 0")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention supports head dims {HEAD_DIMS}, "
+                         f"got {hd}")
+    o = torch.empty_like(q)
+    if b == 0 or s == 0 or h == 0:
+        return o
+    fn = build.load("flash_attention", _ARGTYPES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                build.DTYPE_CODES[q.dtype], b, s, t, h, kv, hd, int(causal),
+                int(window), stream)
+    build.check("flash_attention", rc)
+    LAUNCHES += 1
+    return o
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    use_kernel: bool = True):
+    """GQA-aware attention forward: q (B,S,H,hd), k/v (B,T,KV,hd) ->
+    (B,S,H,hd) in q.dtype.  Causal keeps keys j <= i; ``window`` > 0 keeps
+    i - j < window (positions count from 0 in q and in k)."""
+    if q.is_cuda and use_kernel is not False:
+        return flash_attention_cuda(q, k, v, causal=causal, window=window)
+    return flash_attention_ref(q, k, v, causal=causal, window=window)

@@ -7,13 +7,24 @@ imports no JAX, so it runs where only PyTorch is installed.
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.polyfit import ops as poly_ops
 from repro_torch.kernels.polyfit.ref import polyfit_ref
 from repro_torch.kernels.stream_stats import ops as ss_ops
-from repro_torch.kernels.stream_stats.ref import fleet_stats_ref
+from repro_torch.kernels.stream_stats.ref import (fleet_stats_ref,
+                                                  stream_stats_ref)
 
-# the Gram block's tolerance, as in tests/test_kernel_stream_stats.py
+# the Gram block's f32 tolerance, as in tests/test_kernel_stream_stats.py;
+# it holds for bf16 input too, since kernel and plain version both sum in
+# f32 from the same bf16-rounded values
 SS_RTOL, SS_ATOL = 2e-5, 1e-2
+# flash attention against the plain version on the card.  f32: max |err|.
+# bf16: both compute in f32 and round once, so every element is within
+# one bf16 step (2**-7 |want|), and the RMS of the error stays a small
+# share of the output's (a uniform 1.5% error fails)
+FA_ATOL_F32 = 1e-5
+FA_RTOL_BF16, FA_ATOL_BF16, FA_RMS_BF16 = 1e-2, 1e-4, 2e-3
 
 FLEET_SHAPES = [(1024, 8, 256), (3, 5, 200), (6, 4, 64), (2, 8, 512),
                 (4, 9, 130), (2, 3, 20), (2, 16, 1500)]
@@ -58,3 +69,116 @@ def test_cuda_polyfit_matches_plain(cuda, rows, n):
     pu_r[:, 0] = float(n)
     # same products, same summation order: bitwise
     assert torch.equal(pu, pu_r) and torch.equal(py, py_r)
+
+
+WINDOW_SHAPES = [(1, 1), (1, 128), (3, 200), (9, 130), (8, 4096), (32, 8192),
+                 (64, 16384), (65, 300), (130, 1000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", WINDOW_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cuda_window_moments_matches_plain(cuda, shape, dtype):
+    g = torch.Generator().manual_seed(sum(shape))
+    x = (torch.randn(shape, generator=g) * 1.5 + 2.0).to(dtype).to(cuda)
+    before = ss_ops.WINDOW_LAUNCHES
+    mom, xxt = ss_ops.window_moments_xxt(x)
+    torch.cuda.synchronize()
+    assert ss_ops.WINDOW_LAUNCHES == before + 1
+    mom_r, xxt_r = stream_stats_ref(x)
+    torch.testing.assert_close(mom, mom_r, rtol=SS_RTOL, atol=SS_ATOL)
+    torch.testing.assert_close(xxt, xxt_r, rtol=SS_RTOL, atol=SS_ATOL)
+
+
+@pytest.mark.cuda
+def test_cuda_window_moments_two_launches_bitwise_equal(cuda):
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(64, 16384, generator=g).to(cuda)
+    a = ss_ops.stream_stats_cuda(x)
+    b = ss_ops.stream_stats_cuda(x)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+# (B, S, T, H, KV, hd, causal, window)
+FLASH_CASES = [
+    (2, 100, 100, 8, 2, 64, True, 32),       # ragged, window, GQA
+    (1, 130, 77, 4, 4, 128, False, 0),       # non-causal, ragged S and T
+    (1, 200, 200, 4, 2, 240, True, 64),      # gemma3 head dim, window
+    (1, 70, 1500, 4, 4, 64, False, 0),       # cross-attention shape
+    (2, 64, 64, 2, 1, 16, True, 0),          # one block
+    (1, 300, 300, 8, 1, 128, True, 0),       # causal, GQA 8:1
+    (1, 96, 160, 2, 2, 32, False, 40),       # window without causal
+]
+
+
+def _qkv(case, dtype, device):
+    b, s, t, h, kv, hd = case[:6]
+    g = torch.Generator().manual_seed(s * 7 + t + hd)
+    q = torch.randn(b, s, h, hd, generator=g).to(dtype).to(device)
+    k = torch.randn(b, t, kv, hd, generator=g).to(dtype).to(device)
+    v = torch.randn(b, t, kv, hd, generator=g).to(dtype).to(device)
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_cuda_flash_attention_matches_plain(cuda, case, dtype):
+    q, k, v = _qkv(case, dtype, cuda)
+    causal, window = case[6], case[7]
+    before = fa_ops.LAUNCHES
+    out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    if dtype == torch.float32:
+        err = (out - want).abs().max().item()
+        assert err <= FA_ATOL_F32, err
+        return
+    out, want = out.float(), want.float()
+    torch.testing.assert_close(out, want, rtol=FA_RTOL_BF16,
+                               atol=FA_ATOL_BF16)
+    rms = ((out - want).square().mean().sqrt()
+           / want.square().mean().sqrt()).item()
+    assert rms <= FA_RMS_BF16, rms
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_two_launches_bitwise_equal(cuda):
+    q, k, v = _qkv(FLASH_CASES[2], torch.bfloat16, cuda)
+    a = fa_ops.flash_attention_cuda(q, k, v, causal=True, window=64)
+    b = fa_ops.flash_attention_cuda(q, k, v, causal=True, window=64)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_refuse_what_they_do_not_take(cuda):
+    x = torch.ones(4, 64, device=cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ss_ops.stream_stats_cuda(x.double())
+    with pytest.raises(ValueError, match=r"\(k, N\)"):
+        ss_ops.stream_stats_cuda(x[None])
+    with pytest.raises(ValueError, match="contiguous"):
+        ss_ops.stream_stats_cuda(x.t())
+    with pytest.raises(ValueError, match="CUDA"):
+        ss_ops.stream_stats_cuda(x.cpu())
+    q, k, v = _qkv(FLASH_CASES[0], torch.float32, cuda)
+    with pytest.raises(TypeError, match="float32 or all bfloat16"):
+        fa_ops.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError, match="float32 or all bfloat16"):
+        fa_ops.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="head dims"):
+        fa_ops.flash_attention(q[..., :48].contiguous(),
+                               k[..., :48].contiguous(),
+                               v[..., :48].contiguous())
+    with pytest.raises(ValueError, match="H % KV"):
+        fa_ops.flash_attention(q[:, :, :3].contiguous(), k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_ops.flash_attention(q.transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa_ops.flash_attention_cuda(q, k.cpu(), v)

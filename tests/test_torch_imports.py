@@ -27,20 +27,33 @@ def _port_modules() -> list:
 
 
 def test_importing_the_port_leaves_jax_and_repro_out():
+    """Importing every module of the port imports no JAX, no ``repro``
+    and no Triton, and builds or loads no kernel library."""
     code = (
         "import importlib, json, sys\n"
         f"mods = {_port_modules()!r}\n"
+        "from repro_torch.kernels import build\n"
+        "d = build.build_dir()\n"
+        "def ls():\n"
+        "    return sorted(p.name for p in d.iterdir()) if d.exists() else []\n"
+        "before = ls()\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(n for n in sys.modules\n"
-        "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
-        "print(json.dumps({'n': len(mods), 'bad': bad}))\n")
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'repro', 'triton'))\n"
+        "print(json.dumps({'mods': mods, 'bad': bad,\n"
+        "                  'libs': sorted(build._LIBS),\n"
+        "                  'built': sorted(set(ls()) - set(before))}))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120, check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res["n"] >= 30
+    assert len(res["mods"]) >= 30
+    assert {"repro_torch.kernels.stream_stats.ops",
+            "repro_torch.kernels.flash_attention.ops",
+            "repro_torch.kernels.flash_attention.ref"} <= set(res["mods"])
     assert res["bad"] == []
+    assert res["libs"] == [] and res["built"] == []
 
 
 @pytest.mark.parametrize("path", sorted(
