@@ -19,10 +19,12 @@ Phases, one JSON line each; any failed check exits non-zero:
      window shapes of ``benchmarks/kernel_bench.py``, f32 and bf16) and
      ``flash_attention`` (attention heads of yi-9b, gemma3-12b's local
      layers and whisper-large-v3's cross-attention, and yi-9b heads at the
-     32k prefill length), launch counts asserted, every output held
-     against the plain version on the card;
-  8. those two kernels timed beside their bounds, their plain versions and
-     ``scaled_dot_product_attention`` as the library yardstick;
+     32k prefill length), launch counts asserted (the bf16 cases through
+     the tensor-core kernel, f32 through the CUDA-core one), every output
+     held against the plain version on the card;
+  8. those kernels timed beside their bounds, their plain versions and
+     ``scaled_dot_product_attention`` as the library yardstick, with the
+     tensor-core kernel's registers and spills and its HGMMA count;
   9. the kernels line, then ``{"ok": true, "device": {...}}`` last.
 
 Detailed profiles go to ``chiprun_out/``.
@@ -31,6 +33,8 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -60,7 +64,11 @@ KERNELS = {
     "stream_stats": (
         "src/repro_torch/kernels/csrc/stream_stats.cu",
         "src/repro/kernels/stream_stats/kernel.py:122"),
+    # bf16 on the tensor cores, f32 on the CUDA cores
     "flash_attention": (
+        "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+        "src/repro/kernels/flash_attention/kernel.py:107"),
+    "flash_attention_f32": (
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/kernel.py:107"),
 }
@@ -85,14 +93,19 @@ ATTENTION = {
     # scores do not fit, so only its last rows are checked
     "yi_9b_prefill_32k": (32768, 32768, 32, 4, 128, True, 0, "bfloat16"),
 }
-ATTENTION_TIMED = "a_yi_9b_causal"
+# the case each flash_attention row of the kernels line carries
+ATTENTION_TIMED = {"flash_attention": "a_yi_9b_causal",
+                   "flash_attention_f32": "d_yi_9b_causal_f32"}
 LONG_CASE, LONG_ROWS = "yi_9b_prefill_32k", 256
-# f32: max |err| <= atol.  bf16: kernel and plain version compute in f32
-# and each rounds once to bf16, so they differ by at most one bf16 step
-# (2**-7 |want|) per element: every |err| <= atol + rtol |want|, and the
-# RMS of the error <= rms x the RMS of the plain output (a kernel off by a
-# uniform 1.5% fails the RMS test; one returning half the value or zeros
-# fails both)
+# f32: max |err| <= atol.  bf16: the plain version computes in f32 and
+# rounds once to bf16; the tensor-core kernel reads the same bf16 inputs,
+# forms the scores exactly in f32 and carries P to ~16 bits as two bf16
+# halves, so it too is the f32 result rounded once, up to summation order:
+# the two differ by at most one bf16 step (2**-7 |want|) per element.  So
+# every |err| <= atol + rtol |want|, and the RMS of the error <= rms x the
+# RMS of the plain output (a kernel off by a uniform 1.5% fails the RMS
+# test; one returning half the value or zeros fails both; P rounded once
+# to bf16 fails the first by 3-16x, tests/test_torch_flash_attention.py)
 ATTENTION_TOL = {"float32": {"atol": 1e-5},
                  "bfloat16": {"rtol": 1e-2, "atol": 1e-4, "rms": 2e-3}}
 
@@ -141,10 +154,14 @@ def live_pairs(S: int, T: int, causal: bool, window: int) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def device_ms(fn, torch, reps: int, match: str) -> float:
+def device_ms(fn, torch, reps: int, match: str,
+              launches_per_call: int | None = None) -> float:
     """Device time per call of the kernels whose names contain ``match``,
     from torch.profiler over ``reps`` calls (the CUDA-event time of a small
-    kernel also counts its wrapper's host work)."""
+    kernel also counts its wrapper's host work).  With
+    ``launches_per_call`` the time is divided by the calls the profile
+    recorded, not by ``reps``: a profile of a few long kernels may hold
+    fewer records than launches."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -152,14 +169,21 @@ def device_ms(fn, torch, reps: int, match: str) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
+    total, records = 0.0, 0
     for e in prof.key_averages():
         if match in e.key:
             total += getattr(e, "self_device_time_total",
                              getattr(e, "self_cuda_time_total", 0))
+            records += e.count
     if total == 0.0:
         raise AssertionError(f"the profile shows no device time for {match}")
-    return total / 1e3 / reps
+    calls = reps
+    if launches_per_call is not None:
+        calls = records / launches_per_call
+        if calls != reps:
+            emit({"phase": "profile_records", "match": match, "calls": reps,
+                  "kernel_records": records})
+    return total / 1e3 / calls
 
 
 def main_scenario(k: int, window: int, n_regions: int, sites: int,
@@ -432,6 +456,7 @@ def slice2_path(torch, dev, results) -> dict:
     # ---- 7. the path, counted --------------------------------------------
     ss_ops.WINDOW_LAUNCHES = 0
     fa_ops.LAUNCHES = 0
+    fa_ops.SM90_LAUNCHES = 0
     t0 = time.perf_counter()
     stats = [window_moments_xxt(x) for x in xs]
     outs = {name: flash_attention(*qkv[name], causal=ATTENTION[name][5],
@@ -439,14 +464,18 @@ def slice2_path(torch, dev, results) -> dict:
             for name in ATTENTION}
     torch.cuda.synchronize()
     launches = {"stream_stats": ss_ops.WINDOW_LAUNCHES,
-                "flash_attention": fa_ops.LAUNCHES}
+                "flash_attention": fa_ops.SM90_LAUNCHES,
+                "flash_attention_f32": fa_ops.LAUNCHES - fa_ops.SM90_LAUNCHES}
     emit({"phase": "slice2_path", "seconds": time.perf_counter() - t0,
           "windows": [list(w) for w in WINDOWS],
           "attention": {n: list(c) for n, c in ATTENTION.items()},
-          "launches": launches})
-    if launches != {"stream_stats": len(WINDOWS),
-                    "flash_attention": len(ATTENTION)}:
-        raise AssertionError(f"kernel launches on slice 2's path: {launches}")
+          "launches": launches, "flash_attention_all": fa_ops.LAUNCHES})
+    n_bf16 = sum(c[7] == "bfloat16" for c in ATTENTION.values())
+    if launches != {"stream_stats": len(WINDOWS), "flash_attention": n_bf16,
+                    "flash_attention_f32": len(ATTENTION) - n_bf16}:
+        raise AssertionError(f"kernel launches on slice 2's path: {launches};"
+                             f" every bf16 case must take the tensor-core "
+                             f"kernel, every f32 case the CUDA-core one")
 
     ss_err = 0.0
     for (k, n, dt), x, got in zip(WINDOWS, xs, stats):
@@ -464,7 +493,7 @@ def slice2_path(torch, dev, results) -> dict:
                                  f"version at {(k, n, dt)}: max |err| {err}")
         ss_err = max(ss_err, err)
 
-    fa_err = 0.0
+    fa_err = {"bfloat16": 0.0, "float32": 0.0}
     for name, (S, T, H, KV, hd, causal, window, dt) in ATTENTION.items():
         q, k, v = qkv[name]
         got = outs[name]
@@ -491,7 +520,7 @@ def slice2_path(torch, dev, results) -> dict:
             raise AssertionError(f"flash_attention disagrees with its plain "
                                  f"version on {name}: max |err| {err}, "
                                  f"err/tol {scaled}, RMS ratio {rms}")
-        fa_err = max(fa_err, err)
+        fa_err[dt] = max(fa_err[dt], err)
         del want, d, w
     del outs, stats
 
@@ -516,12 +545,17 @@ def slice2_path(torch, dev, results) -> dict:
                 "max_abs_err": ss_err, "ms": ms, "plain_ms": plain,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
+    sm90 = sm90_build_facts()
+    emit({"phase": "kernel_build", "kernel": "flash_attention", **sm90})
     for name, (S, T, H, KV, hd, causal, window, dt) in ATTENTION.items():
         q, k, v = qkv[name]
         long = name == LONG_CASE
         reps, warm = (3, 1) if long else (20, 5)
         ms = time_cuda(lambda: fa_ops.flash_attention_cuda(
             q, k, v, causal=causal, window=window), torch, reps, warm)
+        dev_ms = device_ms(lambda: fa_ops.flash_attention_cuda(
+            q, k, v, causal=causal, window=window), torch, reps, "flash_fwd",
+            launches_per_call=1)
         plain = None if long else time_cuda(lambda: flash_attention_ref(
             q, k, v, causal=causal, window=window), torch, 10, 2)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -547,16 +581,59 @@ def slice2_path(torch, dev, results) -> dict:
                               if dt == "bfloat16" else PEAK_F32_FLOPS)
         emit({"phase": "kernel_time", "kernel": "flash_attention",
               "case": name, "shape": [1, S, T, H, KV, hd], "dtype": dt,
-              "kernel_ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-              "bound_by": b_by, "bytes": nbytes, "flops": flops,
-              "tflops": flops / ms / 1e9, "library_ms": lib,
+              "kernel_ms": ms, "kernel_device_ms": dev_ms, "plain_ms": plain,
+              "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+              "flops": flops, "tflops": flops / ms / 1e9, "library_ms": lib,
               "library": "scaled_dot_product_attention",
-              "library_max_abs_diff": lib_diff})
-        if name == ATTENTION_TIMED:
-            results["flash_attention"] = {
-                "max_abs_err": fa_err, "ms": ms, "plain_ms": plain,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+              "library_max_abs_diff": lib_diff,
+              "kernel_source": KERNELS["flash_attention" if dt == "bfloat16"
+                                       else "flash_attention_f32"][0],
+              **({"ptxas": sm90["ptxas"].get(hd)} if dt == "bfloat16"
+                 else {})})
+        for row, case in ATTENTION_TIMED.items():
+            if name == case:
+                results[row] = {
+                    "max_abs_err": fa_err[dt], "ms": ms, "plain_ms": plain,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
     return launches
+
+
+def sm90_build_facts() -> dict:
+    """The tensor-core flash kernel as built: registers and spills of each
+    head-dim instantiation from ``nvcc -Xptxas -v``, and the HGMMA (wgmma)
+    instructions in its library where the toolkit has ``cuobjdump``
+    (there must be some)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
+    lib = build.lib_path("flash_attention_sm90")
+    ptxas, hd = {}, None
+    for ln in lib.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"flash_fwd_sm90ILi(\d+)E", ln)
+        if m and "Compiling entry function" in ln:
+            hd = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and hd is not None:
+            ptxas.setdefault(hd, {}).update(spill_stores=int(m.group(1)),
+                                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and hd is not None:
+            ptxas.setdefault(hd, {})["registers"] = int(m.group(1))
+    if any(len(ptxas.get(d, {})) != 3 for d in HEAD_DIMS):
+        raise AssertionError(f"ptxas -v of the tensor-core flash kernel lacks "
+                             f"head dims: {ptxas}")
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    hgmma = None
+    if os.path.exists(cuobjdump):
+        sass = subprocess.run([cuobjdump, "-sass", str(lib)],
+                              capture_output=True, text=True, timeout=120)
+        hgmma = sum("HGMMA" in ln for ln in sass.stdout.splitlines())
+        if hgmma == 0:
+            raise AssertionError("the tensor-core flash kernel's library has "
+                                 "no HGMMA instruction")
+    return {"source": KERNELS["flash_attention"][0], "ptxas": ptxas,
+            "hgmma_instructions": hgmma, "cuobjdump": cuobjdump
+            if hgmma is not None else None}
 
 
 def profile_main_path(ex, windows, torch, n_prof: int = 3) -> None:

@@ -11,7 +11,9 @@ polyfit         — Vandermonde power sums Σuᵐ, Σy·uᵐ for the compact-mod
                   ``polyfit_pallas``).
 flash_attention — online-softmax attention forward, causal/sliding-window,
                   GQA (``flash_attention``, replaces
-                  ``flash_attention_pallas``).
+                  ``flash_attention_pallas``): bf16 on the tensor cores
+                  (``csrc/flash_attention_sm90.cu``), f32 on the CUDA
+                  cores (``csrc/flash_attention.cu``).
 
 Sources live in ``csrc/`` and are built with ``nvcc`` at first use
 (:mod:`repro_torch.kernels.build`); nothing is built at import time.

@@ -31,6 +31,7 @@ SOURCES = {
     "polyfit_moments": "polyfit.cu",
     "stream_stats": "stream_stats.cu",
     "flash_attention": "flash_attention.cu",
+    "flash_attention_sm90": "flash_attention_sm90.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

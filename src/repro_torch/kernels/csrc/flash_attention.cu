@@ -18,9 +18,11 @@
 // What bounds it: 4 hd flops per unmasked (query, key) pair against one
 // read of q, k, v and one write of o, so at prefill lengths the kernel is
 // bound by arithmetic (yi-9b heads, S = T = 32768, causal: 8.8 TFLOP
-// against 0.6 GB).  This first version does its arithmetic in f32 on the
-// CUDA cores, not on the tensor cores (wgmma), so it runs far above its
-// bf16 bound; it is right first and fast in a later version.
+// against 0.6 GB).  This kernel does its arithmetic in f32 on the CUDA
+// cores, which keeps f32 calls within 1e-5 of the plain version (no TF32);
+// the wrapper (kernels/flash_attention/ops.py) sends it f32 calls only.
+// bf16 calls go to csrc/flash_attention_sm90.cu, on the tensor cores
+// (wgmma, TMA); the bf16 branch here is no longer launched.
 //
 // Design.  The TPU kernel's grid (B, H, S/128, T/128) keeps the running
 // max, denominator and accumulator in VMEM across its sequential kv axis.

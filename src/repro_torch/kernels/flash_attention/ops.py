@@ -1,10 +1,13 @@
-"""Flash attention: the CUDA kernel's wrapper and its dispatch.
+"""Flash attention: the CUDA kernels' wrapper and its dispatch.
 
 Port of ``repro.kernels.flash_attention.ops``.  A CPU tensor takes the
-plain version (:mod:`.ref`); a CUDA tensor launches the hand-written
-kernel (``csrc/flash_attention.cu``) unless the caller passes
-``use_kernel=False``.  A failed build or launch raises.  The kernel masks
-ragged S and T itself, so nothing is padded or sliced here.
+plain version (:mod:`.ref`); a CUDA tensor launches a hand-written kernel
+unless the caller passes ``use_kernel=False``: bf16 goes to the
+tensor-core kernel (``csrc/flash_attention_sm90.cu``: wgmma, TMA), f32 to
+the CUDA-core kernel (``csrc/flash_attention.cu``).  A failed build or
+launch raises, and so does a call the kernel of its type cannot take.
+The kernels mask ragged S and T themselves, so nothing is padded or
+sliced here.
 """
 from __future__ import annotations
 
@@ -15,21 +18,26 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-# launches of the CUDA kernel, counted where the wrapper launches it
+# launches of either CUDA kernel, counted where the wrapper launches it
 LAUNCHES = 0
+# launches of the tensor-core (bf16) kernel alone
+SM90_LAUNCHES = 0
 
-HEAD_DIMS = (16, 32, 64, 128, 240)   # the kernel's instantiations
+HEAD_DIMS = (16, 32, 64, 128, 240)   # both kernels' instantiations
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, *[ctypes.c_int] * 9, ctypes.c_void_p]
+_SM90_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                  ctypes.c_void_p, *[ctypes.c_int] * 8, ctypes.c_void_p]
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0):
-    """Launch the kernel on contiguous CUDA tensors q (B,S,H,hd) and k, v
+    """Launch a kernel on contiguous CUDA tensors q (B,S,H,hd) and k, v
     (B,T,KV,hd) of one type, f32 or bf16, with H % KV == 0 and hd in
-    ``HEAD_DIMS``.  Returns o (B,S,H,hd) in q's type."""
-    global LAUNCHES
+    ``HEAD_DIMS``; bf16 also needs T >= 1 and 16-byte aligned data (its
+    TMA loads).  Returns o (B,S,H,hd) in q's type."""
+    global LAUNCHES, SM90_LAUNCHES
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"flash_attention needs CUDA tensors, {name} is "
@@ -58,14 +66,25 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty_like(q)
     if b == 0 or s == 0 or h == 0:
         return o
-    fn = build.load("flash_attention", _ARGTYPES)
+    sm90 = q.dtype == torch.bfloat16
+    if sm90:
+        if t == 0:
+            raise ValueError("flash_attention in bfloat16 needs T >= 1 keys")
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            if x.data_ptr() % 16:
+                raise ValueError(f"flash_attention in bfloat16 needs 16-byte "
+                                 f"aligned tensors (TMA), {name} is not")
+    lib = "flash_attention_sm90" if sm90 else "flash_attention"
+    fn = build.load(lib, _SM90_ARGTYPES if sm90 else _ARGTYPES)
+    shape = (b, s, t, h, kv, hd, int(causal), int(window))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                build.DTYPE_CODES[q.dtype], b, s, t, h, kv, hd, int(causal),
-                int(window), stream)
-    build.check("flash_attention", rc)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+        rc = (fn(*ptrs, *shape, stream) if sm90 else
+              fn(*ptrs, build.DTYPE_CODES[q.dtype], *shape, stream))
+    build.check(lib, rc)
     LAUNCHES += 1
+    SM90_LAUNCHES += int(sm90)
     return o
 
 

@@ -20,9 +20,11 @@ from repro_torch.kernels.stream_stats.ref import (fleet_stats_ref,
 # f32 from the same bf16-rounded values
 SS_RTOL, SS_ATOL = 2e-5, 1e-2
 # flash attention against the plain version on the card.  f32: max |err|.
-# bf16: both compute in f32 and round once, so every element is within
-# one bf16 step (2**-7 |want|), and the RMS of the error stays a small
-# share of the output's (a uniform 1.5% error fails)
+# bf16: the tensor-core kernel forms the scores exactly in f32 and carries
+# P as two bf16 halves, so like the plain version it is the f32 result
+# rounded once, up to summation order: every element is within one bf16
+# step (2**-7 |want|), and the RMS of the error stays a small share of the
+# output's (a uniform 1.5% error fails)
 FA_ATOL_F32 = 1e-5
 FA_RTOL_BF16, FA_ATOL_BF16, FA_RMS_BF16 = 1e-2, 1e-4, 2e-3
 
@@ -122,6 +124,15 @@ def _qkv(case, dtype, device):
     return q, k, v
 
 
+def _assert_bf16_close(out, want):
+    out, want = out.float(), want.float()
+    torch.testing.assert_close(out, want, rtol=FA_RTOL_BF16,
+                               atol=FA_ATOL_BF16)
+    rms = ((out - want).square().mean().sqrt()
+           / want.square().mean().sqrt()).item()
+    assert rms <= FA_RMS_BF16, rms
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
@@ -140,12 +151,7 @@ def test_cuda_flash_attention_matches_plain(cuda, case, dtype):
         err = (out - want).abs().max().item()
         assert err <= FA_ATOL_F32, err
         return
-    out, want = out.float(), want.float()
-    torch.testing.assert_close(out, want, rtol=FA_RTOL_BF16,
-                               atol=FA_ATOL_BF16)
-    rms = ((out - want).square().mean().sqrt()
-           / want.square().mean().sqrt()).item()
-    assert rms <= FA_RMS_BF16, rms
+    _assert_bf16_close(out, want)
 
 
 @pytest.mark.cuda
@@ -154,6 +160,68 @@ def test_cuda_flash_attention_two_launches_bitwise_equal(cuda):
     a = fa_ops.flash_attention_cuda(q, k, v, causal=True, window=64)
     b = fa_ops.flash_attention_cuda(q, k, v, causal=True, window=64)
     assert torch.equal(a, b)
+
+
+# the tensor-core (bf16) kernel: (B, S, T, H, KV, causal, window) per mask
+# mode, S and T off the 64-row tiles.  "window": rows whose first visited
+# key block is wholly masked (its exp(0) terms are erased by the first
+# live key's correction factor)
+TC_MODES = {
+    "causal_gqa4_b2": (2, 333, 333, 8, 2, True, 0),
+    "window_gqa8": (1, 333, 333, 8, 1, True, 40),
+    "cross_gqa1_b2": (2, 200, 333, 4, 4, False, 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(TC_MODES))
+@pytest.mark.parametrize("hd", fa_ops.HEAD_DIMS)
+def test_cuda_flash_attention_tensor_cores_match_plain(cuda, hd, mode):
+    b, s, t, h, kv, causal, window = TC_MODES[mode]
+    q, k, v = _qkv((b, s, t, h, kv, hd), torch.bfloat16, cuda)
+    before, before_tc = fa_ops.LAUNCHES, fa_ops.SM90_LAUNCHES
+    out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert (fa_ops.LAUNCHES, fa_ops.SM90_LAUNCHES) == (before + 1,
+                                                       before_tc + 1)
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert torch.isfinite(out).all()
+    _assert_bf16_close(out, flash_attention_ref(q, k, v, causal=causal,
+                                                window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", fa_ops.HEAD_DIMS)
+def test_cuda_flash_attention_tensor_cores_two_launches_bitwise_equal(cuda,
+                                                                      hd):
+    q, k, v = _qkv((2, 333, 333, 8, 2, hd), torch.bfloat16, cuda)
+    a = fa_ops.flash_attention_cuda(q, k, v, causal=True, window=100)
+    b = fa_ops.flash_attention_cuda(q, k, v, causal=True, window=100)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_routes_by_dtype(cuda):
+    """bf16 calls raise the tensor-core kernel's count, f32 calls only the
+    total."""
+    for dtype, tc in ((torch.bfloat16, 1), (torch.float32, 0)):
+        q, k, v = _qkv(FLASH_CASES[0], dtype, cuda)
+        before, before_tc = fa_ops.LAUNCHES, fa_ops.SM90_LAUNCHES
+        fa_ops.flash_attention(q, k, v, causal=True, window=32)
+        torch.cuda.synchronize()
+        assert fa_ops.LAUNCHES == before + 1
+        assert fa_ops.SM90_LAUNCHES == before_tc + tc
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_tensor_cores_refuse_what_they_do_not_take(cuda):
+    q, k, v = _qkv((1, 64, 64, 2, 2, 64), torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="T >= 1"):
+        fa_ops.flash_attention(q, k[:, :0], v[:, :0])
+    flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = flat[1:].view(q.shape)      # contiguous, 2 bytes off
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa_ops.flash_attention(shifted, k, v)
 
 
 @pytest.mark.cuda

@@ -3,9 +3,12 @@
 On the CPU ``flash_attention`` takes its plain version; it is held against
 the reference's jnp oracle on the reference's own shape cases, and on two
 of them against the reference's Pallas kernel in interpret mode.  The CUDA
-kernel is held against the plain version on the card by
-``test_torch_cuda.py``.
+kernels are held against the plain version on the card by
+``test_torch_cuda.py``.  Here, the bf16 tensor-core kernel's rounding is
+emulated in plain torch and held to the card's bf16 limits.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -105,3 +108,89 @@ def test_flash_kernel_entry_refuses_cpu_tensors():
     q, k, v = (torch.as_tensor(a) for a in _inputs(16, 16, 2, 2, 16))
     with pytest.raises(ValueError, match="CUDA"):
         fa_ops.flash_attention_cuda(q, k, v)
+
+
+# The bf16 tensor-core kernel (csrc/flash_attention_sm90.cu), emulated:
+# bf16 inputs, exact products summed in f32, the online softmax over key
+# tiles of 64 in log2 units, P rounded to bf16 for the tensor cores, the
+# output rounded once to bf16.  The card's bf16 limits, as in chip_smoke.py
+# and test_torch_cuda.py: every |err| <= 1e-4 + 1e-2 |want| and RMS(err)
+# <= 2e-3 RMS(want), against the plain version on the same bf16 inputs.
+BF16_RTOL, BF16_ATOL, BF16_RMS = 1e-2, 1e-4, 2e-3
+# (B, S, T, H, KV, hd, causal, window): every head dim, causal, windowed
+# and cross-attention, ragged tiles, GQA 1, 2, 4 and 8
+EMULATED = [
+    (1, 512, 512, 2, 2, 16, False, 0),
+    (2, 333, 333, 4, 1, 32, True, 0),
+    (1, 256, 256, 8, 1, 64, True, 0),
+    (1, 384, 384, 4, 1, 128, True, 100),
+    (1, 200, 333, 2, 2, 240, False, 0),
+]
+
+
+def _emulate_tensor_cores(q, k, v, *, causal, window, split, bk=64):
+    """The kernel's arithmetic on bf16 q (B,S,H,hd), k, v (B,T,KV,hd):
+    ``split`` feeds P to the products as P_hi = bf16(P) and P_lo =
+    bf16(P - P_hi), both into one f32 accumulator, as the kernel does;
+    otherwise P is rounded once to bf16."""
+    b, s, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    qf = q.float().transpose(1, 2)
+    kf = torch.repeat_interleave(k.float(), h // kv, 2).transpose(1, 2)
+    vf = torch.repeat_interleave(v.float(), h // kv, 2).transpose(1, 2)
+    scale = math.log2(math.e) / math.sqrt(hd)
+    m = torch.full((b, h, s, 1), -1e30)
+    l = torch.zeros((b, h, s, 1))
+    acc = torch.zeros((b, h, s, hd))
+    qp = torch.arange(s)[:, None]
+    for k0 in range(0, t, bk):
+        kp = torch.arange(k0, min(t, k0 + bk))[None, :]
+        live = torch.ones(s, kp.shape[1], dtype=torch.bool)
+        if causal:
+            live &= kp <= qp
+        if window > 0:
+            live &= qp - kp < window
+        sc = qf @ kf[:, :, k0:k0 + bk].transpose(-1, -2) * scale
+        sc = torch.where(live, sc, torch.tensor(-1e30))
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(sc - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        p_hi = p.bfloat16().float()
+        pv = p_hi @ vf[:, :, k0:k0 + bk]
+        if split:
+            pv = pv + (p - p_hi).bfloat16().float() @ vf[:, :, k0:k0 + bk]
+        acc = acc * corr + pv
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).transpose(1, 2).bfloat16()
+
+
+def _bf16_scores(case, split):
+    """(max |err| / (atol + rtol |want|), RMS(err) / RMS(want)) of the
+    emulation against the plain version."""
+    b, s, t, h, kv, hd, causal, window = case
+    rng = np.random.default_rng(s + t + hd)
+    q, k, v = (torch.as_tensor(rng.standard_normal(shape, dtype=np.float32))
+               .bfloat16() for shape in ((b, s, h, hd), (b, t, kv, hd),
+                                         (b, t, kv, hd)))
+    got = _emulate_tensor_cores(q, k, v, causal=causal, window=window,
+                                split=split).float()
+    want = plain_flash(q, k, v, causal=causal, window=window).float()
+    d, w = (got - want).abs(), want.abs()
+    return (float((d / (BF16_ATOL + BF16_RTOL * w)).max()),
+            float(d.square().mean().sqrt() / w.square().mean().sqrt()))
+
+
+@pytest.mark.parametrize("case", EMULATED, ids=lambda c: "x".join(map(str, c)))
+def test_split_p_emulation_meets_the_bf16_limits(case):
+    """P as two bf16 halves: within the card's limits (err/tol ~0.6-0.7)."""
+    scaled, rms = _bf16_scores(case, split=True)
+    assert scaled <= 1.0 and rms <= BF16_RMS, (scaled, rms)
+
+
+@pytest.mark.parametrize("case", EMULATED, ids=lambda c: "x".join(map(str, c)))
+def test_single_bf16_p_emulation_exceeds_the_bf16_limits(case):
+    """P rounded once to bf16, as FlashAttention-2/3 do, fails the
+    per-element limit several times over: the reason the kernel splits P."""
+    scaled, _ = _bf16_scores(case, split=False)
+    assert scaled > 2.0, scaled
