@@ -7,7 +7,9 @@ Phases, one JSON line each; any failed check exits non-zero:
   1. the card (name and power limit from nvidia-smi), torch and CUDA versions;
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
   3. each kernel against its plain PyTorch version on the card at the main
-     path's shape and at ragged shapes, and timed beside its bound;
+     path's shape and at ragged shapes, and timed beside its bound (event
+     and profiler device time); the fleet path's two kernels also at a
+     fleet larger than L2 (``LARGE``);
   4. the main path: ``Experiment.from_scenario(...).run`` on the card for a
      fleet of E = 1024 sites (4 regions x 256), k = 8 streams, windows of
      N = 256 tuples, 4 generated windows cycled to T = 200, through both
@@ -19,9 +21,10 @@ Phases, one JSON line each; any failed check exits non-zero:
      window shapes of ``benchmarks/kernel_bench.py``, f32 and bf16) and
      ``flash_attention`` (attention heads of yi-9b, gemma3-12b's local
      layers and whisper-large-v3's cross-attention, and yi-9b heads at the
-     32k prefill length), launch counts asserted (the bf16 cases through
-     the tensor-core kernel, f32 through the CUDA-core one), every output
-     held against the plain version on the card;
+     32k prefill length, and small shapes whose last rows have no live
+     key), launch counts asserted (the bf16 cases through the tensor-core
+     kernel, f32 through the CUDA-core one), every output held against the
+     plain version on the card;
   8. those kernels timed beside their bounds, their plain versions and
      ``scaled_dot_product_attention`` as the library yardstick, with the
      tensor-core kernel's registers and spills and its HGMMA count;
@@ -52,6 +55,9 @@ PEAK_BF16_FLOPS = 989e12
 MAIN = {"n_regions": 4, "sites_per_region": 256, "k": 8, "window": 256,
         "pool": 4, "T": 200, "T_plain": 20}
 GOLDEN_REF_WAN_BYTES = 11080   # live JAX reference, fleet_scan, CPU
+# a fleet of the main path's kind whose data (134 MB for stream_stats_fleet,
+# 268 MB for polyfit) does not fit in the 50 MB L2: (E, k, N)
+LARGE = (4096, 8, 1024)
 
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
@@ -92,6 +98,14 @@ ATTENTION = {
     # configs/__init__.py prefill_32k; the plain version's (B, H, S, T)
     # scores do not fit, so only its last rows are checked
     "yi_9b_prefill_32k": (32768, 32768, 32, 4, 128, True, 0, "bfloat16"),
+}
+# rows with no live key (S >= T + window): the plain version gives them
+# the mean of v over all T keys; checked, not timed
+NO_LIVE_KEY = {
+    "nokey_causal": (200, 64, 2, 2, 32, True, 16, "bfloat16"),
+    "nokey_cross": (200, 64, 2, 2, 32, False, 16, "bfloat16"),
+    "nokey_causal_f32": (200, 64, 2, 2, 32, True, 16, "float32"),
+    "nokey_cross_f32": (200, 64, 2, 2, 32, False, 16, "float32"),
 }
 # the case each flash_attention row of the kernels line carries
 ATTENTION_TIMED = {"flash_attention": "a_yi_9b_causal",
@@ -154,36 +168,78 @@ def live_pairs(S: int, T: int, causal: bool, window: int) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def device_ms(fn, torch, reps: int, match: str,
-              launches_per_call: int | None = None) -> float:
+def device_ms(fn, torch, reps: int, match: str, launches_per_call: int,
+              attempts: int = 3, pad: int = 16) -> float:
     """Device time per call of the kernels whose names contain ``match``,
     from torch.profiler over ``reps`` calls (the CUDA-event time of a small
-    kernel also counts its wrapper's host work).  With
-    ``launches_per_call`` the time is divided by the calls the profile
-    recorded, not by ``reps``: a profile of a few long kernels may hold
-    fewer records than launches."""
+    kernel also counts its wrapper's host work), each call launching
+    ``launches_per_call`` of them.  After a long profile with CPU activity
+    (``profile_main_path``) later profiles drop a few kernel records, so
+    the calls sit between ``pad`` launches of a small fill kernel on each
+    side, the time is divided by the calls the profile recorded, not by
+    ``reps``, and a profile without a record is taken again, up to
+    ``attempts`` times."""
     from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    fill = torch.zeros(1, device="cuda")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total, records = 0.0, 0
-    for e in prof.key_averages():
-        if match in e.key:
-            total += getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0))
-            records += e.count
-    if total == 0.0:
-        raise AssertionError(f"the profile shows no device time for {match}")
-    calls = reps
-    if launches_per_call is not None:
-        calls = records / launches_per_call
-        if calls != reps:
-            emit({"phase": "profile_records", "match": match, "calls": reps,
-                  "kernel_records": records})
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(pad):
+                fill.add_(1.0)
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            for _ in range(pad):
+                fill.add_(1.0)
+            torch.cuda.synchronize()
+        total, records = 0.0, 0
+        for e in prof.key_averages():
+            if match in e.key:
+                total += getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0))
+                records += e.count
+        if total > 0.0:
+            break
+    else:
+        raise AssertionError(f"{attempts} profiles show no device time for "
+                             f"{match}")
+    # the fill kernels the profile kept before the first and after the last
+    # matched record, in device order: a dropped record shows as fewer
+    on_dev = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    hits = [i for i, e in enumerate(on_dev) if match in e.name]
+    before, after = hits[0], len(on_dev) - 1 - hits[-1]
+    calls = records / launches_per_call
+    if calls != reps or attempt > 1 or min(before, after) < pad:
+        emit({"phase": "profile_records", "match": match, "calls": reps,
+              "kernel_records": records, "attempt": attempt,
+              "fill_records_before": before, "fill_records_after": after,
+              "fill_launches_each_side": pad})
     return total / 1e3 / calls
+
+
+def fleet_kernel_time(torch, kernel, label, shape, fn, plain, match, nbytes,
+                      flops, reps, note) -> dict:
+    """Time one of the fleet path's kernels (CUDA events and the profiler's
+    device time) beside its plain version and its bound; print the
+    ``kernel_time`` line and return the kernels line's numbers."""
+    ms = time_cuda(fn, torch, reps)
+    dev_ms = device_ms(fn, torch, reps, match, launches_per_call=1)
+    plain_ms = time_cuda(plain, torch, reps)
+    b_ms, b_by = bound_ms(nbytes, flops)
+    emit({"phase": "kernel_time", "kernel": kernel, "case": label,
+          "shape": shape, "kernel_ms": ms, "kernel_device_ms": dev_ms,
+          "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+          "device_over_bound": dev_ms / b_ms, "bytes": nbytes,
+          "flops": flops, "launches_per_window":
+              2 if kernel == "stream_stats_fleet" else 1,
+          "library_ms": None, "library_note": note})
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 def main_scenario(k: int, window: int, n_regions: int, sites: int,
@@ -279,10 +335,14 @@ def main() -> int:
         return err
 
     # stream_stats_fleet: power sums bitwise, the Gram block within the
-    # tolerances of tests/test_kernel_stream_stats.py
+    # tolerances of tests/test_kernel_stream_stats.py.  The large fleet's
+    # inputs are seeded torch.randn on the card.
+    gen_l = torch.Generator(device=dev).manual_seed(16)
+    El, kl, Nl = LARGE
+    xl = torch.randn(El, kl, Nl, device=dev, generator=gen_l) * 1.5 + 2.0
     ss_cases = [("values", w0), ("ranks", ranks),
                 ("ragged", randn(3, 5, 200, scale=1.5, shift=2.0)),
-                ("ragged", randn(2, 9, 130, scale=3.0))]
+                ("ragged", randn(2, 9, 130, scale=3.0)), ("large", xl)]
     ss_err = 0.0
     for label, x in ss_cases:
         got = ss_ops.stream_stats_fleet_cuda(x)
@@ -291,22 +351,19 @@ def main() -> int:
                     [label, *x.shape], (True, False), 2e-5, 1e-2)
         if label in ("values", "ranks"):
             ss_err = max(ss_err, err)
-    x = w0
-    ms = time_cuda(lambda: ss_ops.stream_stats_fleet_cuda(x), torch, reps)
-    plain = time_cuda(lambda: fleet_stats_ref(x), torch, reps)
-    nbytes = x.numel() * 4 + E * k * (4 + k) * 4
-    flops = E * (2 * k * k * N + 7 * k * N)
-    b_ms, b_by = bound_ms(nbytes, flops)
-    results["stream_stats_fleet"] = {"max_abs_err": ss_err, "ms": ms,
-                                     "plain_ms": plain, "bound_ms": b_ms,
-                                     "bound_by": b_by, "library_ms": None}
-    emit({"phase": "kernel_time", "kernel": "stream_stats_fleet",
-          "shape": list(x.shape), "kernel_ms": ms, "plain_ms": plain,
-          "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-          "flops": flops, "launches_per_window": 2,
-          "library_ms": None,
-          "library_note": "no single PyTorch call computes it: torch.bmm "
-                          "gives only the Gram part"})
+    for label, x in (("main", w0), ("large", xl)):
+        e_, k_, n_ = x.shape
+        nbytes = x.numel() * 4 + e_ * k_ * (4 + k_) * 4
+        flops = e_ * (2 * k_ * k_ * n_ + 7 * k_ * n_)
+        row = fleet_kernel_time(
+            torch, "stream_stats_fleet", label, list(x.shape),
+            lambda: ss_ops.stream_stats_fleet_cuda(x),
+            lambda: fleet_stats_ref(x), "stream_stats_fleet_kernel",
+            nbytes, flops, reps,
+            note="no single PyTorch call computes it: torch.bmm gives only "
+                 "the Gram part")
+        if label == "main":
+            results["stream_stats_fleet"] = {"max_abs_err": ss_err, **row}
 
     # polyfit: bitwise (same products, same order); the main-path rows
     # are (y*w, u*w) with u a standardized neighbouring stream
@@ -314,9 +371,12 @@ def main() -> int:
     xp = torch.roll(w0, 1, dims=1).reshape(E * k, N)
     u = ((xp - xp.mean(-1, keepdim=True))
          / xp.std(-1, keepdim=True)).contiguous()
+    yl = torch.randn(El * kl, Nl, device=dev, generator=gen_l) * 2.0
+    ul = torch.randn(El * kl, Nl, device=dev, generator=gen_l)
     pf_cases = [("fleet", y, u),
                 ("ragged", randn(15, 200, scale=2.0), randn(15, 200)),
-                ("ragged", randn(18, 130, scale=2.0), randn(18, 130))]
+                ("ragged", randn(18, 130, scale=2.0), randn(18, 130)),
+                ("large", yl, ul)]
     pf_err = 0.0
     for label, yy, uu in pf_cases:
         got = poly_ops.polyfit_cuda(yy, uu)
@@ -327,20 +387,18 @@ def main() -> int:
                     0.0, 0.0)
         if label == "fleet":
             pf_err = err
-    ms = time_cuda(lambda: poly_ops.polyfit_cuda(y, u), torch, reps)
-    plain = time_cuda(lambda: polyfit_ref(y, u), torch, reps)
-    nbytes = 2 * y.numel() * 4 + y.shape[0] * 11 * 4
-    flops = y.numel() * 18
-    b_ms, b_by = bound_ms(nbytes, flops)
-    results["polyfit"] = {"max_abs_err": pf_err, "ms": ms, "plain_ms": plain,
-                          "bound_ms": b_ms, "bound_by": b_by,
-                          "library_ms": None}
-    emit({"phase": "kernel_time", "kernel": "polyfit",
-          "shape": list(y.shape), "kernel_ms": ms, "plain_ms": plain,
-          "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-          "flops": flops, "launches_per_window": 1, "library_ms": None,
-          "library_note": "no single PyTorch call computes the 11 power "
-                          "sums"})
+    for label, yy, uu in (("main", y, u), ("large", yl, ul)):
+        nbytes = 2 * yy.numel() * 4 + yy.shape[0] * 11 * 4
+        row = fleet_kernel_time(
+            torch, "polyfit", label, list(yy.shape),
+            lambda: poly_ops.polyfit_cuda(yy, uu),
+            lambda: polyfit_ref(yy, uu), "polyfit_kernel", nbytes,
+            yy.numel() * 18, reps,
+            note="no single PyTorch call computes the 11 power sums")
+        if label == "main":
+            results["polyfit"] = {"max_abs_err": pf_err, **row}
+    # free the large fleet before the main path's peak memory is read
+    del ss_cases, pf_cases, xl, yl, ul, x, yy, uu, got, want
 
     # ---- 4. the main path ------------------------------------------------
     from repro_torch.api.experiment import Experiment
@@ -448,7 +506,8 @@ def slice2_path(torch, dev, results) -> dict:
     xs = [torch.randn(k, n, device=dev, generator=gen).to(getattr(torch, dt))
           for k, n, dt in WINDOWS]
     qkv = {}
-    for name, (S, T, H, KV, hd, _, _, dt) in ATTENTION.items():
+    cases = {**ATTENTION, **NO_LIVE_KEY}
+    for name, (S, T, H, KV, hd, _, _, dt) in cases.items():
         qkv[name] = [torch.randn(1, L, heads, hd, device=dev, generator=gen)
                      .to(getattr(torch, dt))
                      for L, heads in ((S, H), (T, KV), (T, KV))]
@@ -459,20 +518,20 @@ def slice2_path(torch, dev, results) -> dict:
     fa_ops.SM90_LAUNCHES = 0
     t0 = time.perf_counter()
     stats = [window_moments_xxt(x) for x in xs]
-    outs = {name: flash_attention(*qkv[name], causal=ATTENTION[name][5],
-                                  window=ATTENTION[name][6])
-            for name in ATTENTION}
+    outs = {name: flash_attention(*qkv[name], causal=cases[name][5],
+                                  window=cases[name][6])
+            for name in cases}
     torch.cuda.synchronize()
     launches = {"stream_stats": ss_ops.WINDOW_LAUNCHES,
                 "flash_attention": fa_ops.SM90_LAUNCHES,
                 "flash_attention_f32": fa_ops.LAUNCHES - fa_ops.SM90_LAUNCHES}
     emit({"phase": "slice2_path", "seconds": time.perf_counter() - t0,
           "windows": [list(w) for w in WINDOWS],
-          "attention": {n: list(c) for n, c in ATTENTION.items()},
+          "attention": {n: list(c) for n, c in cases.items()},
           "launches": launches, "flash_attention_all": fa_ops.LAUNCHES})
-    n_bf16 = sum(c[7] == "bfloat16" for c in ATTENTION.values())
+    n_bf16 = sum(c[7] == "bfloat16" for c in cases.values())
     if launches != {"stream_stats": len(WINDOWS), "flash_attention": n_bf16,
-                    "flash_attention_f32": len(ATTENTION) - n_bf16}:
+                    "flash_attention_f32": len(cases) - n_bf16}:
         raise AssertionError(f"kernel launches on slice 2's path: {launches};"
                              f" every bf16 case must take the tensor-core "
                              f"kernel, every f32 case the CUDA-core one")
@@ -494,7 +553,7 @@ def slice2_path(torch, dev, results) -> dict:
         ss_err = max(ss_err, err)
 
     fa_err = {"bfloat16": 0.0, "float32": 0.0}
-    for name, (S, T, H, KV, hd, causal, window, dt) in ATTENTION.items():
+    for name, (S, T, H, KV, hd, causal, window, dt) in cases.items():
         q, k, v = qkv[name]
         got = outs[name]
         rows = LONG_ROWS if name == LONG_CASE else S
@@ -513,7 +572,9 @@ def slice2_path(torch, dev, results) -> dict:
         emit({"phase": "kernel_check", "kernel": "flash_attention",
               "case": name, "shape": [1, S, T, H, KV, hd],
               "causal": causal, "window": window, "dtype": dt,
-              "rows_checked": [S - rows, S], "max_abs_err": err,
+              "rows_checked": [S - rows, S], "rows_without_keys":
+                  max(0, S - T - window + 1) if window > 0 else 0,
+              "max_abs_err": err,
               "max_abs_want": float(w.max()), "err_over_tol": scaled,
               "rms_err_over_rms_want": rms, **tol, "ok": ok})
         if not ok:
@@ -527,8 +588,9 @@ def slice2_path(torch, dev, results) -> dict:
     # ---- 8. times beside bounds ------------------------------------------
     for i, ((k, n, dt), x) in enumerate(zip(WINDOWS, xs)):
         ms = time_cuda(lambda: ss_ops.stream_stats_cuda(x), torch, 50)
+        # two kernels per call: stream_stats_partial, stream_stats_finish
         dev_ms = device_ms(lambda: ss_ops.stream_stats_cuda(x), torch, 20,
-                           "stream_stats_")
+                           "stream_stats_", launches_per_call=2)
         plain = time_cuda(lambda: stream_stats_ref(x), torch, 50)
         nbytes = x.numel() * x.element_size() + (4 * k + k * k) * 4
         flops = k * (k + 1) * n + 7 * k * n   # the upper triangle suffices
@@ -542,8 +604,9 @@ def slice2_path(torch, dev, results) -> dict:
               "library_note": "none: x @ x.T gives only the Gram part"})
         if i == WINDOW_TIMED:
             results["stream_stats"] = {
-                "max_abs_err": ss_err, "ms": ms, "plain_ms": plain,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+                "max_abs_err": ss_err, "ms": ms, "device_ms": dev_ms,
+                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None}
 
     sm90 = sm90_build_facts()
     emit({"phase": "kernel_build", "kernel": "flash_attention", **sm90})
@@ -593,8 +656,9 @@ def slice2_path(torch, dev, results) -> dict:
         for row, case in ATTENTION_TIMED.items():
             if name == case:
                 results[row] = {
-                    "max_abs_err": fa_err[dt], "ms": ms, "plain_ms": plain,
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+                    "max_abs_err": fa_err[dt], "ms": ms, "device_ms": dev_ms,
+                    "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": lib}
     return launches
 
 

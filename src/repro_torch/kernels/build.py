@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library, loaded with
 ``ctypes``.  Libraries are built at first use into
 ``build/repro_torch_kernels/`` at the repository root (``.gitignore``
-lists ``build/``), keyed on a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is.
+lists ``build/``), keyed on a hash of the source, the shared headers and
+the flags, so an edited source is rebuilt and an unchanged one is loaded
+as it is.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 
 Nothing here runs at import time: the CPU tests import every module on a
@@ -58,7 +59,10 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> pathlib.Path:
+    """The library of ``name``, keyed on its source, the shared headers
+    (``csrc/*.cuh``) and the flags."""
     src = (CSRC / SOURCES[name]).read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return build_dir() / f"{name}-{digest[:16]}.so"
 

@@ -15,6 +15,14 @@
 // exp(-1e30 - m) = 0 then wipes it, exactly as in the TPU kernel.  The
 // denominator is clamped at 1e-30.
 //
+// Rows with no live key (window > 0 and i >= T + window - 1: the window
+// starts past the last key) get what the plain version gives them, a
+// softmax over T scores of -1e30 each: the mean of v over all T keys of
+// their kv head.  attn_v_mean computes that mean in f32, once per (b, kv
+// head), and the epilogue writes it to those rows, rounded once to o's
+// type; the wrapper launches it, for either kernel, only when the shape
+// has such rows (S >= T + window).  Rows with live keys are not touched.
+//
 // What bounds it: 4 hd flops per unmasked (query, key) pair against one
 // read of q, k, v and one write of o, so at prefill lengths the kernel is
 // bound by arithmetic (yi-9b heads, S = T = 32768, causal: 8.8 TFLOP
@@ -22,7 +30,7 @@
 // cores, which keeps f32 calls within 1e-5 of the plain version (no TF32);
 // the wrapper (kernels/flash_attention/ops.py) sends it f32 calls only.
 // bf16 calls go to csrc/flash_attention_sm90.cu, on the tensor cores
-// (wgmma, TMA); the bf16 branch here is no longer launched.
+// (wgmma, TMA); of the bf16 code here only attn_v_mean is launched.
 //
 // Design.  The TPU kernel's grid (B, H, S/128, T/128) keeps the running
 // max, denominator and accumulator in VMEM across its sequential kv axis.
@@ -59,6 +67,15 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
+// the live keys of query row i, [max(0, i - window + 1), min(T - 1, i)]
+// (causal) or [.., T - 1], are none
+__device__ __forceinline__ bool no_live_key(int i, int T, int causal,
+                                            int window) {
+  const int lo = window > 0 ? max(0, i - window + 1) : 0;
+  const int hi = causal ? min(T - 1, i) : T - 1;
+  return lo > hi;
+}
+
 template <int HD>
 struct Smem {
   static constexpr int kQ = HD * kLD;                       // (hd, BQ) q^T
@@ -67,12 +84,45 @@ struct Smem {
   static constexpr size_t kBytes = sizeof(float) * (kQ + kKV + kP);
 };
 
+// out[b, kvh, d] = mean over t < T of v[b, t, kvh, d], in f32: warp w sums
+// keys w, w + 8, ..., then the eight partial sums are added in warp order
+template <typename E, int HD>
+__global__ void __launch_bounds__(kThreads)
+attn_v_mean(const E* __restrict__ v, float* __restrict__ out, int T, int KV) {
+  constexpr int kCols = (HD + 31) / 32;
+  constexpr int kW = kThreads / 32;
+  __shared__ float red[kW][kCols * 32];
+  const int kvh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const size_t kv_row = static_cast<size_t>(KV) * HD;
+  const E* vb = v + static_cast<size_t>(b) * T * kv_row + static_cast<size_t>(kvh) * HD;
+  float acc[kCols];
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) acc[c] = 0.f;
+  for (int t = warp; t < T; t += kW)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c)
+      if (c * 32 + lane < HD) acc[c] += to_f32(vb[t * kv_row + c * 32 + lane]);
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) red[warp][c * 32 + lane] = acc[c];
+  __syncthreads();
+  for (int d = threadIdx.x; d < HD; d += kThreads) {
+    float sum = red[0][d];
+#pragma unroll
+    for (int w = 1; w < kW; ++w) sum += red[w][d];
+    out[(static_cast<size_t>(b) * KV + kvh) * HD + d] = sum / static_cast<float>(T);
+  }
+}
+
 // NB = hd / 16 accumulator columns per thread
 template <typename E, int NB>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(const E* __restrict__ q, const E* __restrict__ k,
-          const E* __restrict__ v, E* __restrict__ o, int S, int T, int H,
-          int KV, int causal, int window, float scale) {
+          const E* __restrict__ v, E* __restrict__ o,
+          const float* __restrict__ vmean, int S, int T, int H, int KV,
+          int causal, int window, float scale) {
   constexpr int HD = NB * 16;
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);
@@ -203,6 +253,13 @@ flash_fwd(const E* __restrict__ q, const E* __restrict__ k,
   for (int a = 0; a < 4; ++a) {
     const int qp = q0 + ty * 4 + a;
     if (qp >= S) continue;
+    if (vmean != nullptr && no_live_key(qp, T, causal, window)) {
+      const float* vm = vmean + (static_cast<size_t>(b) * KV + kvh) * HD;
+#pragma unroll
+      for (int c = 0; c < NB; ++c)
+        store(ob + qp * q_row + tx + 16 * c, vm[tx + 16 * c]);
+      continue;
+    }
     const float denom = fmaxf(l[a], 1e-30f);
 #pragma unroll
     for (int c = 0; c < NB; ++c)
@@ -212,8 +269,8 @@ flash_fwd(const E* __restrict__ q, const E* __restrict__ k,
 
 template <typename E, int NB>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int T, int H, int KV, int causal, int window,
-                   cudaStream_t stream) {
+                   const float* vmean, int B, int S, int T, int H, int KV,
+                   int causal, int window, cudaStream_t stream) {
   constexpr int HD = NB * 16;
   const size_t smem = Smem<HD>::kBytes;
   if (smem > 48 * 1024) {
@@ -225,21 +282,42 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   flash_fwd<E, NB><<<grid, kThreads, smem, stream>>>(
       static_cast<const E*>(q), static_cast<const E*>(k),
-      static_cast<const E*>(v), static_cast<E*>(o), S, T, H, KV, causal,
-      window, 1.0f / sqrtf(static_cast<float>(HD)));
+      static_cast<const E*>(v), static_cast<E*>(o), vmean, S, T, H, KV,
+      causal, window, 1.0f / sqrtf(static_cast<float>(HD)));
   return cudaGetLastError();
 }
 
 template <typename E>
 cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
-                     void* o, int B, int S, int T, int H, int KV, int causal,
-                     int window, cudaStream_t s) {
+                     void* o, const float* vm, int B, int S, int T, int H,
+                     int KV, int causal, int window, cudaStream_t s) {
   switch (hd) {
-    case 16: return launch<E, 1>(q, k, v, o, B, S, T, H, KV, causal, window, s);
-    case 32: return launch<E, 2>(q, k, v, o, B, S, T, H, KV, causal, window, s);
-    case 64: return launch<E, 4>(q, k, v, o, B, S, T, H, KV, causal, window, s);
-    case 128: return launch<E, 8>(q, k, v, o, B, S, T, H, KV, causal, window, s);
-    case 240: return launch<E, 15>(q, k, v, o, B, S, T, H, KV, causal, window, s);
+    case 16: return launch<E, 1>(q, k, v, o, vm, B, S, T, H, KV, causal, window, s);
+    case 32: return launch<E, 2>(q, k, v, o, vm, B, S, T, H, KV, causal, window, s);
+    case 64: return launch<E, 4>(q, k, v, o, vm, B, S, T, H, KV, causal, window, s);
+    case 128: return launch<E, 8>(q, k, v, o, vm, B, S, T, H, KV, causal, window, s);
+    case 240: return launch<E, 15>(q, k, v, o, vm, B, S, T, H, KV, causal, window, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename E, int HD>
+cudaError_t launch_v_mean(const void* v, float* out, int B, int T, int KV,
+                          cudaStream_t s) {
+  attn_v_mean<E, HD><<<dim3(KV, B), kThreads, 0, s>>>(static_cast<const E*>(v),
+                                                      out, T, KV);
+  return cudaGetLastError();
+}
+
+template <typename E>
+cudaError_t dispatch_v_mean(int hd, const void* v, float* out, int B, int T,
+                            int KV, cudaStream_t s) {
+  switch (hd) {
+    case 16: return launch_v_mean<E, 16>(v, out, B, T, KV, s);
+    case 32: return launch_v_mean<E, 32>(v, out, B, T, KV, s);
+    case 64: return launch_v_mean<E, 64>(v, out, B, T, KV, s);
+    case 128: return launch_v_mean<E, 128>(v, out, B, T, KV, s);
+    case 240: return launch_v_mean<E, 240>(v, out, B, T, KV, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -247,19 +325,35 @@ cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike).  hd in
-// {16, 32, 64, 128, 240}.
+// {16, 32, 64, 128, 240}.  vmean: null, or flash_attention_v_mean's
+// (B, KV, hd) means, written to the rows with no live key.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* o, int dtype, int B, int S, int T, int H,
-                               int KV, int hd, int causal, int window,
-                               void* stream) {
+                               void* o, const float* vmean, int dtype, int B,
+                               int S, int T, int H, int KV, int hd,
+                               int causal, int window, void* stream) {
   if (B <= 0 || S <= 0 || T < 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
       (dtype != 0 && dtype != 1) || H > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = dtype == 0
-      ? dispatch<float>(hd, q, k, v, o, B, S, T, H, KV, causal, window, s)
-      : dispatch<__nv_bfloat16>(hd, q, k, v, o, B, S, T, H, KV, causal,
-                                window, s);
+      ? dispatch<float>(hd, q, k, v, o, vmean, B, S, T, H, KV, causal,
+                        window, s)
+      : dispatch<__nv_bfloat16>(hd, q, k, v, o, vmean, B, S, T, H, KV,
+                                causal, window, s);
+  return static_cast<int>(err);
+}
+
+// out (B, KV, hd), f32: the mean over the T keys of v (B, T, KV, hd) for
+// each (b, kv head); dtype as above, T >= 1
+extern "C" int flash_attention_v_mean(const void* v, int dtype, float* out,
+                                      int B, int T, int KV, int hd,
+                                      void* stream) {
+  if (B <= 0 || T <= 0 || KV <= 0 || B > 65535 || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = dtype == 0
+      ? dispatch_v_mean<float>(hd, v, out, B, T, KV, s)
+      : dispatch_v_mean<__nv_bfloat16>(hd, v, out, B, T, KV, s);
   return static_cast<int>(err);
 }
 

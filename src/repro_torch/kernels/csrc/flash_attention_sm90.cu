@@ -13,7 +13,11 @@
 // running max starts there, so a key block whose every score is masked
 // adds exp(0) = 1 per key until the first live key, whose correction
 // factor exp(-1e30 - m) = 0 then wipes it, as in the TPU kernel.  The
-// denominator is clamped at 1e-30; o is rounded once to bf16.
+// denominator is clamped at 1e-30; o is rounded once to bf16.  Rows with
+// no live key (window > 0, i >= T + window - 1) get the plain version's
+// answer, the mean of v over all T keys of their kv head: the wrapper
+// computes it in f32 (csrc/flash_attention.cu::attn_v_mean) when the shape
+// has such rows, and the epilogue writes it, rounded once to bf16.
 //
 // What bounds it: 4 hd flops per unmasked (query, key) pair against one
 // read of q, k, v and one write of o; at prefill lengths that is bf16
@@ -247,7 +251,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
                const __grid_constant__ CUtensorMap kmap,
                const __grid_constant__ CUtensorMap vmap,
-               __nv_bfloat16* __restrict__ o, int S, int T, int H, int KV,
+               __nv_bfloat16* __restrict__ o,
+               const float* __restrict__ vmean, int S, int T, int H, int KV,
                int causal, int window, float scale_log2) {
   using C = Cfg<HD>;
   constexpr int NC = C::kChunks;
@@ -406,12 +411,19 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
   }
 
   float denom[2];
+  bool dead[2];   // rows with no live key: [max(0, i - window + 1), hi] empty
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     denom[r] = fmaxf(l[r], 1e-30f);
+    const int row = r0 + 8 * r;
+    const int lo = window > 0 ? max(0, row - window + 1) : 0;
+    const int hi = causal ? min(T - 1, row) : T - 1;
+    dead[r] = vmean != nullptr && lo > hi;
   }
+  const float* vm = vmean == nullptr ? nullptr
+      : vmean + (static_cast<size_t>(b) * KV + kvh) * HD;
   const size_t row_stride = static_cast<size_t>(H) * HD;
   __nv_bfloat16* ob = o + static_cast<size_t>(b) * S * row_stride +
                       static_cast<size_t>(h) * HD;
@@ -426,8 +438,10 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
         const int row = r0 + 8 * r;
         if (row >= S) continue;
         *reinterpret_cast<__nv_bfloat162*>(ob + row * row_stride + col) =
-            __floats2bfloat162_rn(acc[c][4 * j + 2 * r] / denom[r],
-                                  acc[c][4 * j + 2 * r + 1] / denom[r]);
+            dead[r] ? __floats2bfloat162_rn(vm[col], vm[col + 1])
+                    : __floats2bfloat162_rn(acc[c][4 * j + 2 * r] / denom[r],
+                                            acc[c][4 * j + 2 * r + 1] /
+                                                denom[r]);
       }
     }
 }
@@ -481,9 +495,9 @@ CUresult make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B,
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int T, int H, int KV, int causal, int window,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o,
+           const float* vmean, int B, int S, int T, int H, int KV, int causal,
+           int window, cudaStream_t stream) {
   EncodeTiled enc;
   cudaError_t err = encode_fn(&enc);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -498,30 +512,31 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(H, (S + kBQ - 1) / kBQ, B);
   flash_fwd_sm90<HD><<<grid, kThreads, smem, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), S, T, H, KV, causal, window,
-      kLog2e / sqrtf(static_cast<float>(HD)));
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), vmean, S, T, H, KV, causal,
+      window, kLog2e / sqrtf(static_cast<float>(HD)));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // bf16 q, k, v and o; hd in {16, 32, 64, 128, 240}; T >= 1; every pointer
-// 16-byte aligned.  Returns 0, a cudaError_t, or 100000 + the CUresult of
-// a failed cuTensorMapEncodeTiled.
+// 16-byte aligned.  vmean: null, or the (B, KV, hd) f32 means of v written
+// to the rows with no live key.  Returns 0, a cudaError_t, or 100000 + the
+// CUresult of a failed cuTensorMapEncodeTiled.
 extern "C" int flash_attention_sm90(const void* q, const void* k,
-                                    const void* v, void* o, int B, int S,
-                                    int T, int H, int KV, int hd, int causal,
-                                    int window, void* stream) {
+                                    const void* v, void* o, const float* vmean,
+                                    int B, int S, int T, int H, int KV, int hd,
+                                    int causal, int window, void* stream) {
   if (B <= 0 || S <= 0 || T <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
       B > 65535 || (S + kBQ - 1) / kBQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return launch<16>(q, k, v, o, B, S, T, H, KV, causal, window, s);
-    case 32: return launch<32>(q, k, v, o, B, S, T, H, KV, causal, window, s);
-    case 64: return launch<64>(q, k, v, o, B, S, T, H, KV, causal, window, s);
-    case 128: return launch<128>(q, k, v, o, B, S, T, H, KV, causal, window, s);
-    case 240: return launch<240>(q, k, v, o, B, S, T, H, KV, causal, window, s);
+    case 16: return launch<16>(q, k, v, o, vmean, B, S, T, H, KV, causal, window, s);
+    case 32: return launch<32>(q, k, v, o, vmean, B, S, T, H, KV, causal, window, s);
+    case 64: return launch<64>(q, k, v, o, vmean, B, S, T, H, KV, causal, window, s);
+    case 128: return launch<128>(q, k, v, o, vmean, B, S, T, H, KV, causal, window, s);
+    case 240: return launch<240>(q, k, v, o, vmean, B, S, T, H, KV, causal, window, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

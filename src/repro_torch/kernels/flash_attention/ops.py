@@ -7,11 +7,16 @@ tensor-core kernel (``csrc/flash_attention_sm90.cu``: wgmma, TMA), f32 to
 the CUDA-core kernel (``csrc/flash_attention.cu``).  A failed build or
 launch raises, and so does a call the kernel of its type cannot take.
 The kernels mask ragged S and T themselves, so nothing is padded or
-sliced here.
+sliced here.  Query rows with no live key (``window`` > 0 and
+S >= T + window) get the plain version's answer, the mean of v over all T
+keys: where the shape has such rows, the wrapper first launches a small
+reduction (``attn_v_mean`` in ``csrc/flash_attention.cu``) whose f32 means
+both kernels write to those rows.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -25,10 +30,27 @@ SM90_LAUNCHES = 0
 
 HEAD_DIMS = (16, 32, 64, 128, 240)   # both kernels' instantiations
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, *[ctypes.c_int] * 9, ctypes.c_void_p]
-_SM90_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                  ctypes.c_void_p, *[ctypes.c_int] * 8, ctypes.c_void_p]
+# q, k, v, o, v's means (or None), then the ints and the stream
+_ARGTYPES = [*[ctypes.c_void_p] * 5, *[ctypes.c_int] * 9, ctypes.c_void_p]
+_SM90_ARGTYPES = [*[ctypes.c_void_p] * 5, *[ctypes.c_int] * 8,
+                  ctypes.c_void_p]
+
+
+@functools.cache
+def _v_mean_fn():
+    """``flash_attention_v_mean`` of the f32 kernel's library, bound once."""
+    fn = build.library("flash_attention").flash_attention_v_mean
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   *[ctypes.c_int] * 4, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def has_rows_without_keys(s: int, t: int, window: int) -> bool:
+    """Whether some query row of (S, T, window) has no live key: rows
+    i >= T + window - 1, whose window starts past the last key (causal or
+    not)."""
+    return window > 0 and t >= 1 and s >= t + window
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -79,7 +101,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     shape = (b, s, t, h, kv, hd, int(causal), int(window))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+        vmean = None
+        if has_rows_without_keys(s, t, window):
+            vmean = torch.empty((b, kv, hd), dtype=torch.float32,
+                                device=q.device)
+            rc = _v_mean_fn()(v.data_ptr(), build.DTYPE_CODES[v.dtype],
+                              vmean.data_ptr(), b, t, kv, hd, stream)
+            build.check("flash_attention", rc)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                None if vmean is None else vmean.data_ptr())
         rc = (fn(*ptrs, *shape, stream) if sm90 else
               fn(*ptrs, build.DTYPE_CODES[q.dtype], *shape, stream))
     build.check(lib, rc)

@@ -28,8 +28,11 @@ SS_RTOL, SS_ATOL = 2e-5, 1e-2
 FA_ATOL_F32 = 1e-5
 FA_RTOL_BF16, FA_ATOL_BF16, FA_RMS_BF16 = 1e-2, 1e-4, 2e-3
 
+# the main path's shape, a fleet larger than L2, k = 64 (the site cut into
+# chunks of windows), and ragged k and N
 FLEET_SHAPES = [(1024, 8, 256), (3, 5, 200), (6, 4, 64), (2, 8, 512),
-                (4, 9, 130), (2, 3, 20), (2, 16, 1500)]
+                (4, 9, 130), (2, 3, 20), (2, 16, 1500), (4096, 8, 1024),
+                (1, 64, 4096), (3, 8, 33)]
 
 
 @pytest.fixture
@@ -58,7 +61,8 @@ def test_cuda_stream_stats_matches_plain(cuda, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,n", [(8192, 256), (15, 200), (18, 130),
-                                    (3, 20), (2, 1500)])
+                                    (3, 20), (2, 1500), (32768, 1024),
+                                    (5, 33)])
 def test_cuda_polyfit_matches_plain(cuda, rows, n):
     g = torch.Generator().manual_seed(rows + n)
     y = (torch.randn(rows, n, generator=g) * 2.0).to(cuda)
@@ -112,6 +116,8 @@ FLASH_CASES = [
     (2, 64, 64, 2, 1, 16, True, 0),          # one block
     (1, 300, 300, 8, 1, 128, True, 0),       # causal, GQA 8:1
     (1, 96, 160, 2, 2, 32, False, 40),       # window without causal
+    (1, 200, 64, 2, 2, 32, True, 16),        # rows 79.. have no live key
+    (1, 200, 64, 2, 2, 32, False, 16),       # the same, not causal
 ]
 
 

@@ -104,6 +104,27 @@ def test_plain_version_on_a_slice_of_rows():
         torch.testing.assert_close(tail, full[:, -r:], rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "cross"])
+def test_plain_matches_reference_oracle_on_rows_without_keys(causal):
+    """S >= T + window: query rows i >= T + window - 1 have no live key.
+    The reference's oracle gives them a softmax over T scores of -1e30,
+    the mean of v over all T keys, and so must the port (both CUDA kernels
+    write that mean; test_torch_cuda.py holds them to it on the card)."""
+    s, t, h, kv, hd, window = 200, 64, 2, 2, 32, 16
+    arrays = _inputs(s, t, h, kv, hd, b=1)
+    want = np.asarray(flash_attention_ref(*(jnp.asarray(a) for a in arrays),
+                                          causal=causal, window=window))
+    got = _port(arrays, "float32", causal=causal, window=window)
+    np.testing.assert_allclose(got, want, atol=ATOL["float32"])
+    dead = t + window - 1
+    assert fa_ops.has_rows_without_keys(s, t, window)
+    assert not fa_ops.has_rows_without_keys(dead, t, window)
+    mean_v = arrays[2].astype(np.float64).mean(axis=1)       # (B, KV, hd)
+    np.testing.assert_allclose(got[:, dead:], np.broadcast_to(
+        mean_v[:, None], got[:, dead:].shape), atol=ATOL["float32"])
+    assert not np.allclose(got[:, dead - 1], mean_v, atol=1e-3)
+
+
 def test_flash_kernel_entry_refuses_cpu_tensors():
     q, k, v = (torch.as_tensor(a) for a in _inputs(16, 16, 2, 2, 16))
     with pytest.raises(ValueError, match="CUDA"):

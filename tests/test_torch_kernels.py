@@ -124,3 +124,104 @@ def test_reference_kernel_order_differs_from_its_oracle_off_32(n, same):
     assert np.array_equal(np.asarray(mom_k), np.asarray(mom_o)) == same
     mom, _ = fleet_stats_ref(torch.as_tensor(x))
     np.testing.assert_array_equal(mom.numpy(), np.asarray(mom_o))
+
+
+# The fleet path's CUDA kernels (csrc/window_tiles.cuh, stream_stats_fleet.cu,
+# polyfit.cu), emulated in plain torch: the copy of a tile of windows into
+# the window-major layout of pitch 36 (windows starting lo zeros before
+# column 0), the left-to-right sum of each staged window, and the second
+# level of blocked_sum streamed across chunks of nwc windows.  Positions the
+# copy never writes hold NaN, so a read of one shows in the result.  Held
+# bitwise against the plain versions, this catches an index error before
+# the kernels reach the card.
+WIN, PITCH = 32, 36
+
+
+def _windows(n):
+    nwin = -(-n // WIN)
+    nw2 = -(-nwin // WIN)
+    lo2 = (nw2 * WIN - nwin) // 2 if nwin > WIN else 0
+    return nwin, (nwin * WIN - n) // 2, lo2
+
+
+def _stage(x, w0, nw, nwc, lo):
+    """load_tile: windows w0 .. w0 + nw - 1 of the rows of x, one quad of
+    four columns per copy."""
+    rows, n = x.shape
+    flat = torch.full((rows * nwc * PITCH,), float("nan"))
+    q = np.arange(rows * nw * (WIN // 4))
+    jq, t = q & 7, q >> 3
+    r, w = t // nw, t % nw
+    for i in range(4):
+        c = (w0 + w) * WIN + 4 * jq - lo + i
+        ok = (c >= 0) & (c < n)
+        vals = torch.zeros(len(q))
+        vals[torch.as_tensor(ok)] = x[r[ok], c[ok]]
+        flat[(r * nwc + w) * PITCH + 4 * jq + i] = vals
+    return flat
+
+
+def _emulated_sums(xs, terms, nwc):
+    """Per-row sums of each of ``terms(*staged values)``, the kernels' way:
+    rows of every array in ``xs`` (R, N), chunks of ``nwc`` windows (the
+    whole row if None)."""
+    rows, n = xs[0].shape
+    nwin, lo, lo2 = _windows(n)
+    nwc = nwin if nwc is None else nwc
+    cur = tot = None
+    for w0 in range(0, nwin, nwc):
+        nw = min(nwc, nwin - w0)
+        tiles = [_stage(x, w0, nw, nwc, lo) for x in xs]
+        base = torch.as_tensor((np.arange(rows)[:, None] * nwc
+                                + np.arange(nw)[None, :]) * PITCH)
+        sums = None
+        for j in range(WIN):
+            vals = torch.stack(terms(*(t[base + j] for t in tiles)))
+            sums = vals if sums is None else sums + vals   # (M, R, nw)
+        if cur is None:
+            cur = tot = torch.zeros(sums.shape[:2])
+        big = 0 if w0 == 0 else (w0 - 1 + lo2) >> 5
+        for w in range(nw):
+            b = (w0 + w + lo2) >> 5
+            if b != big:
+                tot, cur, big = tot + cur, torch.zeros_like(cur), b
+            cur = cur + sums[:, :, w]
+    return (tot + cur).T                                      # (R, M)
+
+
+def _fleet_terms(v):
+    v2 = v * v
+    return [v, v2, v2 * v, v2 * v2]
+
+
+def _polyfit_terms(y, u):
+    u2 = u * u
+    u3, u4 = u * u2, u2 * u2
+    return [u, u2, u3, u4, u * u4, u2 * u4, y, y * u, y * u2, y * u3]
+
+
+# chunk widths: the whole row, stream_stats_fleet's at k = 8 and N = 1500
+# (a chunk ends inside the second window of window sums), and 4 (k = 64)
+EMULATED_NWC = [None, 35, 4]
+
+
+@pytest.mark.parametrize("nwc", EMULATED_NWC, ids=lambda c: f"nwc{c}")
+@pytest.mark.parametrize("n", [20, 130, 200, 256, 1500])
+def test_fleet_kernel_staging_emulation_is_bitwise_the_plain_version(n, nwc):
+    rng = np.random.default_rng(n)
+    x = torch.as_tensor(rng.normal(50.0, 10.0, (2, 3, n)).astype(np.float32))
+    got = _emulated_sums([x.reshape(6, n)], _fleet_terms, nwc)
+    mom, _ = fleet_stats_ref(x)
+    assert torch.equal(got, mom.reshape(6, 4))
+
+
+@pytest.mark.parametrize("nwc", EMULATED_NWC, ids=lambda c: f"nwc{c}")
+@pytest.mark.parametrize("n", [20, 130, 200, 256, 1500])
+def test_polyfit_kernel_staging_emulation_is_bitwise_the_plain_version(n,
+                                                                       nwc):
+    rng = np.random.default_rng(n + 1)
+    y = torch.as_tensor(rng.normal(0.0, 2.0, (5, n)).astype(np.float32))
+    u = torch.as_tensor(rng.normal(0.0, 1.0, (5, n)).astype(np.float32))
+    got = _emulated_sums([y, u], _polyfit_terms, nwc)
+    pu, py = polyfit_ref(y, u)
+    assert torch.equal(got, torch.cat([pu[:, 1:], py], dim=1))
