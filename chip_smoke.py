@@ -20,14 +20,16 @@ Phases, one JSON line each; any failed check exits non-zero:
   7. slice 2's path: the kernel entry points ``window_moments_xxt`` (the
      window shapes of ``benchmarks/kernel_bench.py``, f32 and bf16) and
      ``flash_attention`` (attention heads of yi-9b, gemma3-12b's local
-     layers and whisper-large-v3's cross-attention, and yi-9b heads at the
-     32k prefill length, and small shapes whose last rows have no live
-     key), launch counts asserted (the bf16 cases through the tensor-core
-     kernel, f32 through the CUDA-core one), every output held against the
-     plain version on the card;
+     layers and whisper-large-v3's cross-attention in bf16 and in f32,
+     yi-9b heads at the 32k prefill length, and small shapes whose last
+     rows have no live key), launch counts asserted (the bf16 cases
+     through the tensor-core kernel, f32 through the CUDA-core one), every
+     output held against the plain version on the card;
   8. those kernels timed beside their bounds, their plain versions and
-     ``scaled_dot_product_attention`` as the library yardstick, with the
-     tensor-core kernel's registers and spills and its HGMMA count;
+     ``scaled_dot_product_attention`` as the library yardstick, with each
+     flash kernel's registers and spills per head dim and its SASS counts
+     (HGMMA in the tensor-core kernel; FFMA and no tensor-core instruction
+     in the CUDA-core one);
   9. the kernels line, then ``{"ok": true, "device": {...}}`` last.
 
 Detailed profiles go to ``chiprun_out/``.
@@ -95,6 +97,9 @@ ATTENTION = {
     "b_gemma3_12b_local": (4096, 4096, 16, 8, 240, True, 1024, "bfloat16"),
     "c_whisper_cross": (448, 1500, 20, 20, 64, False, 0, "bfloat16"),
     "d_yi_9b_causal_f32": (4096, 4096, 32, 4, 128, True, 0, "float32"),
+    "e_gemma3_12b_local_f32": (4096, 4096, 16, 8, 240, True, 1024,
+                               "float32"),
+    "f_whisper_cross_f32": (448, 1500, 20, 20, 64, False, 0, "float32"),
     # configs/__init__.py prefill_32k; the plain version's (B, H, S, T)
     # scores do not fit, so only its last rows are checked
     "yi_9b_prefill_32k": (32768, 32768, 32, 4, 128, True, 0, "bfloat16"),
@@ -608,8 +613,10 @@ def slice2_path(torch, dev, results) -> dict:
                 "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None}
 
-    sm90 = sm90_build_facts()
+    sm90 = flash_build_facts("flash_attention")
     emit({"phase": "kernel_build", "kernel": "flash_attention", **sm90})
+    f32 = flash_build_facts("flash_attention_f32")
+    emit({"phase": "kernel_build", "kernel": "flash_attention_f32", **f32})
     for name, (S, T, H, KV, hd, causal, window, dt) in ATTENTION.items():
         q, k, v = qkv[name]
         long = name == LONG_CASE
@@ -651,8 +658,7 @@ def slice2_path(torch, dev, results) -> dict:
               "library_max_abs_diff": lib_diff,
               "kernel_source": KERNELS["flash_attention" if dt == "bfloat16"
                                        else "flash_attention_f32"][0],
-              **({"ptxas": sm90["ptxas"].get(hd)} if dt == "bfloat16"
-                 else {})})
+              "ptxas": (sm90 if dt == "bfloat16" else f32)["ptxas"].get(hd)})
         for row, case in ATTENTION_TIMED.items():
             if name == case:
                 results[row] = {
@@ -662,19 +668,32 @@ def slice2_path(torch, dev, results) -> dict:
     return launches
 
 
-def sm90_build_facts() -> dict:
-    """The tensor-core flash kernel as built: registers and spills of each
-    head-dim instantiation from ``nvcc -Xptxas -v``, and the HGMMA (wgmma)
-    instructions in its library where the toolkit has ``cuobjdump``
-    (there must be some)."""
+# kernels line name -> (library, the kernel's name as ptxas mangles it
+# with its head dim, SASS opcodes it must have, opcodes it must not have)
+FLASH_BUILDS = {
+    "flash_attention": ("flash_attention_sm90", "flash_fwd_sm90", ("HGMMA",),
+                        ()),
+    # f32 on the CUDA cores: FFMA, and no tensor-core product (no TF32)
+    "flash_attention_f32": ("flash_attention", "flash_fwd", ("FFMA",),
+                            ("HMMA", "HGMMA")),
+}
+
+
+def flash_build_facts(kernel: str) -> dict:
+    """A flash kernel as built: registers and spills of each head-dim
+    instantiation from ``nvcc -Xptxas -v``, and, where the toolkit has
+    ``cuobjdump``, the count of each SASS opcode of ``FLASH_BUILDS`` in
+    its library (those it must have are there, those it must not are
+    not)."""
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
-    lib = build.lib_path("flash_attention_sm90")
+    lib_name, symbol, need, forbid = FLASH_BUILDS[kernel]
+    lib = build.lib_path(lib_name)
     ptxas, hd = {}, None
     for ln in lib.with_suffix(".log").read_text().splitlines():
-        m = re.search(r"flash_fwd_sm90ILi(\d+)E", ln)
-        if m and "Compiling entry function" in ln:
-            hd = int(m.group(1))
+        if "Compiling entry function" in ln:
+            m = re.search(symbol + r"ILi(\d+)E", ln)
+            hd = int(m.group(1)) if m else None
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       ln)
         if m and hd is not None:
@@ -684,20 +703,21 @@ def sm90_build_facts() -> dict:
         if m and hd is not None:
             ptxas.setdefault(hd, {})["registers"] = int(m.group(1))
     if any(len(ptxas.get(d, {})) != 3 for d in HEAD_DIMS):
-        raise AssertionError(f"ptxas -v of the tensor-core flash kernel lacks "
-                             f"head dims: {ptxas}")
+        raise AssertionError(f"ptxas -v of {kernel} lacks head dims: {ptxas}")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    hgmma = None
+    sass = None
     if os.path.exists(cuobjdump):
-        sass = subprocess.run([cuobjdump, "-sass", str(lib)],
-                              capture_output=True, text=True, timeout=120)
-        hgmma = sum("HGMMA" in ln for ln in sass.stdout.splitlines())
-        if hgmma == 0:
-            raise AssertionError("the tensor-core flash kernel's library has "
-                                 "no HGMMA instruction")
-    return {"source": KERNELS["flash_attention"][0], "ptxas": ptxas,
-            "hgmma_instructions": hgmma, "cuobjdump": cuobjdump
-            if hgmma is not None else None}
+        out = subprocess.run([cuobjdump, "-sass", str(lib)],
+                             capture_output=True, text=True, timeout=120)
+        ops = re.findall(r"^\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
+                         out.stdout, flags=re.M)
+        sass = {op: sum(o == op for o in ops) for op in (*need, *forbid)}
+        if any(sass[op] == 0 for op in need) or any(sass[op] for op in forbid):
+            raise AssertionError(f"{kernel}'s library has SASS counts {sass}: "
+                                 f"it needs {need} and must not have {forbid}")
+    return {"source": KERNELS[kernel][0], "ptxas": ptxas,
+            "sass_counts": sass, "cuobjdump": cuobjdump
+            if sass is not None else None}
 
 
 def profile_main_path(ex, windows, torch, n_prof: int = 3) -> None:

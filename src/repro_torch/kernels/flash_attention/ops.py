@@ -4,8 +4,9 @@ Port of ``repro.kernels.flash_attention.ops``.  A CPU tensor takes the
 plain version (:mod:`.ref`); a CUDA tensor launches a hand-written kernel
 unless the caller passes ``use_kernel=False``: bf16 goes to the
 tensor-core kernel (``csrc/flash_attention_sm90.cu``: wgmma, TMA), f32 to
-the CUDA-core kernel (``csrc/flash_attention.cu``).  A failed build or
-launch raises, and so does a call the kernel of its type cannot take.
+the CUDA-core kernel (``csrc/flash_attention.cu``: f32 FFMA in register
+tiles, K and V tiles through a two-slot cp.async ring).  A failed build
+or launch raises, and so does a call the kernel of its type cannot take.
 The kernels mask ragged S and T themselves, so nothing is padded or
 sliced here.  Query rows with no live key (``window`` > 0 and
 S >= T + window) get the plain version's answer, the mean of v over all T
@@ -56,9 +57,9 @@ def has_rows_without_keys(s: int, t: int, window: int) -> bool:
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0):
     """Launch a kernel on contiguous CUDA tensors q (B,S,H,hd) and k, v
-    (B,T,KV,hd) of one type, f32 or bf16, with H % KV == 0 and hd in
-    ``HEAD_DIMS``; bf16 also needs T >= 1 and 16-byte aligned data (its
-    TMA loads).  Returns o (B,S,H,hd) in q's type."""
+    (B,T,KV,hd) of one type, f32 or bf16, 16-byte aligned (cp.async or
+    TMA loads), with H % KV == 0 and hd in ``HEAD_DIMS``; bf16 also needs
+    T >= 1.  Returns o (B,S,H,hd) in q's type."""
     global LAUNCHES, SM90_LAUNCHES
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
@@ -89,13 +90,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b == 0 or s == 0 or h == 0:
         return o
     sm90 = q.dtype == torch.bfloat16
-    if sm90:
-        if t == 0:
-            raise ValueError("flash_attention in bfloat16 needs T >= 1 keys")
-        for name, x in (("q", q), ("k", k), ("v", v)):
-            if x.data_ptr() % 16:
-                raise ValueError(f"flash_attention in bfloat16 needs 16-byte "
-                                 f"aligned tensors (TMA), {name} is not")
+    if sm90 and t == 0:
+        raise ValueError("flash_attention in bfloat16 needs T >= 1 keys")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"flash_attention needs 16-byte aligned tensors "
+                             f"(TMA or cp.async loads), {name} is not")
     lib = "flash_attention_sm90" if sm90 else "flash_attention"
     fn = build.load(lib, _SM90_ARGTYPES if sm90 else _ARGTYPES)
     shape = (b, s, t, h, kv, hd, int(causal), int(window))

@@ -160,6 +160,67 @@ def test_cuda_flash_attention_matches_plain(cuda, case, dtype):
     _assert_bf16_close(out, want)
 
 
+# f32 only (the CUDA-core kernel): shapes across its tiles (Tile<HD> in
+# csrc/flash_attention.cu: 128 query rows, 64 at hd 240; 64 keys, 96 at
+# hd 128)
+FLASH_CASES_F32 = [
+    (1, 129, 257, 4, 2, 128, True, 0),       # S, T one past a tile
+    (2, 129, 257, 4, 4, 64, False, 0),       # the same, not causal
+    (1, 130, 333, 2, 2, 240, True, 64),      # hd 240, window 64
+    (1, 200, 200, 2, 1, 240, True, 16),      # window < a key tile
+    (1, 200, 1, 4, 1, 32, True, 0),          # T = 1
+    (1, 70, 1, 2, 2, 240, False, 0),         # T = 1, hd 240
+    (1, 100, 260, 8, 1, 16, True, 0),        # causal, T > S, GQA 8:1
+    (1, 129, 257, 4, 2, 128, False, 100),    # window without causal
+    (1, 300, 64, 2, 2, 240, True, 16),       # rows 79.. have no live key
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES_F32,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_cuda_flash_attention_f32_tiles_match_plain(cuda, case):
+    q, k, v = _qkv(case, torch.float32, cuda)
+    causal, window = case[6], case[7]
+    before = fa_ops.LAUNCHES
+    out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES == before + 1
+    assert out.shape == q.shape and out.dtype == torch.float32
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    err = (out - want).abs().max().item()
+    assert err <= FA_ATOL_F32, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", fa_ops.HEAD_DIMS)
+def test_cuda_flash_attention_f32_two_launches_bitwise_equal(cuda, hd):
+    q, k, v = _qkv((2, 333, 333, 8, 2, hd), torch.float32, cuda)
+    a = fa_ops.flash_attention_cuda(q, k, v, causal=True, window=100)
+    b = fa_ops.flash_attention_cuda(q, k, v, causal=True, window=100)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_f32_entry_refuses_bf16_and_misalignment(cuda):
+    """The CUDA-core library has no bf16 kernel: its entry point returns
+    cudaErrorInvalidValue (1) for dtype code 1.  Its cp.async copies need
+    16-byte aligned f32 tensors, and the wrapper refuses others."""
+    from repro_torch.kernels import build
+    q, k, v = _qkv((1, 64, 64, 2, 2, 64), torch.bfloat16, cuda)
+    o = torch.empty_like(q)
+    fn = build.load("flash_attention", fa_ops._ARGTYPES)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None,
+            build.DTYPE_CODES[torch.bfloat16], 1, 64, 64, 2, 2, 64, 1, 0,
+            torch.cuda.current_stream().cuda_stream)
+    assert rc == 1
+    q, k, v = _qkv((1, 64, 64, 2, 2, 64), torch.float32, cuda)
+    flat = torch.zeros(k.numel() + 1, device=cuda)
+    shifted = flat[1:].view(k.shape)      # contiguous, 4 bytes off
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa_ops.flash_attention(q, shifted, v)
+
+
 @pytest.mark.cuda
 def test_cuda_flash_attention_two_launches_bitwise_equal(cuda):
     q, k, v = _qkv(FLASH_CASES[2], torch.bfloat16, cuda)

@@ -8,6 +8,7 @@ kernels are held against the plain version on the card by
 emulated in plain torch and held to the card's bf16 limits.
 """
 import math
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +17,7 @@ import torch
 
 from repro.kernels.flash_attention.ops import flash_attention as ref_flash
 from repro.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import \
     flash_attention_ref as plain_flash
@@ -215,3 +217,127 @@ def test_single_bf16_p_emulation_exceeds_the_bf16_limits(case):
     per-element limit several times over: the reason the kernel splits P."""
     scaled, _ = _bf16_scores(case, split=False)
     assert scaled > 2.0, scaled
+
+
+# The f32 CUDA-core kernel (csrc/flash_attention.cu), its block walk
+# emulated: query tiles of bq rows and key tiles of bk keys (the kernel's
+# own Tile<HD> table, read from its source) from k_lo (the window's first
+# key rounded down to a tile) to k_hi (past the tile's last row when
+# causal, else T), rows past T staged as zeros, scores in log2 units
+# masked to -1e30 (a row whose visited keys are all masked so far adds
+# exp2(0) = 1 per key, wiped by the first live key's correction), the
+# denominator clamped at 1e-30, and rows with no live key given the mean
+# of v over all T keys.  Held to the card's f32 tolerance against the
+# reference's oracle.
+F32_ATOL = 1e-5
+# (B, S, T, H, KV, hd, causal, window), across the new tiles' edges
+F32_WALK = [
+    (1, 129, 257, 4, 2, 128, True, 0),      # S, T past a tile; causal
+    (2, 200, 333, 2, 2, 64, False, 0),      # neither a multiple of 128
+    (1, 130, 1, 2, 1, 32, True, 0),         # T = 1
+    (1, 70, 1, 2, 2, 240, False, 0),        # T = 1, hd 240
+    (1, 300, 300, 2, 1, 128, True, 20),     # window < a key tile
+    (1, 150, 200, 2, 2, 240, True, 16),     # hd 240, window < a key tile
+    (1, 100, 260, 2, 2, 64, True, 0),       # causal, T > S
+    (1, 150, 150, 8, 1, 32, True, 0),       # GQA 8:1
+    (1, 96, 160, 8, 1, 16, False, 40),      # GQA 8:1, window, not causal
+    (1, 130, 200, 2, 1, 240, True, 64),     # hd 240, window 64
+    (1, 300, 64, 2, 2, 240, True, 16),      # rows 79.. have no live key
+    (1, 200, 64, 2, 2, 32, False, 16),      # the same, not causal
+]
+
+
+def _cuda_core_tiles():
+    """head dim -> (query rows per block, keys per tile) from the kernel's
+    ``Tile<HD>`` lines: 8 warps x 32 / kTC thread rows x kRPT rows."""
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    return {int(hd): (8 * 32 // int(tc) * int(rpt), int(bk))
+            for hd, tc, rpt, bk in re.findall(
+                r"struct Tile<(\d+)> \{ static constexpr int kTC = (\d+), "
+                r"kRPT = (\d+), kBK = (\d+)", src)}
+
+
+def _emulate_cuda_cores(q, k, v, *, causal, window):
+    """The f32 kernel's walk on f32 q (B,S,H,hd), k, v (B,T,KV,hd).
+    Returns the output and the key tiles visited per (b, h)."""
+    b, s, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    bq, bk = _cuda_core_tiles()[hd]
+    qf = q.transpose(1, 2)
+    kf = torch.repeat_interleave(k, h // kv, 2).transpose(1, 2)
+    vf = torch.repeat_interleave(v, h // kv, 2).transpose(1, 2)
+    pad = torch.zeros(b, h, bk, hd)
+    kf, vf = torch.cat([kf, pad], 2), torch.cat([vf, pad], 2)
+    scale = math.log2(math.e) / math.sqrt(hd)
+    out = torch.empty(b, h, s, hd)
+    tiles = 0
+    for q0 in range(0, s, bq):
+        qp = torch.arange(q0, min(s, q0 + bq))[:, None]
+        k_lo = max(0, q0 - window + 1) // bk * bk if window > 0 else 0
+        k_hi = min(t, q0 + bq) if causal else t
+        m = torch.full((b, h, qp.shape[0], 1), -1e30)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(b, h, qp.shape[0], hd)
+        for k0 in range(k_lo, k_hi, bk):
+            tiles += 1
+            kp = torch.arange(k0, k0 + bk)[None, :]
+            live = kp < t
+            if causal:
+                live = live & (kp <= qp)
+            if window > 0:
+                live = live & (qp - kp < window)
+            sc = qf[:, :, q0:q0 + bq] @ kf[:, :, k0:k0 + bk].transpose(-1, -2)
+            sc = torch.where(live, sc * scale, torch.tensor(-1e30))
+            m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(sc - m_new)
+            l = l * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + p @ vf[:, :, k0:k0 + bk]
+            m = m_new
+        o = acc / l.clamp_min(1e-30)
+        if fa_ops.has_rows_without_keys(s, t, window):
+            dead = (qp[:, 0] >= t + window - 1)[None, None, :, None]
+            o = torch.where(dead, vf[:, :, :t].mean(2, keepdim=True), o)
+        out[:, :, q0:q0 + bq] = o
+    return out.transpose(1, 2), tiles
+
+
+@pytest.mark.parametrize("case", F32_WALK, ids=lambda c: "x".join(map(str, c)))
+def test_cuda_core_walk_emulation_matches_reference_oracle(case):
+    b, s, t, h, kv, hd, causal, window = case
+    arrays = _inputs(s, t, h, kv, hd, b=b)
+    want = np.asarray(flash_attention_ref(*(jnp.asarray(a) for a in arrays),
+                                          causal=causal, window=window))
+    got, tiles = _emulate_cuda_cores(*(torch.as_tensor(a) for a in arrays),
+                                     causal=causal, window=window)
+    np.testing.assert_allclose(got.numpy(), want, atol=F32_ATOL)
+    bq, bk = _cuda_core_tiles()[hd]
+    every = -(-s // bq) * -(-t // bk)
+    # key tiles wholly in the future or before the window are skipped
+    last_q0 = (-(-s // bq) - 1) * bq
+    skips = (causal and t > bq) or (window > 0
+                                    and last_q0 - window + 1 >= bk)
+    assert tiles < every if skips else tiles == every
+
+
+def test_cuda_core_walk_wipes_wholly_masked_tiles():
+    """Window 16 < a key tile: query tile 2 (rows 128..191 at hd 240)
+    starts its walk at key 64, whose tile is wholly masked for rows >= 143;
+    their exp2(0) terms must leave no trace."""
+    s, t, h, kv, hd, window = 192, 192, 2, 2, 240, 16
+    arrays = _inputs(s, t, h, kv, hd, b=1)
+    got, _ = _emulate_cuda_cores(*(torch.as_tensor(a) for a in arrays),
+                                 causal=True, window=window)
+    want = plain_flash(*(torch.as_tensor(a) for a in arrays), causal=True,
+                       window=window)
+    assert _cuda_core_tiles()[hd] == (64, 64)
+    torch.testing.assert_close(got[:, 143:], want[:, 143:], rtol=0,
+                               atol=F32_ATOL)
+
+
+def test_cuda_core_tiles_cover_every_head_dim():
+    """The emulation reads a tile for each head dim the wrapper takes, and
+    each query tile is a whole number of 8 warps' rows."""
+    tiles = _cuda_core_tiles()
+    assert sorted(tiles) == list(fa_ops.HEAD_DIMS)
+    assert all(bq % 8 == 0 and bk % 32 == 0 for bq, bk in tiles.values())
