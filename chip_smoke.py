@@ -18,7 +18,8 @@ Phases, one JSON line each; any failed check exits non-zero:
      held against the kernel path;
   6. the ``fleet_scan`` golden scenario with the payload replay;
   7. slice 2's path: the kernel entry points ``window_moments_xxt`` (the
-     window shapes of ``benchmarks/kernel_bench.py``, f32 and bf16) and
+     window shapes of ``benchmarks/kernel_bench.py``, f32 and bf16, and a
+     67 MB window larger than L2) and
      ``flash_attention`` (attention heads of yi-9b, gemma3-12b's local
      layers and whisper-large-v3's cross-attention in bf16 and in f32,
      yi-9b heads at the 32k prefill length, and small shapes whose last
@@ -26,10 +27,11 @@ Phases, one JSON line each; any failed check exits non-zero:
      through the tensor-core kernel, f32 through the CUDA-core one), every
      output held against the plain version on the card;
   8. those kernels timed beside their bounds, their plain versions and
-     ``scaled_dot_product_attention`` as the library yardstick, with each
-     flash kernel's registers and spills per head dim and its SASS counts
-     (HGMMA in the tensor-core kernel; FFMA and no tensor-core instruction
-     in the CUDA-core one);
+     ``scaled_dot_product_attention`` as the library yardstick (the window
+     kernel also beside the launch floor, the device time of a one-element
+     ``add_``), with each kernel's registers and spills per instantiation
+     and its SASS counts (HGMMA in the tensor-core flash kernel; FFMA and no
+     tensor-core instruction in the f32 flash and the window kernels);
   9. the kernels line, then ``{"ok": true, "device": {...}}`` last.
 
 Detailed profiles go to ``chiprun_out/``.
@@ -82,9 +84,13 @@ KERNELS = {
 }
 
 # slice 2.  window_moments_xxt: (k, N, dtype), benchmarks/kernel_bench.py's
-# shapes; the kernels line carries the largest in f32.
+# shapes, and one window of 64 streams whose 67 MB do not fit in the 50 MB
+# L2, where the bound and not the launch sets the least time (its input
+# from a generator of its own, so that the other inputs stay as they
+# were); the kernels line carries (64, 16384) f32.
+LARGE_WINDOW = (64, 262144, "float32")
 WINDOWS = [(8, 4096, "float32"), (32, 8192, "float32"),
-           (64, 16384, "float32"), (64, 16384, "bfloat16")]
+           (64, 16384, "float32"), (64, 16384, "bfloat16"), LARGE_WINDOW]
 WINDOW_TIMED = 2
 # (rtol, atol): tests/test_kernel_stream_stats.py's f32 tolerance for both
 # types, since kernel and plain version both sum in f32 from the same
@@ -174,31 +180,41 @@ def live_pairs(S: int, T: int, causal: bool, window: int) -> int:
 
 
 def device_ms(fn, torch, reps: int, match: str, launches_per_call: int,
-              attempts: int = 3, pad: int = 16) -> float:
+              attempts: int = 3, pad: int = 16, fill=None,
+              settle_s: float = 0.02) -> float:
     """Device time per call of the kernels whose names contain ``match``,
     from torch.profiler over ``reps`` calls (the CUDA-event time of a small
     kernel also counts its wrapper's host work), each call launching
-    ``launches_per_call`` of them.  After a long profile with CPU activity
-    (``profile_main_path``) later profiles drop a few kernel records, so
-    the calls sit between ``pad`` launches of a small fill kernel on each
-    side, the time is divided by the calls the profile recorded, not by
+    ``launches_per_call`` of them.  A profile drops the records of the
+    kernels launched in its first moments (after ``profile_main_path``'s
+    long CPU+CUDA profile, 3 of 16 and sometimes every one), so the calls
+    sit between ``pad`` launches of a small fill kernel on each side
+    (``fill``, by default a one-element ``add_``; its kernel's name must
+    not contain ``match``) and start ``settle_s`` after the leading fills.
+    The time is divided by the calls the profile recorded, not by
     ``reps``, and a profile without a record is taken again, up to
     ``attempts`` times."""
     from torch.profiler import ProfilerActivity, profile
     from torch.autograd import DeviceType
-    fill = torch.zeros(1, device="cuda")
+    if fill is None:
+        buf = torch.zeros(1, device="cuda")
+
+        def fill():
+            buf.add_(1.0)
     fn()
+    fill()
     torch.cuda.synchronize()
     for attempt in range(1, attempts + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(pad):
-                fill.add_(1.0)
+                fill()
             torch.cuda.synchronize()
+            time.sleep(settle_s)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
             for _ in range(pad):
-                fill.add_(1.0)
+                fill()
             torch.cuda.synchronize()
         total, records = 0.0, 0
         for e in prof.key_averages():
@@ -225,6 +241,17 @@ def device_ms(fn, torch, reps: int, match: str, launches_per_call: int,
               "fill_records_before": before, "fill_records_after": after,
               "fill_launches_each_side": pad})
     return total / 1e3 / calls
+
+
+def launch_floor_ms(torch, reps: int = 20) -> float:
+    """Device time of the smallest kernel: a one-element ``add_``, timed by
+    ``device_ms`` between fills of a one-element ``mul_`` (whose kernel is
+    named for ``MulFunctor``, the ``add_``'s for ``CUDAFunctorOnSelf_add``).
+    A kernel's device time cannot go below it, whatever its bound."""
+    one = torch.zeros(1, device="cuda")
+    other = torch.ones(1, device="cuda")
+    return device_ms(lambda: one.add_(1.0), torch, reps, "_add",
+                     launches_per_call=1, fill=lambda: other.mul_(1.0))
 
 
 def fleet_kernel_time(torch, kernel, label, shape, fn, plain, match, nbytes,
@@ -508,8 +535,10 @@ def slice2_path(torch, dev, results) -> dict:
     from repro_torch.kernels.stream_stats.ref import stream_stats_ref
 
     gen = torch.Generator(device=dev).manual_seed(14)
-    xs = [torch.randn(k, n, device=dev, generator=gen).to(getattr(torch, dt))
-          for k, n, dt in WINDOWS]
+    gen_large = torch.Generator(device=dev).manual_seed(20)
+    xs = [torch.randn(k, n, device=dev, generator=gen_large
+                      if (k, n, dt) == LARGE_WINDOW else gen)
+          .to(getattr(torch, dt)) for k, n, dt in WINDOWS]
     qkv = {}
     cases = {**ATTENTION, **NO_LIVE_KEY}
     for name, (S, T, H, KV, hd, _, _, dt) in cases.items():
@@ -591,11 +620,14 @@ def slice2_path(torch, dev, results) -> dict:
     del outs, stats
 
     # ---- 8. times beside bounds ------------------------------------------
+    emit({"phase": "kernel_build", "kernel": "stream_stats",
+          **build_facts("stream_stats")})
+    floor = launch_floor_ms(torch)
     for i, ((k, n, dt), x) in enumerate(zip(WINDOWS, xs)):
         ms = time_cuda(lambda: ss_ops.stream_stats_cuda(x), torch, 50)
-        # two kernels per call: stream_stats_partial, stream_stats_finish
+        # one kernel a call: stream_stats_window
         dev_ms = device_ms(lambda: ss_ops.stream_stats_cuda(x), torch, 20,
-                           "stream_stats_", launches_per_call=2)
+                           "stream_stats_window", launches_per_call=1)
         plain = time_cuda(lambda: stream_stats_ref(x), torch, 50)
         nbytes = x.numel() * x.element_size() + (4 * k + k * k) * 4
         flops = k * (k + 1) * n + 7 * k * n   # the upper triangle suffices
@@ -603,9 +635,10 @@ def slice2_path(torch, dev, results) -> dict:
                               if dt == "bfloat16" else PEAK_F32_FLOPS)
         emit({"phase": "kernel_time", "kernel": "stream_stats",
               "shape": [k, n], "dtype": dt, "kernel_ms": ms,
-              "kernel_device_ms": dev_ms, "plain_ms": plain,
-              "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-              "flops": flops, "library_ms": None,
+              "kernel_device_ms": dev_ms, "launches_per_call": 1,
+              "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+              "share_of_bound": b_ms / dev_ms, "launch_floor_ms": floor,
+              "bytes": nbytes, "flops": flops, "library_ms": None,
               "library_note": "none: x @ x.T gives only the Gram part"})
         if i == WINDOW_TIMED:
             results["stream_stats"] = {
@@ -613,9 +646,9 @@ def slice2_path(torch, dev, results) -> dict:
                 "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None}
 
-    sm90 = flash_build_facts("flash_attention")
+    sm90 = build_facts("flash_attention")
     emit({"phase": "kernel_build", "kernel": "flash_attention", **sm90})
-    f32 = flash_build_facts("flash_attention_f32")
+    f32 = build_facts("flash_attention_f32")
     emit({"phase": "kernel_build", "kernel": "flash_attention_f32", **f32})
     for name, (S, T, H, KV, hd, causal, window, dt) in ATTENTION.items():
         q, k, v = qkv[name]
@@ -668,42 +701,66 @@ def slice2_path(torch, dev, results) -> dict:
     return launches
 
 
-# kernels line name -> (library, the kernel's name as ptxas mangles it
-# with its head dim, SASS opcodes it must have, opcodes it must not have)
-FLASH_BUILDS = {
-    "flash_attention": ("flash_attention_sm90", "flash_fwd_sm90", ("HGMMA",),
-                        ()),
-    # f32 on the CUDA cores: FFMA, and no tensor-core product (no TF32)
-    "flash_attention_f32": ("flash_attention", "flash_fwd", ("FFMA",),
-                            ("HMMA", "HGMMA")),
-}
+def _head_dim(m) -> int:
+    return int(m.group(1))
 
 
-def flash_build_facts(kernel: str) -> dict:
-    """A flash kernel as built: registers and spills of each head-dim
-    instantiation from ``nvcc -Xptxas -v``, and, where the toolkit has
-    ``cuobjdump``, the count of each SASS opcode of ``FLASH_BUILDS`` in
-    its library (those it must have are there, those it must not are
-    not)."""
-    from repro_torch.kernels import build
+def _type_and_tile(m) -> str:
+    return f"{'float32' if m.group(1) == 'f' else 'bfloat16'}/{m.group(2)}"
+
+
+# kernel -> (library, the kernel's name as ptxas mangles it, the key of an
+# instantiation from that match, the keys the library must have, SASS
+# opcodes it must have, opcodes it must not have)
+def _builds() -> dict:
     from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
-    lib_name, symbol, need, forbid = FLASH_BUILDS[kernel]
+    return {
+        "flash_attention": ("flash_attention_sm90", r"flash_fwd_sm90ILi(\d+)E",
+                            _head_dim, HEAD_DIMS, ("HGMMA",), ()),
+        # f32 on the CUDA cores: FFMA, and no tensor-core product (no TF32)
+        "flash_attention_f32": ("flash_attention", r"flash_fwdILi(\d+)E",
+                                _head_dim, HEAD_DIMS, ("FFMA",),
+                                ("HMMA", "HGMMA")),
+        # one window's statistics: f32 FFMA for both input types, one
+        # instantiation per (input type, tile edge)
+        "stream_stats": ("stream_stats",
+                         r"stream_stats_windowI(f|13__nv_bfloat16)Li(\d+)E",
+                         _type_and_tile,
+                         tuple(f"{t}/{e}" for t in ("float32", "bfloat16")
+                               for e in (8, 16, 32, 64)),
+                         ("FFMA",), ("HMMA", "HGMMA")),
+    }
+
+
+def build_facts(kernel: str) -> dict:
+    """A kernel as built: registers and spills of each instantiation from
+    ``nvcc -Xptxas -v`` (flash: by head dim; stream_stats: by input type
+    and tile edge), none of which may spill, and, where the toolkit has
+    ``cuobjdump``, the count of each SASS opcode the kernel must or must
+    not have in its library."""
+    from repro_torch.kernels import build
+    lib_name, pattern, key_of, keys, need, forbid = _builds()[kernel]
     lib = build.lib_path(lib_name)
-    ptxas, hd = {}, None
+    ptxas, key = {}, None
     for ln in lib.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in ln:
-            m = re.search(symbol + r"ILi(\d+)E", ln)
-            hd = int(m.group(1)) if m else None
+            m = re.search(pattern, ln)
+            key = None if m is None else key_of(m)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       ln)
-        if m and hd is not None:
-            ptxas.setdefault(hd, {}).update(spill_stores=int(m.group(1)),
-                                            spill_loads=int(m.group(2)))
+        if m and key is not None:
+            ptxas.setdefault(key, {}).update(spill_stores=int(m.group(1)),
+                                             spill_loads=int(m.group(2)))
         m = re.search(r"Used (\d+) registers", ln)
-        if m and hd is not None:
-            ptxas.setdefault(hd, {})["registers"] = int(m.group(1))
-    if any(len(ptxas.get(d, {})) != 3 for d in HEAD_DIMS):
-        raise AssertionError(f"ptxas -v of {kernel} lacks head dims: {ptxas}")
+        if m and key is not None:
+            ptxas.setdefault(key, {})["registers"] = int(m.group(1))
+    if any(len(ptxas.get(d, {})) != 3 for d in keys):
+        raise AssertionError(f"ptxas -v of {kernel} lacks instantiations "
+                             f"{keys}: {ptxas}")
+    spills = {d: v for d, v in ptxas.items()
+              if v["spill_stores"] or v["spill_loads"]}
+    if spills:
+        raise AssertionError(f"{kernel} spills registers: {spills}")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = None
     if os.path.exists(cuobjdump):

@@ -77,8 +77,10 @@ def test_cuda_polyfit_matches_plain(cuda, rows, n):
     assert torch.equal(pu, pu_r) and torch.equal(py, py_r)
 
 
+# every tile edge (8, 16, 32, 64, and tile pairs above k = 64), N off
+# the 16-byte copies (N % 4 == 2), and a window larger than L2
 WINDOW_SHAPES = [(1, 1), (1, 128), (3, 200), (9, 130), (8, 4096), (32, 8192),
-                 (64, 16384), (65, 300), (130, 1000)]
+                 (64, 16384), (65, 300), (130, 1000), (64, 262144)]
 
 
 @pytest.mark.cuda
@@ -96,15 +98,68 @@ def test_cuda_window_moments_matches_plain(cuda, shape, dtype):
     mom_r, xxt_r = stream_stats_ref(x)
     torch.testing.assert_close(mom, mom_r, rtol=SS_RTOL, atol=SS_ATOL)
     torch.testing.assert_close(xxt, xxt_r, rtol=SS_RTOL, atol=SS_ATOL)
+    # one sum for each pair i <= j, written to both triangles
+    assert torch.equal(xxt, xxt.T)
 
 
 @pytest.mark.cuda
-def test_cuda_window_moments_two_launches_bitwise_equal(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(9, 130), (64, 4096), (130, 1000)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cuda_window_moments_unaligned_slice_matches_plain(cuda, shape,
+                                                           dtype):
+    """x a contiguous slice one element into a larger buffer: rows and
+    base are off the 16-byte copies whatever N is."""
+    g = torch.Generator().manual_seed(sum(shape) + 1)
+    flat = (torch.randn(shape[0] * shape[1] + 1, generator=g) * 1.5
+            + 2.0).to(dtype).to(cuda)
+    x = flat[1:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    mom, xxt = ss_ops.window_moments_xxt(x)
+    mom_r, xxt_r = stream_stats_ref(x)
+    torch.testing.assert_close(mom, mom_r, rtol=SS_RTOL, atol=SS_ATOL)
+    torch.testing.assert_close(xxt, xxt_r, rtol=SS_RTOL, atol=SS_ATOL)
+    assert torch.equal(xxt, xxt.T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(9, 130), (8, 4096), (130, 1000),
+                                   (64, 16384), (64, 262144)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cuda_window_moments_two_launches_bitwise_equal(cuda, shape):
     g = torch.Generator().manual_seed(3)
-    x = torch.randn(64, 16384, generator=g).to(cuda)
+    x = torch.randn(shape, generator=g).to(cuda)
     a = ss_ops.stream_stats_cuda(x)
     b = ss_ops.stream_stats_cuda(x)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 4096), (130, 1000)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cuda_window_moments_one_kernel_per_call(cuda, shape):
+    """A call launches one kernel: the sums across blocks are inside it.
+    The host's launch calls are counted (the profiler may drop a kernel
+    record, never a runtime call), and every kernel record is the
+    window kernel's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.randn(shape, device=cuda)
+    ss_ops.stream_stats_cuda(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            ss_ops.stream_stats_cuda(x)
+        torch.cuda.synchronize()
+    launches = [e.name for e in prof.events()
+                if e.name.startswith("cudaLaunch")]
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(launches) == 3, launches
+    assert kernels and all("stream_stats_window" in n for n in kernels), \
+        kernels
 
 
 # (B, S, T, H, KV, hd, causal, window)

@@ -59,7 +59,8 @@ def test_importing_the_port_leaves_jax_and_repro_out():
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in [
         *PORT.rglob("*.py"), ROOT / "chip_smoke.py",
-        ROOT / "scripts" / "fleet_kernel_times.py"]))
+        *(ROOT / "scripts" / f"{name}_times.py"
+          for name in ("fleet_kernel", "flash_f32", "window_stats"))]))
 def test_no_jax_or_repro_import_lines(path):
     assert not FORBIDDEN.search((ROOT / path).read_text()), path
 
