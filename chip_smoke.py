@@ -32,7 +32,19 @@ Phases, one JSON line each; any failed check exits non-zero:
      ``add_``), with each kernel's registers and spills per instantiation
      and its SASS counts (HGMMA in the tensor-core flash kernel; FFMA and no
      tensor-core instruction in the f32 flash and the window kernels);
-  9. the kernels line, then ``{"ok": true, "device": {...}}`` last.
+  9. slice 7's goldens on the card: ``single_scan`` and
+     ``single_scan_steps`` with the payload replay, under both kernel
+     settings, against the live JAX reference's WAN bytes, with the
+     launch counts asserted and the one-site sample sets drawn on the
+     card held bitwise against the same code on the CPU;
+ 10. slice 7's path: one edge gateway (``turbine``, k = 8 streams,
+     windows of N = 4096 tuples, 4 generated windows cycled to T = 200)
+     through both kernels, profiled over 3 windows, then at T = 20 with
+     the plain versions on the card, held against the kernel path; both
+     kernels held against their plain versions and timed at this path's
+     shapes and at ``single_scan``'s;
+ 11. ``fleet_scan`` under the mean and multi model families;
+ 12. the kernels line, then ``{"ok": true, "device": {...}}`` last.
 
 Detailed profiles go to ``chiprun_out/``.
 """
@@ -59,6 +71,13 @@ PEAK_BF16_FLOPS = 989e12
 MAIN = {"n_regions": 4, "sites_per_region": 256, "k": 8, "window": 256,
         "pool": 4, "T": 200, "T_plain": 20}
 GOLDEN_REF_WAN_BYTES = 11080   # live JAX reference, fleet_scan, CPU
+# slice 7: the live JAX reference's WAN bytes (CPU, jax 0.9): the
+# single-edge goldens (cubic), and fleet_scan under the other families
+SINGLE_REF_WAN_BYTES = {"single_scan": 4662, "single_scan_steps": 3544}
+FAMILY_REF_WAN_BYTES = {"mean": 11540, "multi": 9436}
+# one edge gateway: the turbine sensor suite at k = 8, windows of 4096
+# tuples (the permutation sampler's two-round branch)
+SINGLE = {"k": 8, "window": 4096, "pool": 4, "T": 200, "T_plain": 20}
 # a fleet of the main path's kind whose data (134 MB for stream_stats_fleet,
 # 268 MB for polyfit) does not fit in the 50 MB L2: (E, k, N)
 LARGE = (4096, 8, 1024)
@@ -512,7 +531,10 @@ def main() -> int:
     # ---- 7. slice 2's path: the kernel entry points at model widths -----
     launches.update(slice2_path(torch, dev, results))
 
-    # ---- 9. the kernels line and the result ------------------------------
+    # ---- 9.-11. slice 7: single edges and the mean and multi families --
+    single_edge_phases(torch, dev)
+
+    # ---- 12. the kernels line and the result -----------------------------
     emit({"kernels": [dict(name=n, route="cuda", source=KERNELS[n][0],
                            replaces=KERNELS[n][1], launches=launches[n],
                            **results[n]) for n in KERNELS]})
@@ -701,6 +723,214 @@ def slice2_path(torch, dev, results) -> dict:
     return launches
 
 
+def scenario_dict(name: str, **change) -> dict:
+    with open(os.path.join(HERE, f"tests/goldens/scenarios/{name}.json")) as f:
+        return dict(json.load(f)["scenario"], **change)
+
+
+def single_edge_phases(torch, dev) -> None:
+    """Phases 9-11: the single-edge goldens, one edge gateway at full
+    width, and fleet_scan under the mean and multi families.  Every check
+    raises."""
+    import numpy as np
+    from repro_torch.api.experiment import Experiment
+    from repro_torch.api.scenario import ScenarioConfig
+    from repro_torch.core.stats import rank_transform
+    from repro_torch.kernels.polyfit import ops as poly_ops
+    from repro_torch.kernels.polyfit.ref import polyfit_ref
+    from repro_torch.kernels.stream_stats import ops as ss_ops
+    from repro_torch.kernels.stream_stats.ref import fleet_stats_ref
+    from repro_torch.runtime.step import sample_fleet
+
+    def counted(run):
+        ss_ops.LAUNCHES = 0
+        poly_ops.LAUNCHES = 0
+        out = run()
+        torch.cuda.synchronize()
+        return out, {"stream_stats_fleet": ss_ops.LAUNCHES,
+                     "polyfit": poly_ops.LAUNCHES}
+
+    def same_samples(seed, windows):
+        """The one-site sampler on the card against the same code on the
+        CPU, every window, bitwise (stream i keeps (i + 1) N / (k + 1)
+        tuples)."""
+        k_, n_ = windows[0].k, windows[0].n_max
+        nr = ((np.arange(k_) + 1) * n_ // (k_ + 1))[None].astype(np.int32)
+        for wid, w in enumerate(windows):
+            v = np.ascontiguousarray(w.values[None])
+            on_card = sample_fleet(seed, wid, torch.as_tensor(v, device=dev),
+                                   torch.as_tensor(nr, device=dev)).cpu()
+            on_cpu = sample_fleet(seed, wid, torch.as_tensor(v),
+                                  torch.as_tensor(nr))
+            if not torch.equal(on_card.view(torch.int32),
+                               on_cpu.view(torch.int32)):
+                raise AssertionError(f"one-site samples of window {wid} "
+                                     f"differ between the card and the CPU")
+        return len(windows)
+
+    # ---- 9. the single-edge goldens, payload replay -----------------------
+    t0 = time.perf_counter()
+    for name, want in SINGLE_REF_WAN_BYTES.items():
+        sc = ScenarioConfig.from_dict(scenario_dict(name))
+        for uk in (True, False):
+            ex = Experiment.from_scenario(sc, use_kernel=uk,
+                                          collect="payloads", device="cuda")
+            windows = ex.make_windows()
+            rep, launches = counted(lambda: ex.run(windows))
+            T = len(windows)
+            expect = ({"stream_stats_fleet": 2 * T, "polyfit": T} if uk
+                      else {"stream_stats_fleet": 0, "polyfit": 0})
+            n_same = same_samples(sc.planner.seed, windows)
+            emit({"phase": "golden_single_scan", "scenario": name,
+                  "use_kernel": uk, "windows": T, "wan_bytes": rep.wan_bytes,
+                  "reference_wan_bytes_cpu": want, "nrmse": rep.nrmse,
+                  "launches": launches, "launches_expected": expect,
+                  "sample_sets_equal_cpu": n_same})
+            if rep.wan_bytes != want or launches != expect:
+                raise AssertionError(f"{name} use_kernel={uk}: WAN bytes "
+                                     f"{rep.wan_bytes} (want {want}), "
+                                     f"launches {launches} (want {expect})")
+    emit({"phase": "golden_single_scan_seconds",
+          "seconds": time.perf_counter() - t0})
+
+    # ---- 10. one edge gateway at full width -------------------------------
+    t0 = time.perf_counter()
+    k, N = SINGLE["k"], SINGLE["window"]
+    d = scenario_dict("single_scan_steps", runtime="scan",
+                      queries=["AVG", "VAR", "MIN", "MAX"])
+    d["data"] = dict(d["data"], n_points=SINGLE["pool"] * N,
+                     window=N, options={"k": k})
+    sc = ScenarioConfig.from_dict(d)
+    ex = Experiment.from_scenario(sc, use_kernel=True, collect="estimates",
+                                  device="cuda")
+    windows = ex.make_windows()
+    ex.run(windows, n_windows=2)                 # warm-up
+    T = SINGLE["T"]
+    torch.cuda.reset_peak_memory_stats()
+    rep, launches = counted(lambda: ex.run(windows, n_windows=T))
+    n_same = same_samples(sc.planner.seed, windows)
+    emit({"phase": "single_edge_path", "dataset": "turbine", "k": k, "N": N,
+          "T": T, "windows_per_sec": rep.raw["windows_per_sec"],
+          "scan_seconds": rep.raw["scan_seconds"], "nrmse": rep.nrmse,
+          "wan_bytes": rep.wan_bytes, "full_bytes": rep.full_bytes,
+          "wan_fraction": rep.wan_fraction, "launches": launches,
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+          "sample_sets_equal_cpu": n_same})
+    if launches != {"stream_stats_fleet": 2 * T, "polyfit": T}:
+        raise AssertionError(f"kernel launches on the single-edge path: "
+                             f"{launches}, want stream_stats_fleet {2 * T},"
+                             f" polyfit {T}")
+    if (not all(np.isfinite(v) for v in rep.nrmse.values())
+            or not 0 < rep.wan_bytes < rep.full_bytes):
+        raise AssertionError(f"single-edge output out of range: nrmse "
+                             f"{rep.nrmse}, wan {rep.wan_bytes} of "
+                             f"{rep.full_bytes}")
+    for q in rep.nrmse_per_stream.values():
+        if q.shape != (k,) or not np.isfinite(q).all():
+            raise AssertionError("single-edge per-stream NRMSE malformed")
+    profile_main_path(ex, windows, torch, out_name="profile_single_edge.txt")
+
+    T2 = SINGLE["T_plain"]
+    rk = Experiment.from_scenario(sc, use_kernel=True, collect="estimates",
+                                  device="cuda").run(windows, n_windows=T2)
+    rp = Experiment.from_scenario(sc, use_kernel=False, collect="estimates",
+                                  device="cuda").run(windows, n_windows=T2)
+    d_avg = abs(rk.nrmse["AVG"] - rp.nrmse["AVG"]) / abs(rp.nrmse["AVG"])
+    emit({"phase": "single_edge_plain_vs_kernel", "T": T2,
+          "nrmse_kernel": rk.nrmse, "nrmse_plain": rp.nrmse,
+          "wan_kernel": rk.wan_bytes, "wan_plain": rp.wan_bytes,
+          "avg_rel_diff": d_avg,
+          "windows_per_sec_kernel": rk.raw["windows_per_sec"],
+          "windows_per_sec_plain": rp.raw["windows_per_sec"]})
+    if rk.wan_bytes != rp.wan_bytes or d_avg > 0.01:
+        raise AssertionError(f"single edge: kernel and plain paths disagree:"
+                             f" WAN {rk.wan_bytes} against {rp.wan_bytes}, "
+                             f"AVG NRMSE rel {d_avg}")
+
+    # both kernels at E = 1 against their plain versions, and timed: this
+    # path's window and single_scan's, on the scenarios' own data
+    small = ScenarioConfig.from_dict(scenario_dict("single_scan"))
+    small_w = Experiment.from_scenario(small, device="cuda").make_windows()
+    for label, w in (("single_edge_path", windows[0]),
+                     ("single_scan", small_w[0])):
+        x = torch.as_tensor(np.ascontiguousarray(w.values[None]),
+                            device=dev)
+        e_, k_, n_ = x.shape
+        counts = torch.full((1, k_), n_, dtype=torch.int32, device=dev)
+        ranks = rank_transform(x, counts).contiguous()
+        for inp_label, inp in (("values", x), ("ranks", ranks)):
+            got = ss_ops.stream_stats_fleet_cuda(inp)
+            torch.cuda.synchronize()
+            mom, xxt = fleet_stats_ref(inp)
+            err = float((got[1] - xxt).abs().max())
+            ok = (torch.equal(got[0], mom)
+                  and torch.allclose(got[1], xxt, rtol=2e-5, atol=1e-2))
+            emit({"phase": "kernel_check", "kernel": "stream_stats_fleet",
+                  "case": f"{label}/{inp_label}", "shape": list(inp.shape),
+                  "max_abs_err": err, "bitwise": [True, False],
+                  "rtol": 2e-5, "atol": 1e-2, "ok": ok})
+            if not ok:
+                raise AssertionError(f"stream_stats_fleet disagrees with its "
+                                     f"plain version at {label}/{inp_label}")
+        fleet_kernel_time(
+            torch, "stream_stats_fleet", label, list(x.shape),
+            lambda: ss_ops.stream_stats_fleet_cuda(x),
+            lambda: fleet_stats_ref(x), "stream_stats_fleet_kernel",
+            x.numel() * 4 + e_ * k_ * (4 + k_) * 4,
+            e_ * (2 * k_ * k_ * n_ + 7 * k_ * n_), 50,
+            note="no single PyTorch call computes it: torch.bmm gives only "
+                 "the Gram part")
+        # polyfit's rows as the fused fit feeds them: (y, u) with u a
+        # standardized predictor stream (full windows: w = 1)
+        y = x[0]
+        xp = torch.roll(y, 1, dims=0)
+        u = ((xp - xp.mean(-1, keepdim=True))
+             / xp.std(-1, keepdim=True)).contiguous()
+        got = poly_ops.polyfit_cuda(y, u)
+        torch.cuda.synchronize()
+        want = polyfit_ref(y, u)
+        want[0][:, 0] = float(n_)
+        ok = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        emit({"phase": "kernel_check", "kernel": "polyfit", "case": label,
+              "shape": list(y.shape), "bitwise": [True, True],
+              "max_abs_err": max(float((g - w_).abs().max())
+                                 for g, w_ in zip(got, want)), "ok": ok})
+        if not ok:
+            raise AssertionError(f"polyfit disagrees with its plain version "
+                                 f"at {label}")
+        fleet_kernel_time(
+            torch, "polyfit", label, list(y.shape),
+            lambda: poly_ops.polyfit_cuda(y, u), lambda: polyfit_ref(y, u),
+            "polyfit_kernel", 2 * y.numel() * 4 + y.shape[0] * 11 * 4,
+            y.numel() * 18, 50,
+            note="no single PyTorch call computes the 11 power sums")
+    emit({"phase": "single_edge_path_seconds",
+          "seconds": time.perf_counter() - t0})
+
+    # ---- 11. fleet_scan under the mean and multi families ----------------
+    t0 = time.perf_counter()
+    for model, want in FAMILY_REF_WAN_BYTES.items():
+        d = scenario_dict("fleet_scan")
+        d["planner"] = dict(d["planner"], model=model)
+        ex = Experiment.from_scenario(ScenarioConfig.from_dict(d),
+                                      use_kernel=True, collect="payloads",
+                                      device="cuda")
+        windows = ex.make_windows()
+        rep, launches = counted(lambda: ex.run(windows))
+        T = len(windows)
+        expect = {"stream_stats_fleet": 2 * T, "polyfit": 0}
+        emit({"phase": "fleet_model_families", "model": model,
+              "wan_bytes": rep.wan_bytes, "reference_wan_bytes_cpu": want,
+              "nrmse": rep.nrmse, "launches": launches,
+              "launches_expected": expect})
+        if rep.wan_bytes != want or launches != expect:
+            raise AssertionError(f"fleet_scan model={model}: WAN bytes "
+                                 f"{rep.wan_bytes} (want {want}), launches "
+                                 f"{launches} (want {expect})")
+    emit({"phase": "fleet_model_families_seconds",
+          "seconds": time.perf_counter() - t0})
+
+
 def _head_dim(m) -> int:
     return int(m.group(1))
 
@@ -777,10 +1007,11 @@ def build_facts(kernel: str) -> dict:
             if sass is not None else None}
 
 
-def profile_main_path(ex, windows, torch, n_prof: int = 3) -> None:
-    """Profile ``n_prof`` windows of the main path with torch.profiler:
-    the time of each stage range of ``runtime/step.py`` and the device's
-    busy share (full table in chiprun_out/profile_main_path.txt)."""
+def profile_main_path(ex, windows, torch, n_prof: int = 3,
+                      out_name: str = "profile_main_path.txt") -> None:
+    """Profile ``n_prof`` windows of a path with torch.profiler: the time
+    of each stage range of ``runtime/step.py`` and the device's busy share
+    (full table in chiprun_out/<out_name>)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.runtime.step import STAGES
     with profile(activities=[ProfilerActivity.CPU,
@@ -788,7 +1019,7 @@ def profile_main_path(ex, windows, torch, n_prof: int = 3) -> None:
         rep = ex.run(windows, n_windows=n_prof)
         torch.cuda.synchronize()
     evs = prof.key_averages()
-    with open(os.path.join(OUT_DIR, "profile_main_path.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, out_name), "w") as f:
         f.write(evs.table(sort_by="cpu_time_total", row_limit=60))
 
     def dev_ms(e, total=False):
@@ -815,7 +1046,7 @@ def profile_main_path(ex, windows, torch, n_prof: int = 3) -> None:
     memcpy_ms = sum(dev_ms(e) for e in on_dev if e.key.startswith("Memcpy"))
     loop_ms = rep.raw["scan_seconds"] * 1e3
     top = sorted(kernels, key=lambda e: -dev_ms(e))[:10]
-    emit({"phase": "profile", "windows": n_prof,
+    emit({"phase": "profile", "file": out_name, "windows": n_prof,
           "stage_host_ms_per_window": host,
           "stage_share": {s_: v / total for s_, v in host.items()},
           "stage_device_ms_per_window": {

@@ -1,8 +1,9 @@
 """Experiment — scenario in, report out (port of ``repro.api.experiment``).
 
-``Experiment.from_scenario(cfg, device=None).run()`` builds the fleet scan
-runtime from a :class:`~repro_torch.api.scenario.ScenarioConfig`,
-generates the scenario's windows and returns a :class:`RunReport`.
+``Experiment.from_scenario(cfg, device=None).run()`` builds the scan
+runtime (a fleet, or one edge) from a
+:class:`~repro_torch.api.scenario.ScenarioConfig`, generates the
+scenario's windows and returns a :class:`RunReport`.
 ``device=None`` means the GPU; with no CUDA device it raises rather than
 running on the CPU.  Scenarios the port cannot run yet raise
 ``NotImplementedError`` naming the ROADMAP item that will port them.
@@ -54,6 +55,28 @@ class RunReport:
         return self.wan_bytes / max(self.full_bytes, 1)
 
 
+def _report_single(scenario, r: dict) -> RunReport:
+    nrmse = {q: float(np.nanmean(v)) for q, v in r["nrmse"].items()}
+    nrmse_q = {q: float(np.nanmean(v))
+               for q, v in r["nrmse_at_query"].items()}
+    return RunReport(
+        scenario=scenario, n_sites=1,
+        nrmse=nrmse, nrmse_at_query=nrmse_q,
+        nrmse_per_stream={q: np.asarray(v) for q, v in r["nrmse"].items()},
+        region_nrmse={"local": nrmse},
+        wan_bytes=int(r["wan_bytes"]), wan_cost=float(r["wan_cost"]),
+        full_bytes=int(r["full_bytes"]),
+        wan_bytes_by_region={"local": int(r["wan_bytes"])},
+        wan_cost_by_region={"local": float(r["wan_cost"])},
+        gaps=int(r["gaps"]), revisions=int(r["revisions"]),
+        late_drops=int(r["late_drops"]), duplicates=int(r["duplicates"]),
+        retransmits=int(r["retransmits"]),
+        freshness_ms=dict(r["freshness_ms"]),
+        freshness_by_region={"local": dict(r["freshness_ms"])},
+        plan_seconds=float(r["plan_seconds"]),
+        raw=r)
+
+
 def _report_fleet(scenario, r: dict, n_sites: int) -> RunReport:
     return RunReport(
         scenario=scenario, n_sites=n_sites,
@@ -83,21 +106,20 @@ def _not_ported(what: str, item: str):
 
 
 def check_scan_scenario(scenario: ScenarioConfig) -> None:
-    """Reject what this slice cannot run, and what the scan runtime can
+    """Reject what the port cannot run yet, and what the scan runtime can
     never honor (WAN timing it does not model)."""
     RUNTIMES.get(scenario.runtime)
-    if not scenario.is_fleet:
-        raise _not_ported("a single-edge (E=1) scenario", "Single-edge scans")
     if scenario.adaptive is not None:
         raise _not_ported("adaptive re-planning", "Adaptive")
     if scenario.chaos is not None:
         raise _not_ported("chaos fault injection", "Chaos")
     if scenario.method != "model":
-        if scenario.method in MODELS:
+        if scenario.method not in MODELS:
+            raise _not_ported(f"baseline method {scenario.method!r}",
+                              "Event path")
+        if scenario.is_fleet:
             raise ValueError("the fleet scan plans with planner.model; set "
                              "method='model'")
-        raise _not_ported(f"baseline method {scenario.method!r}",
-                          "Event path")
     DATASETS.get(scenario.data.dataset)
     t = scenario.transport
     if t.latency_ms or t.jitter_ms or t.drop_prob:
@@ -109,12 +131,13 @@ def check_scan_scenario(scenario: ScenarioConfig) -> None:
         raise ValueError("runtime='scan' does not model bandwidth, "
                          "retransmits or staleness deadlines")
     topo = scenario.topology
-    if topo.latency_scale != 0.0 or topo.jitter_ms or topo.drop_prob:
-        raise ValueError("runtime='scan' needs a zero-latency topology: set "
-                         "latency_scale=0, jitter_ms=0, drop_prob=0")
-    if topo.bandwidth_bytes_per_ms is not None:
-        raise ValueError("runtime='scan': topology bandwidth modeling needs "
-                         "runtime='event'")
+    if topo is not None:
+        if topo.latency_scale != 0.0 or topo.jitter_ms or topo.drop_prob:
+            raise ValueError("runtime='scan' needs a zero-latency topology: "
+                             "set latency_scale=0, jitter_ms=0, drop_prob=0")
+        if topo.bandwidth_bytes_per_ms is not None:
+            raise ValueError("runtime='scan': topology bandwidth modeling "
+                             "needs runtime='event'")
     spec = scenario.controller
     if spec is not None and spec.query_split is not None:
         raise _not_ported("the per-query controller split", "Event path")
@@ -144,9 +167,12 @@ class Experiment:
         return cls(scenario=scenario, runtime=runtime)
 
     def make_windows(self) -> list:
-        """Materialize the scenario's window sequence (deterministic)."""
-        from repro_torch.data.streams import fleet_windows
+        """Materialize the scenario's window sequence (deterministic): (E,
+        k, N) arrays for a fleet, ``WindowBatch``es for one edge."""
+        from repro_torch.data.streams import fleet_windows, windows_from_matrix
         data = self.scenario.data
+        if not self.scenario.is_fleet:
+            return windows_from_matrix(data.generate()[0], data.window)
         topo = self.scenario.topology
         gen = DATASETS.get(data.dataset)
         vals, _ = gen(n_sites=topo.n_sites, n_regions=topo.n_regions,
@@ -161,4 +187,6 @@ class Experiment:
         if windows is None:
             windows = self.make_windows()
         r = self.runtime.run(windows, n_windows=n_windows, state=state)
-        return _report_fleet(self.scenario, r, self.runtime.n_sites)
+        if self.runtime.n_sites > 1:
+            return _report_fleet(self.scenario, r, self.runtime.n_sites)
+        return _report_single(self.scenario, r)

@@ -86,11 +86,12 @@ class Registry:
 
 
 # The registries this slice uses, populated by their defining modules:
-#   MODELS            repro_torch.core.planner   (linear | cubic)
+#   MODELS            repro_torch.core.planner   (linear | cubic | mean | multi)
 #   EPSILON_POLICIES  repro_torch.core.epsilon   (k_se | alpha | exact_mse)
 #   DEPENDENCE        repro_torch.core.stats     (pearson | spearman)
 #   QUERIES           repro_torch.core.queries   (AVG | VAR | MIN | MAX)
-#   DATASETS          repro_torch.data.streams   (fleet)
+#   DATASETS          repro_torch.data.streams   (home | turbine | smartcity
+#                                                 | mvn | fleet)
 #   ENGINES           repro_torch.planning       (batched)
 #   RUNTIMES          repro_torch.runtime        (scan | scan_steps)
 MODELS = Registry("imputation model")

@@ -70,6 +70,12 @@ class DataSpec:
         return hash((self.dataset, self.n_points, self.window, self.seed,
                      tuple(sorted(self.options.items()))))
 
+    def generate(self):
+        """(values, meta) from a single-edge generator: values (k, T)."""
+        gen = _reg.DATASETS.get(self.dataset)
+        return gen(n_points=self.n_points, seed=self.seed,
+                   **dict(self.options))
+
 
 @dataclasses.dataclass(frozen=True)
 class TopologySpec:
@@ -177,6 +183,20 @@ class ScenarioConfig:
             _reg.ENGINES.check(planner.engine)
         for q in self.queries:
             _reg.QUERIES.check(q)
+
+        # fleet generators produce an (E, k, T) site tensor and need a
+        # multi-site topology; matrix generators cannot be spread over one
+        gen_is_fleet = bool(getattr(_reg.DATASETS.get(self.data.dataset),
+                                    "is_fleet_dataset", False))
+        if gen_is_fleet and not self.is_fleet:
+            raise ValueError(
+                f"dataset {self.data.dataset!r} is a fleet generator; it "
+                f"needs a topology with more than one site")
+        if self.is_fleet and not gen_is_fleet:
+            raise ValueError(
+                f"topology has {self.topology.n_sites} sites but dataset "
+                f"{self.data.dataset!r} is single-edge (k, T); use a fleet "
+                f"dataset or drop the topology")
 
     @property
     def is_fleet(self) -> bool:

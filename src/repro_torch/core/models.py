@@ -1,9 +1,10 @@
 """Compact conditional-expectation models E[X_i | X_{p_i}] (§IV-B).
 
-Port of ``repro.core.models`` for the linear and cubic families.  The
-reference vmaps the per-stream fit over k and the batched engine vmaps it
-again over sites; here both axes are written out, so ``fit_models`` takes
-``(..., k, N)`` values and fits every (site, stream) row at once.
+Port of ``repro.core.models``: the linear and cubic families, mean
+imputation, and the two-predictor multi model (§V-G).  The reference
+vmaps the per-stream fit over k and the batched engine vmaps it again over
+sites; here both axes are written out, so every fit takes ``(..., k, N)``
+values and fits every (site, stream) row at once.
 
 Two paths, selected as in the reference: ``use_kernel=True`` assembles the
 normal equations from the fused Vandermonde moments (the ``polyfit``
@@ -139,3 +140,86 @@ def evaluate_model(model: CompactModel, x_pred: Tensor) -> Tensor:
     c = model.coeffs
     return (c[..., 0:1] + c[..., 1:2] * u + c[..., 2:3] * ipow(u, 2)
             + c[..., 3:4] * ipow(u, 3))
+
+
+def mean_model(values: Tensor, counts: Tensor, predictor: Tensor,
+               use_kernel=None, n_static=None) -> CompactModel:
+    """Mean imputation: E[X_i|X_p] := mu_i, explained variance exactly 0
+    (paper §III-B2).  ``use_kernel`` is accepted for the registry's fit
+    signature; no kernel serves this family."""
+    n_max = values.shape[-1]
+    mask = (torch.arange(n_max, device=values.device)
+            < counts[..., None]).to(values.dtype)
+    total = blocked_sum(values * mask)
+    if n_static is not None:
+        mean = total * recip(max(int(n_static), 1))
+    else:
+        mean = total / torch.clamp(counts.to(values.dtype), min=1.0)
+    zeros = torch.zeros_like(mean)
+    coeffs = torch.stack([mean, zeros, zeros, zeros], dim=-1)
+    return CompactModel(coeffs=coeffs, loc=zeros, scale=torch.ones_like(mean),
+                        explained_var=zeros, predictor=predictor)
+
+
+# Beyond the paper (§V-G): TWO predictor streams per target,
+# E[X_i | X_p, X_q] ~ c0 + c1 u + c2 v + c3 uv — still 4 coefficients;
+# constraint 1d becomes n_s,i <= min(n_r,p, n_r,q).
+
+def _fit_one_multi(y: Tensor, xp: Tensor, xq: Tensor, pair_mask: Tensor,
+                   n_static=None):
+    """LSQ fit of y ~ (1, u, v, uv) over co-valid positions, batched over
+    leading dims.  Returns (coeffs (..., 4), loc (..., 2), scale (..., 2),
+    explained_var)."""
+    w = pair_mask
+    n = torch.clamp(blocked_sum(w), min=1.0)
+
+    def std(x):
+        loc = blocked_sum(x * w) / n
+        var = blocked_sum(ipow(x - loc[..., None], 2) * w) / n
+        scale = torch.sqrt(torch.clamp(var, min=1e-12))
+        return (x - loc[..., None]) / scale[..., None], loc, scale
+
+    u, loc_u, sc_u = std(xp)
+    v, loc_v, sc_v = std(xq)
+    f = torch.stack([torch.ones_like(u), u, v, u * v], dim=-1) * w[..., None]
+    ft = f.transpose(-1, -2)
+    eye = torch.eye(4, dtype=f.dtype, device=f.device)
+    coeffs = torch.linalg.solve(ft @ f + _RIDGE * eye,
+                                (ft @ (y * w)[..., None])[..., 0])
+    fitted = (f @ coeffs[..., None])[..., 0]
+    mean_fit = blocked_sum(fitted * w) / n
+    ev = _unbiased(blocked_sum(ipow(fitted - mean_fit[..., None], 2) * w),
+                   n, n_static)
+    return (coeffs, torch.stack([loc_u, loc_v], dim=-1),
+            torch.stack([sc_u, sc_v], dim=-1), ev)
+
+
+def fit_models_multi(values: Tensor, counts: Tensor, predictors: Tensor,
+                     use_kernel=None, n_static=None) -> dict:
+    """predictors (..., k, 2): two predictor streams per target.
+
+    Returns the reference's dict model {coeffs (..., k, 4), loc and scale
+    (..., k, 2), explained_var (..., k), predictor (..., k, 2)}.  No
+    kernel serves this family (``use_kernel`` is accepted and unused).
+    """
+    n_max = values.shape[-1]
+    mask = (torch.arange(n_max, device=values.device)
+            < counts[..., None]).to(values.dtype)
+
+    def take(x, p):
+        return torch.gather(x, -2, p[..., None].expand(*p.shape, n_max))
+
+    p0, p1 = predictors[..., 0], predictors[..., 1]
+    pair = mask * take(mask, p0) * take(mask, p1)
+    coeffs, loc, scale, ev = _fit_one_multi(values, take(values, p0),
+                                            take(values, p1), pair, n_static)
+    return {"coeffs": coeffs, "loc": loc, "scale": scale,
+            "explained_var": ev, "predictor": predictors}
+
+
+def evaluate_model_multi(model: dict, xp: Tensor, xq: Tensor) -> Tensor:
+    """(..., k, M) observations of both predictors -> (..., k, M) imputed."""
+    u = (xp - model["loc"][..., 0:1]) / model["scale"][..., 0:1]
+    v = (xq - model["loc"][..., 1:2]) / model["scale"][..., 1:2]
+    c = model["coeffs"]
+    return c[..., 0:1] + c[..., 1:2] * u + c[..., 2:3] * v + c[..., 3:4] * u * v

@@ -24,8 +24,9 @@ class ModelSpec:
     """One registered imputation-model family (``PlannerConfig.model``)."""
 
     name: str
-    select: Callable        # (corr) -> (..., k) predictor assignment
+    select: Callable        # (corr) -> (..., k[, 2]) predictor assignment
     fit: Callable           # (values, counts, predictor) -> compact model
+                            # (a dict model for multi)
     per_model_bytes: float  # WAN upload per imputing stream (constraint 1f)
     multi: bool = False     # two predictor streams per target (§V-G)
     mean: bool = False      # degenerate mean-imputation model
@@ -48,5 +49,10 @@ MODELS.register("cubic", ModelSpec(
     name="cubic", select=pred_mod.heuristic_predictors,
     fit=lambda v, c, p, **kw: models_mod.fit_models(v, c, p, degree=3, **kw),
     per_model_bytes=float(CompactModel.param_bytes())))
-MODELS.defer("mean", "queue 1, 'Model families mean and multi'")
-MODELS.defer("multi", "queue 1, 'Model families mean and multi'")
+MODELS.register("mean", ModelSpec(
+    name="mean", select=pred_mod.heuristic_predictors,
+    fit=models_mod.mean_model, per_model_bytes=4.0, mean=True))
+MODELS.register("multi", ModelSpec(
+    name="multi", select=pred_mod.heuristic_predictors_multi,
+    fit=models_mod.fit_models_multi,
+    per_model_bytes=float(4 * 4 + 4 * 4 + 8), multi=True))

@@ -8,6 +8,8 @@ not ported yet.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.core.stats import fma
@@ -16,14 +18,16 @@ from repro_torch.core.types import Tensor
 
 def closed_form_alloc(q: Tensor, cost: Tensor, n_obs: Tensor, sigma2: Tensor,
                       explained_var: Tensor, eps: Tensor, budget: Tensor,
-                      predictor: Tensor, bisect_iters: int = 48):
+                      predictor: Tensor, predictor2: Optional[Tensor] = None,
+                      bisect_iters: int = 48):
     """One-shot KKT solution of a relaxation of eq. 1, in f32.
 
     (a) n_r by water-filling the budget (constraint 1f): n_r,i =
     t·sqrt(q_i/c_i) clipped to [1, N_i], with the level t found by 48
     bisection steps; floor(+1e-4), then a largest-remainder top-up within
     the budget.  (b) n_s pushed to its eq.-11 bias cap and clipped by
-    constraint 1d (n_s <= n_r of the predictor).
+    constraint 1d (n_s <= n_r of the predictor, and of ``predictor2``
+    under the two-predictor model).
 
     Inputs (..., k) (budget (...,)); returns (n_r (..., k) i32,
     n_s (..., k) i32, objective (...,)).
@@ -63,8 +67,10 @@ def closed_form_alloc(q: Tensor, cost: Tensor, n_obs: Tensor, sigma2: Tensor,
     take = ((spent <= leftover) & head_o).to(dt)
     nr = nr + torch.zeros_like(nr).scatter(-1, order, take)
 
-    # n_s: eq.-11 bias cap, then 1d (n_s <= n_r of the predictor)
+    # n_s: eq.-11 bias cap, then 1d (n_s <= n_r of every predictor)
     nr_pred = torch.gather(nr, -1, predictor)
+    if predictor2 is not None:
+        nr_pred = torch.minimum(nr_pred, torch.gather(nr, -1, predictor2))
     slope = sigma2 - explained_var - eps
     # (n_r - 1) eps - V is one fused multiply-add in the reference
     cap = torch.where(slope > 0,

@@ -1,6 +1,7 @@
 """Core datatypes — the port of ``repro.core.types``.
 
-Windows are dense ``(..., k, N)`` f32 tensors with per-stream valid counts.
+Windows are dense ``(..., k, N)`` f32 tensors with per-stream valid counts
+(a single edge's host windows arrive as :class:`WindowBatch`).
 The statistics and model dataclasses hold tensors with any leading batch
 dimensions (the batched engine carries a leading fleet axis E).
 """
@@ -13,6 +14,40 @@ import numpy as np
 import torch
 
 Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowBatch:
+    """One tumbling window of k streams (a single edge's scan input).
+
+    values: (k, N_max) float32 — tuple values, junk past ``counts``.
+    counts: (k,) int32 — N_i, the valid tuples of stream i.
+    window_id: int.
+
+    A host container, as the payload is: the scan runtime stacks the
+    windows into one device pool.
+    """
+
+    values: np.ndarray
+    counts: np.ndarray
+    window_id: int
+
+    @property
+    def k(self) -> int:
+        return self.values.shape[0]
+
+    @property
+    def n_max(self) -> int:
+        return self.values.shape[1]
+
+    @staticmethod
+    def from_numpy(values, counts=None, window_id: int = 0) -> "WindowBatch":
+        values = np.asarray(values, np.float32)
+        if counts is None:
+            counts = np.full((values.shape[0],), values.shape[1], np.int32)
+        return WindowBatch(values=values,
+                           counts=np.asarray(counts, np.int32),
+                           window_id=int(window_id))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,9 +100,10 @@ class EdgePayload:
     n_real: np.ndarray                 # (k,) int
     n_imputed: np.ndarray              # (k,) int
     real_values: list                  # per stream, the sampled tuples (f32)
-    model: Optional[CompactModel]      # None => mean imputation
+    model: Optional[CompactModel]      # None => mean imputation; a dict
+                                       # for the two-predictor model
     mean_imputation: bool
-    predictor: np.ndarray              # (k,) int
+    predictor: np.ndarray              # (k,) int, or (k, 2) for multi
     stats_digest: dict                 # small header: per-stream mean/var
     sent_at_ms: float = 0.0
 

@@ -4,8 +4,11 @@
 The fleet's windows are one ``(E, k, N)`` tensor and every stage runs on
 all sites at once: window statistics from one ``stream_stats_fleet`` pass
 over the values (and one over the ranks under Spearman), predictor
-selection, the compact-model fit (one ``polyfit`` launch over all E·k rows
-under ``use_kernel=True``), the epsilon policy and the closed-form solver.
+selection, the compact-model fit of every registered family (one
+``polyfit`` launch over all E·k rows for the linear and cubic fits under
+``use_kernel=True``; the mean and multi models have no kernel), the
+epsilon policy and the closed-form solver.  One site (E = 1) is the same
+pass.
 Where the reference vmaps over sites, the port writes the batch dimension
 out.
 """
@@ -34,16 +37,18 @@ _INT_FIELDS = ("n_real", "n_imputed")
 class FleetPlan:
     """One window's plan for all E sites (every tensor leads with E).
 
+    Shapes are per model family: the multi model carries ``predictor``,
+    ``loc`` and ``scale`` as (E, k, 2), the others as (E, k).
     ``predictor`` is int64 (torch's gather index type); the reference
     carries int32.  The other integer fields are int32 as there.
     """
 
     n_real: Tensor          # (E, k) i32
     n_imputed: Tensor       # (E, k) i32
-    predictor: Tensor       # (E, k) i64
+    predictor: Tensor       # (E, k[, 2]) i64
     coeffs: Tensor          # (E, k, 4) compact-model coefficients
-    loc: Tensor             # (E, k)
-    scale: Tensor           # (E, k)
+    loc: Tensor             # (E, k[, 2])
+    scale: Tensor           # (E, k[, 2])
     explained_var: Tensor   # (E, k) V_i
     mean: Tensor            # (E, k) stats digest
     var: Tensor             # (E, k)
@@ -112,20 +117,31 @@ def fleet_plan(values: Tensor, counts: Tensor, budgets: Tensor,
     predictor = spec.select(corr)
     fitted = spec.fit(values, counts, predictor, use_kernel=use_kernel,
                       n_static=n_static)
+    if spec.multi:                   # the two-predictor dict model
+        coeffs, loc, scale, explained_var = (
+            fitted[f] for f in ("coeffs", "loc", "scale", "explained_var"))
+    else:
+        coeffs, loc, scale, explained_var = (
+            fitted.coeffs, fitted.loc, fitted.scale, fitted.explained_var)
 
     # epsilon policy (§IV-C)
     eps = eps_mod.make_epsilon(epsilon_policy, stats, epsilon_scale)
 
     weights = 1.0 / torch.clamp(torch.abs(stats.mean), min=1e-6)
     sigma2 = torch.clamp(stats.var, min=1e-12)
-    v_exp = torch.minimum(torch.clamp(fitted.explained_var, min=0.0),
+    v_exp = torch.minimum(torch.clamp(explained_var, min=0.0),
                           sigma2 * (1.0 - 1e-9))
     q = ipow(weights, 2) * sigma2
     budget_net = spec.budget_net(budgets, k).to(values.dtype)
     cost = torch.ones_like(q)
 
-    nr, ns, obj = solver_mod.closed_form_alloc(q, cost, cf, sigma2, v_exp,
-                                               eps, budget_net, predictor)
+    if spec.multi:
+        nr, ns, obj = solver_mod.closed_form_alloc(
+            q, cost, cf, sigma2, v_exp, eps, budget_net, predictor[..., 0],
+            predictor[..., 1])
+    else:
+        nr, ns, obj = solver_mod.closed_form_alloc(
+            q, cost, cf, sigma2, v_exp, eps, budget_net, predictor)
 
     if epsilon_policy == "exact_mse":
         # appendix-B post-hoc cap, closed form (epsilon.exact_mse_shrink)
@@ -135,8 +151,8 @@ def fleet_plan(values: Tensor, counts: Tensor, budgets: Tensor,
                                       cap).to(ns.dtype)
 
     return FleetPlan(n_real=nr, n_imputed=ns, predictor=predictor,
-                     coeffs=fitted.coeffs, loc=fitted.loc, scale=fitted.scale,
-                     explained_var=fitted.explained_var,
+                     coeffs=coeffs, loc=loc, scale=scale,
+                     explained_var=explained_var,
                      mean=stats.mean, var=stats.var, eps=eps,
                      objective=obj, r2=(v_exp / sigma2).mean(-1))
 

@@ -24,15 +24,25 @@ def assemble_payload(spec: ModelSpec, plan: dict, s: int, window_id: int,
     """One site's plan arrays (host numpy) + drawn real samples -> payload.
 
     Caps n_s at what actually shipped (constraint 1d, post-draw):
-    imputation is keyed to the front of the predictor's real sample.
+    imputation is keyed to the front of the predictor's real sample (of
+    both predictors' under the multi model).  Mean imputation ships no
+    model; the multi model ships as a dict.
     """
     real_values = [np.asarray(v, np.float32) for v in real_values]
     pred = np.asarray(plan["predictor"][s], np.int64)
     ns = np.asarray(plan["n_imputed"][s], np.int64).copy()
     for i in range(len(ns)):
-        ns[i] = min(ns[i], len(real_values[int(pred[i])]))
+        if spec.multi:
+            ns[i] = min(ns[i], len(real_values[int(pred[i, 0])]),
+                        len(real_values[int(pred[i, 1])]))
+        else:
+            ns[i] = min(ns[i], len(real_values[int(pred[i])]))
     if spec.mean:
         model = None
+    elif spec.multi:
+        model = {f: np.asarray(plan[f][s])
+                 for f in ("coeffs", "loc", "scale", "explained_var")}
+        model["predictor"] = pred
     else:
         model = CompactModel(coeffs=plan["coeffs"][s], loc=plan["loc"][s],
                              scale=plan["scale"][s],

@@ -1,4 +1,5 @@
-"""The fleet scan runtime of the port: controller, window step, scan loop.
+"""The scan runtime of the port (fleets and single edges): controller,
+window step, scan loop.
 
 Scenarios select a runtime through the RUNTIMES registry:
 

@@ -1,11 +1,12 @@
-"""ScanRuntime — the fleet streaming engine on the card.
+"""ScanRuntime — the streaming engine on the card, for a fleet or one edge.
 
-Port of ``repro.runtime.scan.ScanRuntime`` for fleets.  The reference
-stacks the windows into one device pool and runs the per-window cycle as
-one ``lax.scan``; PyTorch has no scan, so the port loops over the windows
-in Python and updates the carry in place.  ``mode="scan"`` and
+Port of ``repro.runtime.scan.ScanRuntime``.  The reference stacks the
+windows into one device pool and runs the per-window cycle as one
+``lax.scan``; PyTorch has no scan, so the port loops over the windows in
+Python and updates the carry in place.  ``mode="scan"`` and
 ``mode="steps"`` (the reference's incremental cadence) are therefore the
-same loop.
+same loop.  A single edge (no topology) is the same step over a one-site
+pool, with a static budget and the permutation sampler.
 
 Two result fidelities, as in the reference:
 
@@ -36,14 +37,16 @@ from repro_torch.runtime.step import (PAYLOAD_PLAN_FIELDS, SCAN_QUERIES,
 
 @dataclasses.dataclass
 class ScanRuntime:
-    """Fleet scan runtime; zero-latency WAN semantics."""
+    """Scan runtime for a fleet or one edge; zero-latency WAN semantics."""
 
     cfg: "PlannerConfig"
     ctrl: CtrlParams
-    topology: "FleetTopology"
+    topology: Optional["FleetTopology"] = None   # None => single edge
     query_names: tuple = ("AVG", "VAR")
     mode: str = "scan"                 # "scan" | "steps"
     collect: str = "payloads"          # "payloads" | "estimates"
+    method: str = "model"              # single edge: "model" | model name
+    budget_fraction: float = 0.25      # single edge: per-window budget
     use_kernel: Optional[bool] = None
     device: object = None              # None -> "cuda"
 
@@ -59,26 +62,50 @@ class ScanRuntime:
                 raise ValueError(
                     f"query {q!r} has no on-device mirror; the scan runtime "
                     f"supports {SCAN_QUERIES}")
-        if self.topology is None or self.topology.n_sites < 2:
-            raise NotImplementedError(
-                "single-edge (E=1) scans are not ported to repro_torch yet "
-                "(ROADMAP.md: queue 1, 'Single-edge scans')")
+        cfg = self.cfg
+        if self.method != "model":
+            if self.method not in MODELS:
+                raise NotImplementedError(
+                    f"method {self.method!r}: the scan runtime plans through "
+                    f"the model families ('model' or {MODELS.names()}); the "
+                    f"baselines run on the event path, which is not ported "
+                    f"to repro_torch yet (ROADMAP.md: queue 1, 'Event path')")
+            cfg = dataclasses.replace(cfg, model=self.method)
+        self.cfg_eff = cfg
         self.device = resolve_device(self.device)
-        self.engine = ENGINES.get(self.cfg.engine or "batched")
-        self.engine.check(self.cfg)
-        self.spec = MODELS.get(self.cfg.model)
-        self.n_sites = self.topology.n_sites
-        self._cost = np.asarray([s.link.cost_per_byte
-                                 for s in self.topology.sites])
+        self.engine = ENGINES.get(cfg.engine or "batched")
+        self.engine.check(cfg)
+        self.spec = MODELS.get(cfg.model)
+        if self.topology is None:
+            self.n_sites = 1
+            self._cost = np.ones(1)
+        else:
+            self.n_sites = self.topology.n_sites
+            self._cost = np.asarray([s.link.cost_per_byte
+                                     for s in self.topology.sites])
 
     @classmethod
     def from_scenario(cls, scenario, *, use_kernel=None,
                       collect: str = "payloads", device=None) -> "ScanRuntime":
-        """Build from a fleet ScenarioConfig with ``runtime="scan"`` or
+        """Build from a ScenarioConfig with ``runtime="scan"`` or
         ``"scan_steps"`` (the same budget wiring as the reference)."""
         from repro_torch.api.scenario import ControllerSpec
         spec = scenario.controller or ControllerSpec()
         mode = "steps" if scenario.runtime == "scan_steps" else "scan"
+        if not scenario.is_fleet:
+            # one edge: the controller is inert (one site, static budget);
+            # a one-site topology contributes its link's cost per byte
+            rt = cls(cfg=scenario.planner,
+                     ctrl=CtrlParams(total_budget=1.0, n_sites=1,
+                                     mode="static"),
+                     query_names=tuple(scenario.queries), mode=mode,
+                     collect=collect, method=scenario.method,
+                     budget_fraction=scenario.budget_fraction,
+                     use_kernel=use_kernel, device=device)
+            if scenario.topology is not None:
+                link = scenario.topology.build(1).sites[0].link
+                rt._cost = np.asarray([link.cost_per_byte])
+            return rt
         k = int(scenario.data.options.get("k", 6))
         topo = scenario.topology.build(k)
         E = topo.n_sites
@@ -99,13 +126,16 @@ class ScanRuntime:
     def _plan_fn(self, values, counts, budgets):
         # full windows: every count is the window length, a constant of
         # the step (as the reference compiles it)
-        return self.engine.run(values, counts, budgets, self.cfg,
+        return self.engine.run(values, counts, budgets, self.cfg_eff,
                                use_kernel=self.use_kernel,
                                n_static=values.shape[-1])
 
-    def _static_exec(self) -> Optional[tuple]:
-        """Executed budgets when they are window-invariant (static mode),
-        computed on the host in f64 as the event loop computes them."""
+    def _static_exec(self, k: int, n: int) -> Optional[tuple]:
+        """Executed budgets when they are window-invariant (one edge, or
+        static mode), computed on the host in f64 as the event loop
+        computes them."""
+        if self.topology is None:
+            return (float(max(int(self.budget_fraction * k * n), 2)),)
         if self.ctrl.mode == "static":
             eq = self.ctrl.equal_share
             b = np.minimum(np.full(self.n_sites, eq),
@@ -120,7 +150,9 @@ class ScanRuntime:
     def run(self, windows, n_windows: Optional[int] = None, *,
             state: Optional[RuntimeState] = None,
             first_window: Optional[int] = None) -> dict:
-        """windows: list of (E, k, N) arrays.
+        """windows: list of (E, k, N) arrays (fleet) or of
+        :class:`~repro_torch.core.types.WindowBatch` (one edge; full
+        windows only).
 
         ``n_windows`` extends the run past the pool by cycling it (window
         ``wid`` reads slot ``wid % P``).  ``state``/``first_window`` resume
@@ -128,11 +160,22 @@ class ScanRuntime:
         window ids start at ``first_window``, default ``state.window_id``.
         The passed state is updated in place.
         """
-        pool_np = np.stack([np.asarray(w, np.float32) for w in windows])
+        single = self.topology is None
+        if single:
+            for w in windows:
+                if not np.all(np.asarray(w.counts) == w.values.shape[-1]):
+                    raise ValueError("the scan runtime requires full "
+                                     "windows (every count N)")
+            pool_np = np.stack([np.asarray(w.values, np.float32)
+                                for w in windows])[:, None]
+        else:
+            pool_np = np.stack([np.asarray(w, np.float32) for w in windows])
         P, _, k, n = pool_np.shape
         T = int(n_windows) if n_windows is not None else P
+        static_exec = self._static_exec(k, n)
+        eq = static_exec[0] if single else self.ctrl.equal_share
         if state is None:
-            state = init_state(self.n_sites, k, float(self.ctrl.equal_share),
+            state = init_state(self.n_sites, k, float(eq),
                                device=self.device)
             w0 = int(first_window) if first_window is not None else 0
         else:
@@ -140,9 +183,10 @@ class ScanRuntime:
                   else int(state.window_id))
         pool = torch.as_tensor(pool_np, device=self.device)
         step = make_window_step(
-            pool, seed=self.cfg.seed, plan_fn=self._plan_fn,
-            qnames=self.query_names, ctrl=self.ctrl,
-            static_exec_budgets=self._static_exec(), collect=self.collect)
+            pool, seed=self.cfg_eff.seed, plan_fn=self._plan_fn,
+            qnames=self.query_names, multi=self.spec.multi,
+            mean=self.spec.mean, ctrl=self.ctrl,
+            static_exec_budgets=static_exec, collect=self.collect)
 
         self._sync()
         t0 = time.perf_counter()
@@ -153,8 +197,8 @@ class ScanRuntime:
         host_state = state_to_numpy(state)
 
         if self.collect == "payloads":
-            est, tru, bytes_site, cost_site = self._replay(ys, pool_np, T,
-                                                           w0=w0)
+            est, tru, bytes_site, cost_site = self._replay(
+                ys, pool_np, T, windows, w0=w0)
         else:
             est = {q: np.asarray(ys["est"][q], np.float64)
                    for q in self.query_names}
@@ -162,6 +206,9 @@ class ScanRuntime:
                    for q in self.query_names}
             bytes_site = ys["bytes"].astype(np.int64).sum(axis=0)
             cost_site = bytes_site * self._cost
+            if single:
+                est = {q: v[:, 0] for q, v in est.items()}
+                tru = {q: v[:, 0] for q, v in tru.items()}
 
         extras = {
             "final_state": state,
@@ -178,6 +225,9 @@ class ScanRuntime:
                          ("budgets", "obs_err", "r2", "objective")},
             "bytes_history": ys["bytes"],
         }
+        if single:
+            return self._result_single(est, tru, bytes_site, cost_site, T,
+                                       k, n, scan_seconds, extras)
         from repro_torch.runtime.report import aggregate_fleet
         raw = aggregate_fleet(
             topology=self.topology, qnames=self.query_names,
@@ -191,10 +241,12 @@ class ScanRuntime:
         raw.update(extras)
         return raw
 
-    def _replay(self, ys, pool_np, T, w0: int = 0):
+    def _replay(self, ys, pool_np, T, windows, w0: int = 0):
         """Host replay of the collected payloads through the event path's
         assemble/reconstruct/query code (host numpy).  Output row ``t``
-        holds window ``w0 + t``, which read pool slot ``(w0 + t) % P``."""
+        holds window ``w0 + t``, which read pool slot ``(w0 + t) % P``.
+        One edge's truth comes from its original windows' values, as the
+        event path computes it."""
         from repro_torch.core.reconstruct import reconstruct_window
         from repro_torch.planning.engine import assemble_payload
         E, k = self.n_sites, pool_np.shape[2]
@@ -216,11 +268,42 @@ class ScanRuntime:
                 bytes_site[s] += nb
                 cost_site[s] += nb * self._cost[s]
                 rec = reconstruct_window(payload)
+                if self.topology is None:
+                    w = windows[(w0 + t) % P]
+                    true_rows = [np.asarray(w.values[i, :int(w.counts[i])])
+                                 for i in range(k)]
+                else:
+                    true_rows = [vals[s, i] for i in range(k)]
                 for q in qnames:
                     fn = Q.QUERIES[q]
                     est[q][t, s] = [fn(r) for r in rec]
-                    tru[q][t, s] = [fn(vals[s, i]) for i in range(k)]
+                    tru[q][t, s] = [fn(r) for r in true_rows]
+        if self.topology is None:
+            est = {q: v[:, 0] for q, v in est.items()}
+            tru = {q: v[:, 0] for q, v in tru.items()}
         return est, tru, bytes_site, cost_site
+
+    def _result_single(self, est, tru, bytes_site, cost_site, T, k, n,
+                       scan_seconds, extras) -> dict:
+        """One edge's result dict: (k,) NRMSE per query over T windows."""
+        from repro_torch.runtime.report import freshness_percentiles
+        ages = np.zeros(T)             # zero latency: served the moment due
+        nrmse = {q: Q.nrmse_table(est[q].T, tru[q].T)
+                 for q in self.query_names}
+        return {
+            "nrmse": nrmse,
+            "nrmse_at_query": dict(nrmse),
+            "wan_bytes": int(bytes_site.sum()),
+            "wan_cost": float(cost_site.sum()),
+            "full_bytes": T * k * n * 4,
+            "plan_seconds": scan_seconds,
+            "gaps": 0, "revisions": 0, "late_drops": 0, "duplicates": 0,
+            "retransmits": 0,
+            "window_age_ms": ages,
+            "revised_windows": np.zeros(T, bool),
+            "freshness_ms": freshness_percentiles(ages),
+            **extras,
+        }
 
 
 def _stack_outputs(outs: list) -> dict:

@@ -1,13 +1,17 @@
-"""One fleet window: budgets -> plan -> sample -> impute -> serve.
+"""One scan window: budgets -> plan -> sample -> impute -> serve.
 
-Port of ``repro.runtime.step`` for fleets (E > 1) without chaos, adaptive
-re-planning or site sharding.  :func:`make_window_step` builds
+Port of ``repro.runtime.step`` for fleets and single edges without chaos,
+adaptive re-planning or site sharding.  :func:`make_window_step` builds
 ``step(state, wid) -> outputs``; the step updates the carry in place.
 
-Sampling reproduces the reference bit for bit: the per-window key is
-``fold_in(PRNGKey(seed ^ wid), 0x5A)`` through the threefry replica
-(:mod:`repro_torch.runtime.threefry`), and the partial Fisher–Yates
-shuffle makes the same swaps in the same order.
+Sampling reproduces the reference bit for bit through the threefry
+replica (:mod:`repro_torch.runtime.threefry`):
+
+  * E = 1: the key is ``PRNGKey(seed ^ wid)`` itself; stream i takes
+    ``permutation(sub_i, N)`` with ``sub_i`` from the sequential
+    ``split`` chain, as the host planner's sampler draws it;
+  * E > 1: the key is ``fold_in(PRNGKey(seed ^ wid), 0x5A)``, and the
+    partial Fisher–Yates shuffle makes the same swaps in the same order.
 """
 from __future__ import annotations
 
@@ -70,35 +74,73 @@ def _fy_sample(key: tuple, values, n_real):
     return torch.where(keep, shuffled, torch.zeros_like(shuffled))
 
 
+def _stream_keys(base: tuple, k: int) -> list:
+    """The sequential split chain of the host sampler: one subkey a stream."""
+    subs = []
+    key = base
+    for _ in range(k):
+        key, sub = threefry.split(key)
+        subs.append(sub)
+    return subs
+
+
+def _permutation_sample(base: tuple, values, n_real):
+    """E = 1: stream i's tuples in the order of ``permutation(sub_i, N)``,
+    masked past ``n_real[0, i]``."""
+    _, k, n = values.shape
+    perm = threefry.permutations(_stream_keys(base, k), n,
+                                 device=values.device)
+    shuffled = torch.gather(values, -1, perm[None])
+    keep = torch.arange(n, device=values.device) < n_real[..., None]
+    return torch.where(keep, shuffled, torch.zeros_like(shuffled))
+
+
 def sample_fleet(seed: int, wid: int, values, n_real):
     """SRS without replacement for every site and stream of one window.
 
     values (E, k, N) f32, n_real (E, k) int -> (E, k, N) f32 where row
     [s, i] holds stream i's n_real[s, i] sampled tuples in draw order,
-    then zeros.  Fleets only: the single-edge sampler is not ported yet.
+    then zeros.  One site draws by permutation, a fleet by Fisher–Yates.
     """
-    if values.shape[0] == 1:
-        raise NotImplementedError(
-            "single-edge (E=1) sampling is not ported to repro_torch yet "
-            "(ROADMAP.md: queue 1, 'Single-edge scans')")
     base = threefry.prng_key(np.int32(seed) ^ np.int32(wid))
+    if values.shape[0] == 1:
+        return _permutation_sample(base, values, n_real)
     return _fy_sample(threefry.fold_in(base, 0x5A), values, n_real)
 
 
-def _impute(plan: FleetPlan, samples, n_real):
+def _impute(plan: FleetPlan, samples, n_real, *, multi: bool, mean: bool):
     """(E, k, N) imputed values + the 1d-capped n_imputed + their mask.
 
     Evaluates each stream's compact model on the front of its predictor's
-    real sample, capped at what actually shipped.
+    real sample (both predictors' under the multi model), capped at what
+    actually shipped; mean imputation repeats the window mean.
     """
     e, k, n = samples.shape
     iota = torch.arange(n, device=samples.device)
-    ns = torch.minimum(plan.n_imputed, torch.gather(n_real, 1, plan.predictor))
-    xp = torch.gather(samples, 1, plan.predictor[..., None].expand(e, k, n))
-    u = (xp - plan.loc[..., None]) / plan.scale[..., None]
     c = plan.coeffs
-    imp = (c[..., 0:1] + c[..., 1:2] * u + c[..., 2:3] * ipow(u, 2)
-           + c[..., 3:4] * ipow(u, 3))
+
+    def front(pred):
+        return torch.gather(samples, 1, pred[..., None].expand(e, k, n))
+
+    if multi:
+        p0, p1 = plan.predictor[..., 0], plan.predictor[..., 1]
+        ns = torch.minimum(plan.n_imputed,
+                           torch.minimum(torch.gather(n_real, 1, p0),
+                                         torch.gather(n_real, 1, p1)))
+        u = (front(p0) - plan.loc[..., 0:1]) / plan.scale[..., 0:1]
+        v = (front(p1) - plan.loc[..., 1:2]) / plan.scale[..., 1:2]
+        imp = (c[..., 0:1] + c[..., 1:2] * u + c[..., 2:3] * v
+               + c[..., 3:4] * u * v)
+    else:
+        ns = torch.minimum(plan.n_imputed,
+                           torch.gather(n_real, 1, plan.predictor))
+        if mean:
+            imp = plan.mean[..., None].expand(e, k, n)
+        else:
+            u = ((front(plan.predictor) - plan.loc[..., None])
+                 / plan.scale[..., None])
+            imp = (c[..., 0:1] + c[..., 1:2] * u + c[..., 2:3] * ipow(u, 2)
+                   + c[..., 3:4] * ipow(u, 3))
     mask = iota < ns[..., None]
     return torch.where(mask, imp, torch.zeros_like(imp)), ns, mask
 
@@ -141,13 +183,15 @@ def _masked_queries(parts, qnames):
     return out
 
 
-def make_window_step(pool, *, seed: int, plan_fn, qnames, ctrl: CtrlParams,
+def make_window_step(pool, *, seed: int, plan_fn, qnames, multi: bool,
+                     mean: bool, ctrl: CtrlParams,
                      static_exec_budgets: Optional[np.ndarray] = None,
                      collect: str = "estimates"):
-    """Build ``step(state, wid) -> outputs`` for one fleet window.
+    """Build ``step(state, wid) -> outputs`` for one window of E sites.
 
     pool: (P, E, k, N) f32 tensor; window ``wid`` reads slot ``wid % P``.
     plan_fn: (values, counts, budgets) -> FleetPlan.
+    multi / mean: the model family's imputation (``ModelSpec`` flags).
     static_exec_budgets: host-computed executed budgets (static mode).
     The step updates ``state`` in place (controller EWMAs, running totals,
     the window cursor) and returns the window's output tensors.  Each
@@ -157,7 +201,8 @@ def make_window_step(pool, *, seed: int, plan_fn, qnames, ctrl: CtrlParams,
     dev = pool.device
     counts = torch.full((e, k), n, dtype=torch.int32, device=dev)
     full_mask = torch.ones((e, k, n), dtype=torch.bool, device=dev)
-    per_model = _PER_MODEL_BYTES["single"]
+    per_model = _PER_MODEL_BYTES["mean" if mean else
+                                 ("multi" if multi else "single")]
     header = 8 + 2 * k
     iota = torch.arange(n, device=dev)
     static_exec = (None if static_exec_budgets is None else
@@ -177,7 +222,8 @@ def make_window_step(pool, *, seed: int, plan_fn, qnames, ctrl: CtrlParams,
         with stage("sample"):
             samples = sample_fleet(seed, wid, values, plan.n_real)
         with stage("impute"):
-            imputed, ns, mask_i = _impute(plan, samples, plan.n_real)
+            imputed, ns, mask_i = _impute(plan, samples, plan.n_real,
+                                          multi=multi, mean=mean)
             mask_r = iota < plan.n_real[..., None]
 
         with stage("queries"):

@@ -372,3 +372,64 @@ def test_cuda_kernels_refuse_what_they_do_not_take(cuda):
         fa_ops.flash_attention(q.transpose(1, 2), k, v)
     with pytest.raises(ValueError, match="CUDA"):
         fa_ops.flash_attention_cuda(q, k.cpu(), v)
+
+
+# ---- one site (E = 1): the sampler, both fleet kernels, single_scan -----
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(5, 256), (5, 128), (8, 4096)],
+                         ids=lambda v: str(v))
+def test_cuda_single_edge_sampler_equals_cpu(cuda, k, n):
+    """The permutation sampler (one sort round at N = 256, two at 4096)
+    draws the same sample sets on the card as on the CPU, bitwise."""
+    from repro_torch.runtime.step import sample_fleet
+    g = torch.Generator().manual_seed(k * n)
+    values = torch.randn(1, k, n, generator=g) * 5.0 + 50.0
+    n_real = torch.randint(0, n + 1, (1, k), generator=g, dtype=torch.int32)
+    for wid in range(3):
+        want = sample_fleet(4, wid, values, n_real)
+        got = sample_fleet(4, wid, values.to(cuda), n_real.to(cuda)).cpu()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(5, 256), (8, 4096)], ids=lambda v: str(v))
+def test_cuda_fleet_kernels_at_one_site_match_plain(cuda, k, n):
+    """Both fleet kernels at E = 1, the single-edge scan's shapes: one
+    launch each; power sums and Vandermonde sums bitwise."""
+    g = torch.Generator().manual_seed(k + n)
+    x = (torch.randn(1, k, n, generator=g) * 1.5 + 2.0).to(cuda)
+    before = ss_ops.LAUNCHES
+    mom, xxt = ss_ops.fleet_window_moments_xxt(x)
+    torch.cuda.synchronize()
+    assert ss_ops.LAUNCHES == before + 1
+    mom_r, xxt_r = fleet_stats_ref(x)
+    assert torch.equal(mom, mom_r)
+    torch.testing.assert_close(xxt, xxt_r, rtol=SS_RTOL, atol=SS_ATOL)
+    y, u = x[0], torch.randn(k, n, generator=g).to(cuda)
+    before = poly_ops.LAUNCHES
+    pu, py = poly_ops.vandermonde_moments(y, u)
+    torch.cuda.synchronize()
+    assert poly_ops.LAUNCHES == before + 1
+    pu_r, py_r = polyfit_ref(y, u)
+    pu_r[:, 0] = float(n)
+    assert torch.equal(pu, pu_r) and torch.equal(py, py_r)
+
+
+@pytest.mark.cuda
+def test_cuda_single_scan_matches_live_reference_bytes(cuda):
+    """The single_scan golden on the card, both kernels on: the live JAX
+    reference's 4662 WAN bytes (CPU), 2 + 1 launches a window."""
+    import json
+    import pathlib
+    from repro_torch.api.experiment import Experiment
+    from repro_torch.api.scenario import ScenarioConfig
+    path = (pathlib.Path(__file__).parent / "goldens" / "scenarios"
+            / "single_scan.json")
+    sc = ScenarioConfig.from_dict(json.loads(path.read_text())["scenario"])
+    before = (ss_ops.LAUNCHES, poly_ops.LAUNCHES)
+    report = Experiment.from_scenario(sc, use_kernel=True,
+                                      device=cuda).run()
+    assert report.wan_bytes == 4662
+    assert (ss_ops.LAUNCHES - before[0], poly_ops.LAUNCHES - before[1]) == (
+        6, 3)

@@ -121,7 +121,10 @@ def test_unported_configurations_name_their_roadmap_item():
     engine = ENGINES.get("batched")
     with pytest.raises(NotImplementedError, match="Event path"):
         engine.check(PlannerConfig())           # solver="ipm" by default
-    with pytest.raises(NotImplementedError, match="mean and multi"):
-        engine.check(PlannerConfig(solver="closed_form", model="multi"))
+    with pytest.raises(NotImplementedError, match="Event path"):
+        ENGINES.get("host")
     with pytest.raises(NotImplementedError, match="Sharding"):
         ENGINES.get("sharded")
+    # every model family plans in the batched engine
+    for model in ("linear", "cubic", "mean", "multi"):
+        engine.check(PlannerConfig(solver="closed_form", model=model))

@@ -1,7 +1,8 @@
-"""The threefry replica and the fleet sampler against ``jax.random``.
+"""The threefry replica and the scan samplers against ``jax.random``.
 
 Integer outputs must match bitwise: the uniforms' bit patterns and the
-sample sets the Fisher–Yates shuffle draws from them.
+sample sets the Fisher–Yates shuffle (fleets) and the permutation (one
+site) draw from them.
 """
 import numpy as np
 import pytest
@@ -55,9 +56,16 @@ def test_sample_fleet_equals_reference(seed, wid, shape):
 
 
 def test_single_edge_sampler_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="Single-edge scans"):
-        sample_fleet(0, 0, torch.zeros(1, 3, 8),
-                     torch.ones(1, 3, dtype=torch.int32))
+    """One site draws by ``permutation`` from the ``split`` chain, not by
+    the fleet's Fisher–Yates shuffle: the sample sets equal the
+    reference's bitwise (tests/test_torch_single_edge.py has the rest)."""
+    values = np.arange(24, dtype=np.float32).reshape(1, 3, 8)
+    n_real = np.array([[8, 3, 0]], np.int32)
+    want = draw_fleet_samples(0, 0, values, n_real)
+    got = sample_fleet(0, 0, torch.as_tensor(values),
+                       torch.as_tensor(n_real)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert sorted(got[0, 0]) == list(range(8))
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="needs a machine "

@@ -4,7 +4,9 @@ The ``fleet_scan`` golden scenario runs through both front doors on the
 CPU.  WAN bytes and the per-window byte and budget histories must match
 bitwise; NRMSE tables are held to the sweep's f32 class.  The committed
 golden report is not the oracle: the reference no longer reproduces it
-(ROADMAP.md queue 3, note b), so the reference is run live.
+(ROADMAP.md queue 3, note b), so the reference is run live.  The
+single-edge scans and the mean and multi families have files of their
+own (``test_torch_single_edge.py``, ``test_torch_model_families.py``).
 """
 import json
 import pathlib
@@ -140,10 +142,9 @@ def test_resume_from_reference_carry(windows, reference):
     ({"runtime": "scan_sharded"}, "Sharding"),
     ({"adaptive": {"detector": "always"}}, "Adaptive"),
     ({"chaos": {"faults": []}}, "Chaos"),
-    ({"planner": dict(SCENARIO["planner"], model="mean")}, "mean and multi"),
+    ({"method": "srs"}, "Event path"),
     ({"planner": dict(SCENARIO["planner"], solver="ipm")}, "Event path"),
-    ({"topology": dict(SCENARIO["topology"], n_regions=1,
-                       sites_per_region=1)}, "Single-edge scans"),
+    ({"planner": dict(SCENARIO["planner"], engine="sharded")}, "Sharding"),
 ])
 def test_unported_scenarios_name_their_roadmap_item(change, item):
     sc = ScenarioConfig.from_dict(dict(SCENARIO, **change))
