@@ -44,7 +44,20 @@ Phases, one JSON line each; any failed check exits non-zero:
      kernels held against their plain versions and timed at this path's
      shapes and at ``single_scan``'s;
  11. ``fleet_scan`` under the mean and multi model families;
- 12. the kernels line, then ``{"ok": true, "device": {...}}`` last.
+ 12. slice 8's golden sweep: ``repro_torch.sweep`` over the five scan
+     goldens the port runs, on the card with the kernels and with the
+     plain versions, against the committed ``tests/torch_goldens/reports``
+     (every counter bitwise, every float within the class the runner
+     holds it to);
+ 13. slice 8's path: adaptive re-planning (the page_hinkley drift gate on
+     ``stream_stats_fleet``) at the main path's width, E = 1024 sites,
+     k = 8, N = 256, over ``ADAPTIVE["T"]`` generated windows whose
+     regional correlations flip at the middle; launches asserted (row 1 =
+     T + re-plans, row 2 = re-plans), windows/sec beside the same windows
+     planned every window, the stage split with ``window_step/gate``, the
+     plain versions on the card against the kernels, and the adaptive
+     golden on the card against the live reference's counters;
+ 14. the kernels line, then ``{"ok": true, "device": {...}}`` last.
 
 Detailed profiles go to ``chiprun_out/``.
 """
@@ -78,6 +91,13 @@ FAMILY_REF_WAN_BYTES = {"mean": 11540, "multi": 9436}
 # one edge gateway: the turbine sensor suite at k = 8, windows of 4096
 # tuples (the permutation sampler's two-round branch)
 SINGLE = {"k": 8, "window": 4096, "pool": 4, "T": 200, "T_plain": 20}
+# slice 8: the adaptive golden's live reference (CPU, jax 0.9), and the
+# adaptive path: the main path's fleet, T generated windows (not cycled)
+# whose four regions' correlation strengths reverse at window T // 2
+ADAPTIVE_REF = {"wan_bytes": 21096, "planner_invocations": 6,
+                "plans_reused": 6, "drift_fires": 7}
+ADAPTIVE = {"n_regions": 4, "sites_per_region": 256, "k": 8, "window": 256,
+            "T": 24, "strength": [0.9, 0.65, 0.4, 0.15]}
 # a fleet of the main path's kind whose data (134 MB for stream_stats_fleet,
 # 268 MB for polyfit) does not fit in the 50 MB L2: (E, k, N)
 LARGE = (4096, 8, 1024)
@@ -534,10 +554,22 @@ def main() -> int:
     # ---- 9.-11. slice 7: single edges and the mean and multi families --
     single_edge_phases(torch, dev)
 
-    # ---- 12. the kernels line and the result -----------------------------
+    # ---- 12.-13. slice 8: the golden sweep and the adaptive path ---------
+    golden_sweep_phase(torch)
+    adaptive = adaptive_path(torch)
+
+    # ---- 14. the kernels line and the result -----------------------------
+    # launches: rows 1 and 2 on the two runtime paths driven with the
+    # counts at 0 (main_path, adaptive_path), rows 3 and 4 on the kernel
+    # entry points
+    by_path = {n: ({"main_path": launches[n], "adaptive_path": adaptive[n]}
+                   if n in adaptive else {"kernel_entry_points": launches[n]})
+               for n in KERNELS}
     emit({"kernels": [dict(name=n, route="cuda", source=KERNELS[n][0],
-                           replaces=KERNELS[n][1], launches=launches[n],
-                           **results[n]) for n in KERNELS]})
+                           replaces=KERNELS[n][1],
+                           launches=sum(by_path[n].values()),
+                           launches_by_path=by_path[n], **results[n])
+                      for n in KERNELS]})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -931,6 +963,175 @@ def single_edge_phases(torch, dev) -> None:
           "seconds": time.perf_counter() - t0})
 
 
+def golden_sweep_phase(torch) -> None:
+    """Phase 12: the port's sweep on the card over the five scan goldens,
+    with the kernels (single-edge goldens held to the runner's recorded
+    f32 class) and with the plain versions (every golden in its own
+    class), against the committed port-owned reports.  Any drift
+    raises."""
+    from repro_torch.kernels.polyfit import ops as poly_ops
+    from repro_torch.kernels.stream_stats import ops as ss_ops
+    from repro_torch.sweep import diff, runner
+    t0 = time.perf_counter()
+    scen = [s for s in runner.load_scenarios()
+            if "scan" in s.tags and runner.not_ported(s) is None]
+    skipped = {s.name: runner.not_ported(s) for s in runner.load_scenarios()
+               if "scan" in s.tags and runner.not_ported(s) is not None}
+    bad = []
+    for uk in (True, False):
+        gaps = runner.KERNEL_CLASS_GAPS if uk else {}
+        for s in scen:
+            golden = json.loads(runner.report_path(s).read_text())
+            ss_ops.LAUNCHES = 0
+            poly_ops.LAUNCHES = 0
+            cur = runner.run_scenario(s, device="cuda", use_kernel=uk)
+            torch.cuda.synchronize()
+            n_launch = {"stream_stats_fleet": ss_ops.LAUNCHES,
+                        "polyfit": poly_ops.LAUNCHES}
+            held = (gaps[s.name].meets if s.name in gaps
+                    else golden["tolerance"])
+            drifts = diff.diff_reports(dict(golden, tolerance=held), cur)
+            emit({"phase": "golden_sweep", "scenario": s.name,
+                  "use_kernel": uk, "golden_class": golden["tolerance"],
+                  "held_class": held, "drifts": len(drifts),
+                  "counter_drifts": sum(d.field.startswith("counters:")
+                                        for d in drifts),
+                  "max_rel_float_gap": _max_rel_gap(golden, cur),
+                  "wan_bytes": cur["counters"]["wan_bytes"],
+                  "launches": n_launch})
+            if drifts:
+                print(diff.format_drift_table(drifts), flush=True)
+                bad.append((s.name, uk))
+    emit({"phase": "golden_sweep_seconds",
+          "seconds": time.perf_counter() - t0, "checked": len(scen),
+          "not_ported": skipped})
+    if len(scen) != 5 or bad:
+        raise AssertionError(f"golden sweep on the card: {len(scen)} "
+                             f"scenarios checked, drifts in {bad}")
+
+
+def _max_rel_gap(golden: dict, cur: dict) -> float:
+    """The largest relative gap between two reports' floats and stream
+    summaries (0.0 when every float is equal)."""
+    pairs = [(v, cur["floats"].get(k)) for k, v in golden["floats"].items()]
+    for k, g in golden["streams"].items():
+        if g["kind"] == "float":
+            pairs += [(g[st], cur["streams"][k][st])
+                      for st in ("mean", "min", "max")]
+    gaps = [abs(a - b) / max(abs(a), abs(b))
+            for a, b in pairs if isinstance(a, float)
+            and isinstance(b, float) and a != b]
+    return max(gaps, default=0.0)
+
+
+def adaptive_path(torch) -> dict:
+    """Phase 13: adaptive re-planning at the main path's width.  Returns
+    the launches of rows 1 and 2 in the adaptive run.  Every check
+    raises."""
+    import numpy as np
+    from repro_torch.api.experiment import Experiment
+    from repro_torch.api.scenario import ScenarioConfig
+    from repro_torch.data.streams import fleet_like, fleet_windows
+    from repro_torch.kernels.polyfit import ops as poly_ops
+    from repro_torch.kernels.stream_stats import ops as ss_ops
+    t0 = time.perf_counter()
+    a = ADAPTIVE
+    E, k, N, T = (a["n_regions"] * a["sites_per_region"], a["k"],
+                  a["window"], a["T"])
+    schedule = [(0, a["strength"]), (T // 2, a["strength"][::-1])]
+    d = scenario_dict("fleet_scan_adaptive_ph")
+    d["data"] = dict(d["data"], n_points=T * N, window=N,
+                     options={"k": k, "strength_schedule": schedule})
+    d["topology"] = dict(d["topology"], n_regions=a["n_regions"],
+                         sites_per_region=a["sites_per_region"])
+    sc = ScenarioConfig.from_dict(d)
+    vals, _ = fleet_like(n_sites=E, n_regions=a["n_regions"], k=k,
+                         n_points=T * N, seed=d["data"]["seed"], window=N,
+                         strength_schedule=schedule)
+    windows = fleet_windows(vals, N)
+    emit({"phase": "adaptive_data", "seconds": time.perf_counter() - t0,
+          "shape": list(vals.shape), "schedule": schedule})
+
+    def counted(ex):
+        ex.run(windows, n_windows=2)             # warm-up
+        ss_ops.LAUNCHES = 0
+        poly_ops.LAUNCHES = 0
+        rep = ex.run(windows)
+        torch.cuda.synchronize()
+        return rep, {"stream_stats_fleet": ss_ops.LAUNCHES,
+                     "polyfit": poly_ops.LAUNCHES}
+
+    ex = Experiment.from_scenario(sc, use_kernel=True, collect="estimates",
+                                  device="cuda")
+    rep, launches = counted(ex)
+    raw = rep.raw
+    replans = raw["planner_invocations"]
+    expect = {"stream_stats_fleet": T + replans, "polyfit": replans}
+    gate = {f: raw[f] for f in ("planner_invocations", "plans_reused",
+                                "drift_fires", "detection_lag_windows")}
+    d_every = dict(d)
+    del d_every["adaptive"]
+    every, every_launches = counted(Experiment.from_scenario(
+        ScenarioConfig.from_dict(d_every), use_kernel=True,
+        collect="estimates", device="cuda"))
+    emit({"phase": "adaptive_path", "E": E, "k": k, "N": N, "T": T,
+          "gate": gate, "launches": launches, "launches_expected": expect,
+          "windows_per_sec": raw["windows_per_sec"],
+          "scan_seconds": raw["scan_seconds"], "wan_bytes": rep.wan_bytes,
+          "full_bytes": rep.full_bytes, "nrmse": rep.nrmse,
+          "plan_every_window": {
+              "windows_per_sec": every.raw["windows_per_sec"],
+              "wan_bytes": every.wan_bytes, "nrmse": every.nrmse,
+              "launches": every_launches}})
+    if launches != expect or not 1 <= replans <= T:
+        raise AssertionError(f"adaptive path launches {launches}, want "
+                             f"{expect}")
+    if (not all(np.isfinite(v) for v in rep.nrmse.values())
+            or not 0 < rep.wan_bytes < rep.full_bytes):
+        raise AssertionError(f"adaptive path output out of range: nrmse "
+                             f"{rep.nrmse}, wan {rep.wan_bytes}")
+    profile_main_path(ex, windows, torch, n_prof=T,
+                      out_name="profile_adaptive.txt")
+
+    # the plain versions on the card: the gate's decisions do not depend
+    # on the fit, so its counters are bitwise; the plans fit by the legacy
+    # least squares instead of the fused moments (ROADMAP.md queue 3, note
+    # e), so the bytes are held as the main path's plain check holds them
+    plain = Experiment.from_scenario(sc, use_kernel=False,
+                                     collect="estimates",
+                                     device="cuda").run(windows)
+    p_gate = {f: plain.raw[f] for f in gate}
+    hist_k = np.asarray(raw["bytes_history"])
+    hist_p = np.asarray(plain.raw["bytes_history"])
+    d_wan = abs(rep.wan_bytes - plain.wan_bytes) / plain.wan_bytes
+    emit({"phase": "adaptive_plain_vs_kernel", "gate_kernel": gate,
+          "gate_plain": p_gate, "wan_kernel": rep.wan_bytes,
+          "wan_plain": plain.wan_bytes, "wan_rel_diff": d_wan,
+          "byte_history_bitwise": bool(np.array_equal(hist_k, hist_p)),
+          "byte_history_cells_differing": int((hist_k != hist_p).sum()),
+          "windows_differing": int((hist_k != hist_p).any(axis=1).sum()),
+          "windows_per_sec_plain": plain.raw["windows_per_sec"]})
+    if p_gate != gate or d_wan > 0.001:
+        raise AssertionError(f"adaptive path: plain and kernel disagree: "
+                             f"gate {p_gate} against {gate}, WAN rel "
+                             f"{d_wan}")
+
+    # the adaptive golden on the card against the live reference
+    g = Experiment.from_scenario(
+        ScenarioConfig.from_dict(scenario_dict("fleet_scan_adaptive_ph")),
+        use_kernel=True, device="cuda").run()
+    got = {"wan_bytes": g.wan_bytes,
+           **{f: g.raw[f] for f in ADAPTIVE_REF if f != "wan_bytes"}}
+    emit({"phase": "adaptive_golden", "got": got,
+          "reference_cpu": ADAPTIVE_REF, "nrmse": g.nrmse})
+    if got != ADAPTIVE_REF:
+        raise AssertionError(f"fleet_scan_adaptive_ph on the card: {got}, "
+                             f"live reference {ADAPTIVE_REF}")
+    emit({"phase": "adaptive_path_seconds",
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def _head_dim(m) -> int:
     return int(m.group(1))
 
@@ -1031,10 +1232,12 @@ def profile_main_path(ex, windows, torch, n_prof: int = 3,
     ranges = {e.key.split("/", 1)[1]: e for e in evs
               if e.key.startswith("window_step/")
               and not str(e.device_type).endswith("CUDA")}
-    missing = [s_ for s_ in STAGES if s_ not in ranges]
+    stages = [s_ for s_ in STAGES
+              if s_ != "gate" or ex.runtime.adaptive is not None]
+    missing = [s_ for s_ in stages if s_ not in ranges]
     if missing:
         raise AssertionError(f"profile lacks the step's ranges {missing}")
-    host = {s_: ranges[s_].cpu_time_total / 1e3 / n_prof for s_ in STAGES}
+    host = {s_: ranges[s_].cpu_time_total / 1e3 / n_prof for s_ in stages}
     total = sum(host.values())
 
     # device-side events only (an aten op's self device time repeats its
@@ -1050,7 +1253,7 @@ def profile_main_path(ex, windows, torch, n_prof: int = 3,
           "stage_host_ms_per_window": host,
           "stage_share": {s_: v / total for s_, v in host.items()},
           "stage_device_ms_per_window": {
-              s_: dev_ms(ranges[s_], total=True) / n_prof for s_ in STAGES},
+              s_: dev_ms(ranges[s_], total=True) / n_prof for s_ in stages},
           "loop_ms": loop_ms, "kernel_ms": kernel_ms,
           "memcpy_ms": memcpy_ms,
           "device_busy_share": kernel_ms / loop_ms,

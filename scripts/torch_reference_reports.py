@@ -1,0 +1,92 @@
+#!/usr/bin/env python3
+"""Write the port's reference reports: the live JAX reference's report of
+every scan golden the port runs.
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/torch_reference_reports.py
+
+For each scenario of ``tests/goldens/scenarios/`` that ``repro_torch``
+runs (``repro_torch.sweep.not_ported`` is None) and that is tagged
+``scan``, this runs the reference's ``Experiment`` on the CPU, serializes
+the report with the reference's ``repro.sweep.report.serialize_report``
+and writes ``tests/torch_goldens/reports/<name>.json``.  Provenance (JAX
+version, commit, date) goes into ``tests/torch_goldens/PROVENANCE.json``,
+never into the reports, so a report changes only when a number does.
+
+The port's sweep (``python -m repro_torch.sweep``) diffs against these
+files and never writes them.  This script imports the JAX package, so it
+lives outside the port.
+"""
+from __future__ import annotations
+
+import argparse
+import datetime
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+OUT_DIR = ROOT / "tests" / "torch_goldens"
+
+
+def ported_scan_goldens() -> list:
+    """The scan goldens the port runs, as port ``SweepScenario``s."""
+    from repro_torch.sweep import load_scenarios, not_ported
+    return [s for s in load_scenarios()
+            if "scan" in s.tags and not_ported(s) is None]
+
+
+def reference_report(name: str) -> dict:
+    """The live reference's serialized report of golden ``name``."""
+    from repro.api.experiment import Experiment
+    from repro.sweep.report import serialize_report
+    from repro.sweep.runner import SCENARIO_DIR, load_scenario_file
+    s = load_scenario_file(SCENARIO_DIR / f"{name}.json")
+    report = Experiment.from_scenario(s.config).run()
+    return serialize_report(report, name=s.name, tolerance=s.tolerance)
+
+
+def write_json(payload: dict, path: Path) -> None:
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(payload, indent=1, sort_keys=True) + "\n")
+
+
+def generate(out_dir: Path = OUT_DIR, names=None, log=print) -> dict:
+    """Write ``<out_dir>/reports/<name>.json`` for ``names`` (default:
+    every ported scan golden) and ``<out_dir>/PROVENANCE.json``; returns
+    {name: report}."""
+    import jax
+    if names is None:
+        names = [s.name for s in ported_scan_goldens()]
+    reports = {}
+    for name in names:
+        reports[name] = reference_report(name)
+        write_json(reports[name], Path(out_dir) / "reports" / f"{name}.json")
+        log(f"  {name:<34} written")
+    try:
+        commit = subprocess.run(["git", "rev-parse", "HEAD"], cwd=ROOT,
+                                capture_output=True, text=True,
+                                check=True).stdout.strip()
+    except (OSError, subprocess.CalledProcessError):
+        commit = None
+    write_json({"generator": "scripts/torch_reference_reports.py",
+                "jax": jax.__version__, "jax_backend": jax.default_backend(),
+                "commit": commit,
+                "date": datetime.date.today().isoformat(),
+                "scenarios": sorted(reports)},
+               Path(out_dir) / "PROVENANCE.json")
+    return reports
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--out", type=Path, default=OUT_DIR)
+    p.add_argument("names", nargs="*",
+                   help="golden names (default: every ported scan golden)")
+    args = p.parse_args(argv)
+    generate(args.out, args.names or None)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,8 +1,8 @@
 """repro_torch — the PyTorch / CUDA port of ``repro`` for NVIDIA Hopper.
 
-Same subpackage names as the JAX package (``api``, ``core``, ``kernels``,
-``planning``, ``runtime``, ``data``, ``fleet``), so every module has one
-counterpart there.  The port imports ``torch`` and ``numpy`` only.
+Same subpackage names as the JAX package (``adaptive``, ``api``, ``core``,
+``kernels``, ``planning``, ``runtime``, ``data``, ``fleet``, ``sweep``),
+so every module has one counterpart there.  The port imports ``torch`` and ``numpy`` only.
 
 Device policy: every entry point takes ``device=None``, which resolves to
 ``"cuda"``; with no CUDA device it raises instead of quietly running on

@@ -1,0 +1,175 @@
+"""Re-plan policy: cache the last plan, reuse it until drift fires.
+
+Port of ``repro.adaptive.policy`` for the scan runtime:
+
+* :class:`AdaptiveSpec` — the scenario-level knob block, validated at
+  construction and JSON-round-trippable.
+* :class:`GateState` — what the policy carries between windows: the EW
+  sums, the correlation snapshot the cached plan assumed, the detector
+  scalars, the cooldown clock and the re-plan counters.
+* :func:`gate_update` — one window of the policy.
+
+Decision rule per window (after folding the window into the EW sums)::
+
+    dev    = max off-diagonal |ew_corr - assumed_corr|   over all E sites
+    fire   = detector(dev)  AND  at least one plan exists already
+    cool   = windows_since_replan + 1 >= min_replan_interval
+    replan = first_window  OR  (fire AND cool)
+
+The event loop's host-side policy (``AdaptivePolicy``) belongs to the
+event path and the site-sharded gate to sharding; neither is ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+import torch
+
+from repro_torch.adaptive import drift as drift_mod
+from repro_torch.adaptive import stats as ew_mod
+from repro_torch.api.registry import DRIFT_DETECTORS
+from repro_torch.core.types import Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class AdaptiveSpec:
+    """Adaptive re-planning knobs (``ScenarioConfig.adaptive``).
+
+    ``adaptive=None`` is the legacy plan-every-window behaviour.  Fields
+    beyond ``detector`` only matter to the detectors that read them.
+    """
+
+    detector: str = "threshold"          # DRIFT_DETECTORS name
+    halflife: Optional[float] = 8.0      # EW halflife (windows); None = off
+    threshold: float = 0.1               # max |corr dev| bound ('threshold')
+    ph_delta: float = 0.01               # drift allowance ('page_hinkley')
+    ph_lambda: float = 0.25              # evidence bound ('page_hinkley')
+    min_replan_interval: int = 1         # cooldown: windows between re-plans
+
+    def __post_init__(self):
+        DRIFT_DETECTORS.get(self.detector)      # fail fast with alternatives
+        if self.halflife is not None and not float(self.halflife) > 0.0:
+            raise ValueError(f"halflife must be > 0 or None, "
+                             f"got {self.halflife!r}")
+        if not self.threshold > 0.0:
+            raise ValueError(f"threshold must be > 0, got {self.threshold!r}")
+        if self.ph_delta < 0.0:
+            raise ValueError(f"ph_delta must be >= 0, got {self.ph_delta!r}")
+        if not self.ph_lambda > 0.0:
+            raise ValueError(f"ph_lambda must be > 0, got {self.ph_lambda!r}")
+        if int(self.min_replan_interval) < 1:
+            raise ValueError(f"min_replan_interval must be >= 1, "
+                             f"got {self.min_replan_interval!r}")
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "AdaptiveSpec":
+        known = {f.name for f in dataclasses.fields(cls)}
+        extra = set(d) - known
+        if extra:
+            raise ValueError(f"unknown AdaptiveSpec fields: {sorted(extra)}")
+        return cls(**d)
+
+
+@dataclasses.dataclass
+class GateState:
+    """Per-run adaptive carry (everything but the cached plan itself)."""
+
+    ew: ew_mod.EWStats         # decayed stream sums, all E sites
+    assumed_corr: Tensor       # (E, k, k) f32 corr snapshot behind the plan
+    det_accum: Tensor          # () f32 detector accumulator
+    det_age: Tensor            # () i32 detector elevated-age
+    windows_since: Tensor      # () i32 windows since the last re-plan
+    replans: Tensor            # () i32 planner invocations
+    reuses: Tensor             # () i32 windows served from the cached plan
+    fires: Tensor              # () i32 detector fires (post-cooldown or not)
+    lag_sum: Tensor            # () i32 summed detection lag over fires
+    lag_events: Tensor         # () i32 fires with a measurable lag
+
+
+def gate_init(n_sites: int, k: int, device=None) -> GateState:
+    def i0():
+        return torch.zeros((), dtype=torch.int32, device=device)
+
+    return GateState(ew=ew_mod.ew_init(n_sites, k, device=device),
+                     assumed_corr=torch.zeros((n_sites, k, k),
+                                              dtype=torch.float32,
+                                              device=device),
+                     det_accum=torch.zeros((), dtype=torch.float32,
+                                           device=device),
+                     det_age=i0(), windows_since=i0(), replans=i0(),
+                     reuses=i0(), fires=i0(), lag_sum=i0(), lag_events=i0())
+
+
+def gate_update(spec: AdaptiveSpec, gate: GateState, values: Tensor,
+                counts: Tensor, *, use_kernel=None
+                ) -> Tuple[GateState, Tensor]:
+    """One window of the re-plan policy; returns ``(gate', replan () bool)``.
+
+    The caller produces a plan when ``replan`` is true and keeps it.
+    """
+    ew = ew_mod.ew_update(gate.ew, values, counts,
+                          ew_mod.ew_decay(spec.halflife),
+                          use_kernel=use_kernel)
+    corr = ew_mod.ew_corr(ew)
+    k = corr.shape[-1]
+    off = ~torch.eye(k, dtype=torch.bool, device=corr.device)
+    dev = torch.amax(torch.abs(corr - gate.assumed_corr) * off) \
+        .to(torch.float32)
+
+    det_state, fire, lag = drift_mod.detector_update(
+        spec.detector, {"accum": gate.det_accum, "age": gate.det_age},
+        dev, spec)
+    first = gate.replans < 1
+    fire = fire & ~first        # no plan yet -> nothing to be stale
+    cool = (gate.windows_since + 1) >= int(spec.min_replan_interval)
+    replan = first | (fire & cool)
+
+    zero_i = torch.zeros_like(gate.det_age)
+    return GateState(
+        ew=ew,
+        assumed_corr=torch.where(replan, corr, gate.assumed_corr),
+        det_accum=torch.where(replan, torch.zeros_like(gate.det_accum),
+                              det_state["accum"]).to(torch.float32),
+        det_age=torch.where(replan, zero_i, det_state["age"])
+        .to(torch.int32),
+        windows_since=torch.where(replan, zero_i, gate.windows_since + 1)
+        .to(torch.int32),
+        replans=gate.replans + replan.to(torch.int32),
+        reuses=gate.reuses + (~replan).to(torch.int32),
+        fires=gate.fires + fire.to(torch.int32),
+        lag_sum=gate.lag_sum + lag,
+        lag_events=gate.lag_events + (lag > 0).to(torch.int32),
+    ), replan
+
+
+def gate_counters(gate: GateState) -> dict:
+    """Host-side report fields from a (possibly device-resident) gate."""
+    lag_events = int(gate.lag_events)
+    return {
+        "planner_invocations": int(gate.replans),
+        "plans_reused": int(gate.reuses),
+        "drift_fires": int(gate.fires),
+        "detection_lag_windows": (float(int(gate.lag_sum)) / lag_events
+                                  if lag_events else 0.0),
+    }
+
+
+@dataclasses.dataclass
+class AdaptiveCarry:
+    """Scan-runtime carry: the gate plus the cached plan (a ``FleetPlan``;
+    kept generic so this module never imports the planning layer)."""
+
+    gate: GateState
+    plan: Any
+
+
+def make_adaptive_carry(n_sites: int, k: int, device=None) -> AdaptiveCarry:
+    """Initial carry.  The first window always plans, so there is no plan
+    yet (the reference zero-fills one only so that both branches of its
+    ``lax.cond`` agree in structure)."""
+    return AdaptiveCarry(gate=gate_init(n_sites, k, device=device),
+                         plan=None)

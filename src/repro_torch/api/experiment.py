@@ -109,8 +109,6 @@ def check_scan_scenario(scenario: ScenarioConfig) -> None:
     """Reject what the port cannot run yet, and what the scan runtime can
     never honor (WAN timing it does not model)."""
     RUNTIMES.get(scenario.runtime)
-    if scenario.adaptive is not None:
-        raise _not_ported("adaptive re-planning", "Adaptive")
     if scenario.chaos is not None:
         raise _not_ported("chaos fault injection", "Chaos")
     if scenario.method != "model":

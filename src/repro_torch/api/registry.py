@@ -94,6 +94,8 @@ class Registry:
 #                                                 | mvn | fleet)
 #   ENGINES           repro_torch.planning       (batched)
 #   RUNTIMES          repro_torch.runtime        (scan | scan_steps)
+#   DRIFT_DETECTORS   repro_torch.adaptive.drift (threshold | page_hinkley
+#                                                 | always | never)
 MODELS = Registry("imputation model")
 EPSILON_POLICIES = Registry("epsilon policy")
 DEPENDENCE = Registry("dependence measure")
@@ -101,6 +103,7 @@ QUERIES = Registry("query")
 DATASETS = Registry("dataset")
 ENGINES = Registry("plan engine")
 RUNTIMES = Registry("runtime")
+DRIFT_DETECTORS = Registry("drift detector")
 
 
 def populate() -> None:
@@ -110,3 +113,4 @@ def populate() -> None:
     import repro_torch.data.streams     # noqa: F401
     import repro_torch.planning         # noqa: F401
     import repro_torch.runtime          # noqa: F401
+    import repro_torch.adaptive.drift   # noqa: F401

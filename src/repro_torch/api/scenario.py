@@ -9,7 +9,9 @@ Construction checks the spelling of every registry-backed name (an
 unknown name raises with the alternatives listed); whether the port can
 run a scenario is decided when it is built into an experiment, which
 raises ``NotImplementedError`` naming the ROADMAP item for anything not
-ported yet.  The adaptive and chaos specs are kept as plain data.
+ported yet.  ``adaptive`` is an
+:class:`~repro_torch.adaptive.AdaptiveSpec` (a dict is converted); the
+chaos spec is kept as plain data.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ from repro_torch.api import registry as _reg
 from repro_torch.core.types import PlannerConfig
 
 _reg.populate()        # spelling checks need the registries filled
+
+from repro_torch.adaptive import AdaptiveSpec  # noqa: E402  (needs populate())
 
 DEMAND_SIGNALS = ("obs_err", "pred_err", "max_err")
 SOLVERS = ("ipm", "slsqp", "closed_form")
@@ -43,6 +47,13 @@ def _freeze(v):
     if isinstance(v, dict):
         return {k: _freeze(x) for k, x in v.items()}
     return v
+
+
+def _chaos_is_trivial(chaos: dict) -> bool:
+    """A chaos spec that injects nothing (``ChaosSpec.is_trivial``)."""
+    return (not chaos.get("flaps") and not chaos.get("outages")
+            and not chaos.get("joins")
+            and float(chaos.get("flap_prob", 0.0)) == 0.0)
 
 
 def _one_of(kind: str, name: str, names: tuple) -> None:
@@ -155,7 +166,7 @@ class ScenarioConfig:
     queries: tuple = ("AVG", "VAR", "MIN", "MAX")
     runtime: str = "event"
     name: str = ""
-    adaptive: Optional[dict] = None    # plain data; not ported yet
+    adaptive: Optional[AdaptiveSpec] = None   # None = plan every window
     chaos: Optional[dict] = None       # plain data; not ported yet
 
     def __post_init__(self):
@@ -166,10 +177,11 @@ class ScenarioConfig:
                 planner = dataclasses.replace(planner, **{f: _freeze(v)})
         object.__setattr__(self, "planner", planner)
         object.__setattr__(self, "queries", tuple(self.queries))
-        for f in ("adaptive", "chaos"):
-            v = getattr(self, f)
-            if v is not None:
-                object.__setattr__(self, f, _freeze(dict(v)))
+        if self.chaos is not None:
+            object.__setattr__(self, "chaos", _freeze(dict(self.chaos)))
+        if isinstance(self.adaptive, dict):
+            object.__setattr__(self, "adaptive",
+                               AdaptiveSpec.from_dict(self.adaptive))
 
         if self.method != "model" and self.method not in BASELINES:
             _reg.MODELS.check(self.method)
@@ -197,6 +209,26 @@ class ScenarioConfig:
                 f"topology has {self.topology.n_sites} sites but dataset "
                 f"{self.data.dataset!r} is single-edge (k, T); use a fleet "
                 f"dataset or drop the topology")
+
+        # adaptive re-planning caches a fleet plan across windows: it needs
+        # a fleet, and an engine whose plan draws no samples
+        if self.adaptive is not None:
+            if not self.is_fleet:
+                raise ValueError(
+                    "adaptive re-planning requires a fleet topology (>1 "
+                    "site); single-edge runs plan every window and have "
+                    "no fleet plan to cache")
+            if planner.engine in ("host", "host_loop"):
+                raise ValueError(
+                    "adaptive re-planning cannot reuse host-engine plans "
+                    "(plan_window draws samples inside the plan); use the "
+                    "batched or sharded engine")
+        if self.chaos is not None and self.adaptive is not None:
+            if not _chaos_is_trivial(self.chaos):
+                raise ValueError(
+                    "chaos and adaptive re-planning cannot be combined: "
+                    "the drift gate's cached plan would replay "
+                    "allocations for dead sites")
 
     @property
     def is_fleet(self) -> bool:

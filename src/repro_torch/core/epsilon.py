@@ -8,7 +8,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.api.registry import EPSILON_POLICIES
-from repro_torch.core.stats import ipow
+from repro_torch.core.stats import ipow, sqrt
 from repro_torch.core.types import StreamStats, Tensor
 
 
@@ -19,7 +19,7 @@ def alpha_fraction(stats: StreamStats, alpha: float = 0.05) -> Tensor:
 
 def k_standard_errors(stats: StreamStats, k_se: float = 1.0) -> Tensor:
     """eps_i = k * sqrt(Var[sigma_hat^2])  (eq. 8, the paper's default)."""
-    se = torch.sqrt(torch.clamp(stats.var_of_var, min=0.0))
+    se = sqrt(torch.clamp(stats.var_of_var, min=0.0))
     return k_se * torch.clamp(se, min=1e-12)
 
 
@@ -41,7 +41,7 @@ def exact_mse_cap(stats: StreamStats, n_real: Tensor, n_imp: Tensor,
     ns = torch.clamp(n_imp.to(var.dtype), min=0.0)
     tot = torch.clamp(nr + ns - 1.0, min=1.0)
     v_new = (ipow(nr - 1.0, 2) * var_of_s2(nr)) / ipow(tot, 2)
-    return torch.sqrt(torch.clamp(v_std - v_new, min=0.0))
+    return sqrt(torch.clamp(v_std - v_new, min=0.0))
 
 
 def exact_mse_shrink(n_real: Tensor, n_imp: Tensor, sigma2: Tensor,

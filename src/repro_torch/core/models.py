@@ -15,7 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.stats import blocked_sum, fma, ipow, recip
+from repro_torch.core.stats import (blocked_sum, fma, ipow, lane_sum,
+                                    lu_solve4, recip, sqrt)
 from repro_torch.core.types import CompactModel, Tensor
 
 _RIDGE = 1e-6
@@ -40,20 +41,32 @@ def _unbiased(total: Tensor, n: Tensor, n_static) -> Tensor:
 def _fit_one(y: Tensor, x_pred: Tensor, pair_mask: Tensor, degree: int,
              n_static=None):
     """LSQ fit of y ~ poly(x_pred) over co-valid positions, batched over
-    leading dims.  Returns (coeffs (..., 4), loc, scale, explained_var)."""
+    leading dims.  Returns (coeffs (..., 4), loc, scale, explained_var).
+
+    The normal equations are summed in the order the reference's compiled
+    dots sum them (:func:`~repro_torch.core.stats.lane_sum`): a fleet's in
+    one multiply-add chain, one site's (leading shape (1, k), the site
+    axis squeezed away, so the operands lie differently) in four chains
+    for X^T X and eight for X^T y.  Every system is solved in LAPACK's
+    order (:func:`~repro_torch.core.stats.lu_solve4`) and the fitted
+    values are 4-term multiply-add chains, so on the CPU the fit is
+    bitwise the reference's.
+    """
     w = pair_mask
     n = torch.clamp(blocked_sum(w), min=1.0)
     loc = blocked_sum(x_pred * w) / n
     var_p = blocked_sum(ipow(x_pred - loc[..., None], 2) * w) / n
-    scale = torch.sqrt(torch.clamp(var_p, min=1e-12))
+    scale = sqrt(torch.clamp(var_p, min=1e-12))
     u = (x_pred - loc[..., None]) / scale[..., None]
     f = _features(u, degree) * w[..., None]
     ft = f.transpose(-1, -2)
     eye = torch.eye(4, dtype=f.dtype, device=f.device)
-    xtx = ft @ f + _RIDGE * eye
-    xty = (ft @ (y * w)[..., None])[..., 0]
-    coeffs = torch.linalg.solve(xtx, xty)
-    fitted = (f @ coeffs[..., None])[..., 0]
+    one = y.dim() == 3 and y.shape[0] == 1
+    xtx = lane_sum(ft[..., :, None, :], ft[..., None, :, :],
+                    4 if one else 1) + _RIDGE * eye
+    xty = lane_sum(ft, (y * w)[..., None, :], 8 if one else 1)
+    coeffs = lu_solve4(xtx, xty)
+    fitted = _dot4(f, coeffs[..., None, :])
     mean_fit = blocked_sum(fitted * w) / n
     # Var[E[X|Xp]] — unbiased over co-valid samples (the V_i of eqs. 3/7/11)
     ev = _unbiased(blocked_sum(ipow(fitted - mean_fit[..., None], 2) * w),
@@ -112,7 +125,7 @@ def _fit_fused(values: Tensor, xp: Tensor, pair: Tensor, degree: int,
     n = torch.clamp(pair_n, min=1.0)
     loc = blocked_sum(xp * pair) / n
     var_p = blocked_sum(ipow(xp - loc[..., None], 2) * pair) / n
-    scale = torch.sqrt(torch.clamp(var_p, min=1e-12))
+    scale = sqrt(torch.clamp(var_p, min=1e-12))
     uw = ((xp - loc[..., None]) / scale[..., None]) * pair
     pu, py = vandermonde_moments((values * pair).reshape(-1, n_max),
                                  uw.reshape(-1, n_max), use_kernel=True,
@@ -176,7 +189,7 @@ def _fit_one_multi(y: Tensor, xp: Tensor, xq: Tensor, pair_mask: Tensor,
     def std(x):
         loc = blocked_sum(x * w) / n
         var = blocked_sum(ipow(x - loc[..., None], 2) * w) / n
-        scale = torch.sqrt(torch.clamp(var, min=1e-12))
+        scale = sqrt(torch.clamp(var, min=1e-12))
         return (x - loc[..., None]) / scale[..., None], loc, scale
 
     u, loc_u, sc_u = std(xp)

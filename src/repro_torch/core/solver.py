@@ -12,7 +12,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.stats import fma
+from repro_torch.core.stats import fma, sqrt
 from repro_torch.core.types import Tensor
 
 
@@ -35,7 +35,7 @@ def closed_form_alloc(q: Tensor, cost: Tensor, n_obs: Tensor, sigma2: Tensor,
     dt = q.dtype
     cost = torch.clamp(cost, min=1e-9)
     lo = torch.clamp(n_obs, max=1.0)          # 1e: >=1 where any exist
-    r = torch.sqrt(torch.clamp(q, min=0.0) / cost)
+    r = sqrt(torch.clamp(q, min=0.0) / cost)
     budget = budget[..., None]
 
     def clipped(t):

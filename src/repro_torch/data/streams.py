@@ -111,15 +111,17 @@ def fleet_like(n_sites: int = 16, n_regions: int = 4, k: int = 6,
         x_j = scale_j * (rho * B_site + sqrt(1 - rho^2) * eta_j) + offset_j + noise
 
     ``region_volatility`` scales each region's stream spread.
-    ``strength_schedule`` (drifting correlation) belongs to the adaptive
-    subsystem and is not ported yet.
+
+    ``strength_schedule`` makes the regional correlation drift mid-run
+    (the adaptive re-planning input): ``[(window_index, rho_per_region),
+    ...]``, each entry setting the per-region strength from tuple
+    ``window_index * window`` onward (``window`` is required alongside
+    it; windows before the first entry keep ``region_strength``).  Every
+    random number is drawn in the same order, so a degenerate
+    ``[(0, region_strength)]`` gives the unscheduled values bitwise.
 
     Returns (values (E, k, T) float32, meta).
     """
-    if strength_schedule is not None:
-        raise NotImplementedError(
-            "fleet_like(strength_schedule=...) is not ported to repro_torch "
-            "yet (ROADMAP.md: queue 1, 'Adaptive')")
     rng = np.random.default_rng(seed)
     if region_strength is None:
         region_strength = np.linspace(0.9, 0.15, n_regions)
@@ -129,6 +131,24 @@ def fleet_like(n_sites: int = 16, n_regions: int = 4, k: int = 6,
     region_volatility = np.asarray(region_volatility, np.float64)
     sites_per = int(np.ceil(n_sites / n_regions))
     regions = np.minimum(np.arange(n_sites) // sites_per, n_regions - 1)
+
+    rho_t = None                       # (n_regions, n_points) when scheduled
+    if strength_schedule is not None:
+        if window is None:
+            raise ValueError("strength_schedule needs the tumbling-window "
+                             "length: pass window= alongside it")
+        rho_t = np.repeat(region_strength[:, None], n_points, axis=1)
+        for wid, rhos in sorted(strength_schedule, key=lambda e: int(e[0])):
+            if int(wid) < 0:
+                raise ValueError(f"strength_schedule window index must be "
+                                 f">= 0, got {wid!r}")
+            rhos = np.asarray(rhos, np.float64)
+            if rhos.shape != (n_regions,):
+                raise ValueError(
+                    f"strength_schedule entry at window {wid} has "
+                    f"{rhos.shape} strengths; need one per region "
+                    f"({n_regions},)")
+            rho_t[:, int(wid) * int(window):] = rhos[:, None]
 
     t = np.arange(n_points)
     signals = [np.sin(2 * np.pi * t / 288.0) + 0.5 * _ar1(rng, n_points, 0.97, 0.2)
@@ -144,11 +164,19 @@ def fleet_like(n_sites: int = 16, n_regions: int = 4, k: int = 6,
             local = local / max(np.std(local), 1e-9)
             offset = rng.uniform(20.0, 80.0)
             scale = rng.uniform(2.0, 6.0) * float(region_volatility[r])
-            x = rho * base + np.sqrt(max(1.0 - rho**2, 0.0)) * local
+            if rho_t is None:
+                x = rho * base + np.sqrt(max(1.0 - rho**2, 0.0)) * local
+            else:
+                rv = rho_t[r]
+                x = rv * base + np.sqrt(np.maximum(1.0 - rv**2, 0.0)) * local
             out[s, j] = (offset + scale * x
                          + rng.normal(0.0, 0.15 * scale, n_points))
     meta = {"name": "fleet", "k": k, "regions": regions,
             "strength": region_strength}
+    if strength_schedule is not None:
+        meta["strength_schedule"] = tuple(
+            (int(w), tuple(float(v) for v in np.asarray(r).ravel()))
+            for w, r in strength_schedule)
     return out, meta
 
 

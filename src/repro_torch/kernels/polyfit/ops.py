@@ -13,6 +13,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.stats import lu_solve4
 from repro_torch.kernels import build
 from repro_torch.kernels.polyfit.ref import polyfit_ref
 
@@ -84,7 +85,9 @@ def solve_normal_equations(pu: torch.Tensor, py: torch.Tensor,
     """(..., 7), (..., 4) -> coeffs (..., 4) of c0 + c1 u + c2 u^2 + c3 u^3.
 
     Degrees above ``degree`` are forced to zero by masking the Gram
-    matrix; one batched 4x4 solve.
+    matrix; one batched 4x4 solve in LAPACK's order
+    (:func:`~repro_torch.core.stats.lu_solve4`), the same on the card as
+    on the CPU.
     """
     idx = torch.arange(4, device=pu.device)
     gram = pu[..., idx[:, None] + idx[None, :]]        # (..., 4, 4) Hankel
@@ -95,4 +98,4 @@ def solve_normal_equations(pu: torch.Tensor, py: torch.Tensor,
             + (1.0 - mask) * eye * torch.clamp(pu[..., 0:1, None], min=1.0))
     gram = gram + ridge * eye
     rhs = py * keep
-    return torch.linalg.solve(gram, rhs[..., None])[..., 0]
+    return lu_solve4(gram, rhs)

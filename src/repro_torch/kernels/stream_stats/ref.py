@@ -3,21 +3,24 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.stats import blocked_sum
+from repro_torch.core.stats import blocked_sum, lane_sum
 
 
 def fleet_stats_ref(x: torch.Tensor):
     """x (E, k, N) -> (moments (E, k, 4) [S1..S4], xxt (E, k, k)), f32.
 
-    The power sums are taken in the reference's order
-    (:func:`~repro_torch.core.stats.blocked_sum`); the cross products are
-    one batched matmul.
+    Everything is summed in the reference's order: the power sums in
+    XLA:CPU's 32-wide windows (:func:`~repro_torch.core.stats.
+    blocked_sum`), the cross products as its compiled ``x @ x.T`` sums
+    them (four multiply-add chains, :func:`~repro_torch.core.stats.
+    lane_sum`), so the adaptive gate's EW correlation is bitwise the
+    reference's on the CPU.
     """
     x = x.to(torch.float32)
     x2 = x * x
     mom = torch.stack([blocked_sum(x), blocked_sum(x2), blocked_sum(x2 * x),
                        blocked_sum(x2 * x2)], dim=-1)
-    return mom, x @ x.transpose(-1, -2)
+    return mom, lane_sum(x[..., :, None, :], x[..., None, :, :], 4)
 
 
 def stream_stats_ref(x: torch.Tensor):

@@ -109,7 +109,8 @@ def fleet_plan(values: Tensor, counts: Tensor, budgets: Tensor,
         ranks = stats_mod.rank_transform(values, counts)
         rmom, rxxt = fleet_window_moments_xxt(ranks * mask,
                                               use_kernel=use_kernel)
-        corr = stats_mod.corr_from_sums(rmom, rxxt, counts)
+        corr = stats_mod.corr_from_sums(rmom, rxxt, counts,
+                                        n_static=n_static)
     else:
         corr = stats.corr
 

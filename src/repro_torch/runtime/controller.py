@@ -14,6 +14,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core.stats import sqrt
 from repro_torch.runtime.state import ControllerState
 
 
@@ -104,10 +105,10 @@ def controller_update(state: ControllerState, p: CtrlParams, raw_budgets,
     state.lag_seen = torch.ones_like(state.lag_seen)
 
     b = torch.clamp(raw_budgets, min=1.0)
-    pred_err = torch.sqrt(torch.clamp(objective, min=0.0))
+    pred_err = sqrt(torch.clamp(objective, min=0.0))
     err = torch.nan_to_num(_signal(p.demand_signal, obs_err, pred_err),
                            nan=1.0)
-    demand_new = torch.sqrt(torch.clamp(err, min=1e-9) * b)
+    demand_new = sqrt(torch.clamp(err, min=1e-9) * b)
     r2_new = torch.clamp(torch.nan_to_num(r2), 0.0, 1.0)
     state.demand = torch.where(state.seen,
                                (1 - a) * state.demand + a * demand_new,

@@ -25,12 +25,15 @@ def aggregate_fleet(*, topology, qnames, est, est_q, tru, ages,
                     bytes_per_site, cost_per_site, gaps, revisions,
                     late_drops, duplicates, arrival_lag_ms, plan_seconds,
                     plan_windows, budget_history, total_tuples,
-                    retransmits=0) -> dict:
+                    retransmits=0, adaptive=None) -> dict:
     """Roll per-window tables into the fleet result dict.
 
     est/est_q/tru: {query: (T, E, k)} float arrays (NaN where unanswered);
     ages: (T, E) window age at query time (ms); bytes/cost_per_site: (E,)
     totals over the run; budget_history: (T, E) executed budgets.
+    ``adaptive``: the re-plan policy's counters
+    (:func:`repro_torch.adaptive.gate_counters`) or None; merged into the
+    result.
     """
     E = topology.n_sites
     reg_idx = topology.region_of()
@@ -87,4 +90,11 @@ def aggregate_fleet(*, topology, qnames, est, est_q, tru, ages,
         "plan_seconds": float(plan_seconds),
         "plan_windows": int(plan_windows),
         "budget_history": np.asarray(budget_history),
+        **({} if adaptive is None else {
+            "planner_invocations": int(adaptive["planner_invocations"]),
+            "plans_reused": int(adaptive["plans_reused"]),
+            "drift_fires": int(adaptive["drift_fires"]),
+            "detection_lag_windows":
+                float(adaptive["detection_lag_windows"]),
+        }),
     }

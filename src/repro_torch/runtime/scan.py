@@ -49,6 +49,7 @@ class ScanRuntime:
     budget_fraction: float = 0.25      # single edge: per-window budget
     use_kernel: Optional[bool] = None
     device: object = None              # None -> "cuda"
+    adaptive: Optional["AdaptiveSpec"] = None   # None = plan every window
 
     def __post_init__(self):
         if self.mode not in ("scan", "steps"):
@@ -75,6 +76,10 @@ class ScanRuntime:
         self.device = resolve_device(self.device)
         self.engine = ENGINES.get(cfg.engine or "batched")
         self.engine.check(cfg)
+        if self.adaptive is not None and self.topology is None:
+            raise ValueError("adaptive re-planning requires a fleet "
+                             "topology (>1 site); single-edge scans plan "
+                             "per window by construction")
         self.spec = MODELS.get(cfg.model)
         if self.topology is None:
             self.n_sites = 1
@@ -121,14 +126,20 @@ class ScanRuntime:
                           cost_discount=discount)
         return cls(cfg=scenario.planner, ctrl=ctrl, topology=topo,
                    query_names=tuple(scenario.queries), mode=mode,
-                   collect=collect, use_kernel=use_kernel, device=device)
+                   collect=collect, use_kernel=use_kernel, device=device,
+                   adaptive=scenario.adaptive)
 
     def _plan_fn(self, values, counts, budgets):
         # full windows: every count is the window length, a constant of
-        # the step (as the reference compiles it)
+        # the step that the reference's compiler folds -- except inside
+        # the adaptive gate's lax.cond, whose branch takes the counts as
+        # an operand (data); "always" at interval 1 plans unwrapped
+        ad = self.adaptive
+        folded = ad is None or (ad.detector == "always"
+                                and int(ad.min_replan_interval) == 1)
         return self.engine.run(values, counts, budgets, self.cfg_eff,
                                use_kernel=self.use_kernel,
-                               n_static=values.shape[-1])
+                               n_static=values.shape[-1] if folded else None)
 
     def _static_exec(self, k: int, n: int) -> Optional[tuple]:
         """Executed budgets when they are window-invariant (one edge, or
@@ -158,7 +169,9 @@ class ScanRuntime:
         ``wid`` reads slot ``wid % P``).  ``state``/``first_window`` resume
         from a carry (see :func:`~repro_torch.runtime.state.state_from_numpy`);
         window ids start at ``first_window``, default ``state.window_id``.
-        The passed state is updated in place.
+        The passed state is updated in place.  On an adaptive run a state
+        without an adaptive carry gets a fresh one (the first window
+        plans).
         """
         single = self.topology is None
         if single:
@@ -181,12 +194,17 @@ class ScanRuntime:
         else:
             w0 = (int(first_window) if first_window is not None
                   else int(state.window_id))
+        if self.adaptive is not None and state.adaptive is None:
+            from repro_torch.adaptive import make_adaptive_carry
+            state.adaptive = make_adaptive_carry(self.n_sites, k,
+                                                 device=self.device)
         pool = torch.as_tensor(pool_np, device=self.device)
         step = make_window_step(
             pool, seed=self.cfg_eff.seed, plan_fn=self._plan_fn,
             qnames=self.query_names, multi=self.spec.multi,
             mean=self.spec.mean, ctrl=self.ctrl,
-            static_exec_budgets=static_exec, collect=self.collect)
+            static_exec_budgets=static_exec, collect=self.collect,
+            adaptive=self.adaptive, use_kernel=self.use_kernel)
 
         self._sync()
         t0 = time.perf_counter()
@@ -229,15 +247,20 @@ class ScanRuntime:
             return self._result_single(est, tru, bytes_site, cost_site, T,
                                        k, n, scan_seconds, extras)
         from repro_torch.runtime.report import aggregate_fleet
+        ad = None
+        if self.adaptive is not None:
+            from repro_torch.adaptive import gate_counters
+            ad = gate_counters(state.adaptive.gate)
         raw = aggregate_fleet(
             topology=self.topology, qnames=self.query_names,
             est=est, est_q=est, tru=tru, ages=np.zeros((T, self.n_sites)),
             bytes_per_site=bytes_site, cost_per_site=cost_site,
             gaps=0, revisions=0, late_drops=0, duplicates=0,
             arrival_lag_ms=np.asarray(host_state.controller.lag, np.float64),
-            plan_seconds=scan_seconds, plan_windows=T,
+            plan_seconds=scan_seconds,
+            plan_windows=T if ad is None else ad["planner_invocations"],
             budget_history=ys["budgets"],
-            total_tuples=T * self.n_sites * k * n)
+            total_tuples=T * self.n_sites * k * n, adaptive=ad)
         raw.update(extras)
         return raw
 

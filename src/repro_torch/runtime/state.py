@@ -2,13 +2,15 @@
 
 One :class:`RuntimeState` is the entire mutable state of the streaming
 system: the controller's EWMAs, running per-stream moment sums and the
-window cursor that keys the sampler.  The port updates it in place from
-window to window (the reference's functional carry becomes a dataclass of
-tensors the step overwrites).
+window cursor that keys the sampler, and on an adaptive run the drift
+gate and its cached plan.  The port updates it in place from window to
+window (the reference's functional carry becomes a dataclass of tensors
+the step overwrites).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -45,6 +47,9 @@ class RuntimeState:
     window_id: int        # next window to ingest (the RNG cursor)
     controller: ControllerState
     totals: StreamTotals
+    # adaptive re-planning carry (repro_torch.adaptive.AdaptiveCarry: the
+    # EW gate + the cached FleetPlan); None when every window plans
+    adaptive: Optional["AdaptiveCarry"] = None
 
 
 def init_state(n_sites: int, k: int, equal_share: float,
@@ -70,14 +75,14 @@ def state_from_numpy(tree, device=None) -> RuntimeState:
     """A reference ``RuntimeState`` (``jax.tree.map(np.asarray, state)``,
     or any object with the same attribute layout) as a port state.
 
-    The adaptive and chaos carries are not ported yet: a tree that holds
-    one raises.
+    An adaptive carry (the gate, its ``EWStats`` and the cached
+    ``FleetPlan``) comes across; a chaos carry is not ported yet and
+    raises.
     """
-    if getattr(tree, "adaptive", None) is not None or \
-            getattr(tree, "chaos", None) is not None:
+    if getattr(tree, "chaos", None) is not None:
         raise NotImplementedError(
-            "adaptive and chaos carries are not ported to repro_torch yet "
-            "(ROADMAP.md: queue 1, 'Adaptive' and 'Chaos')")
+            "chaos carries are not ported to repro_torch yet "
+            "(ROADMAP.md: queue 1, 'Chaos')")
     dev = resolve_device(device)
 
     def t(a, dtype=torch.float32):
@@ -90,15 +95,39 @@ def state_from_numpy(tree, device=None) -> RuntimeState:
             demand=t(c.demand), r2=t(c.r2), lag=t(c.lag),
             lag_seen=t(c.lag_seen, torch.bool), seen=t(c.seen, torch.bool),
             last_budgets=t(c.last_budgets)),
-        totals=StreamTotals(count=t(tot.count), s1=t(tot.s1), s2=t(tot.s2)))
+        totals=StreamTotals(count=t(tot.count), s1=t(tot.s1), s2=t(tot.s2)),
+        adaptive=_adaptive_from_numpy(getattr(tree, "adaptive", None), t,
+                                      dev))
+
+
+def _adaptive_from_numpy(carry, t, dev):
+    """A reference ``AdaptiveCarry`` as the port's (None stays None)."""
+    if carry is None:
+        return None
+    from repro_torch.adaptive import AdaptiveCarry, EWStats, GateState
+    from repro_torch.planning.batched import FleetPlan
+    g = carry.gate
+    ew = EWStats(**{f.name: t(getattr(g.ew, f.name))
+                    for f in dataclasses.fields(EWStats)})
+    ints = {"det_age", "windows_since", "replans", "reuses", "fires",
+            "lag_sum", "lag_events"}
+    gate = GateState(ew=ew, **{
+        f.name: t(getattr(g, f.name),
+                  torch.int32 if f.name in ints else torch.float32)
+        for f in dataclasses.fields(GateState) if f.name != "ew"})
+    plan = FleetPlan.from_numpy(
+        {f.name: getattr(carry.plan, f.name)
+         for f in dataclasses.fields(FleetPlan)}, device=dev)
+    return AdaptiveCarry(gate=gate, plan=plan)
 
 
 def state_to_numpy(state: RuntimeState) -> RuntimeState:
-    """The same state with every tensor moved to host numpy."""
+    """The same state with the controller's and the totals' tensors moved
+    to host numpy (the adaptive carry stays where it is)."""
     def host(obj):
         return type(obj)(**{f.name: getattr(obj, f.name).cpu().numpy()
                             for f in dataclasses.fields(obj)})
 
     return RuntimeState(window_id=state.window_id,
                         controller=host(state.controller),
-                        totals=host(state.totals))
+                        totals=host(state.totals), adaptive=state.adaptive)

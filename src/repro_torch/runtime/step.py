@@ -1,8 +1,9 @@
 """One scan window: budgets -> plan -> sample -> impute -> serve.
 
-Port of ``repro.runtime.step`` for fleets and single edges without chaos,
-adaptive re-planning or site sharding.  :func:`make_window_step` builds
-``step(state, wid) -> outputs``; the step updates the carry in place.
+Port of ``repro.runtime.step`` for fleets and single edges, with adaptive
+re-planning, without chaos or site sharding.  :func:`make_window_step`
+builds ``step(state, wid) -> outputs``; the step updates the carry in
+place.
 
 Sampling reproduces the reference bit for bit through the threefry
 replica (:mod:`repro_torch.runtime.threefry`):
@@ -20,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.adaptive import AdaptiveCarry, gate_update
 from repro_torch.core.stats import blocked_sum, ipow
 from repro_torch.planning.batched import FleetPlan
 from repro_torch.runtime import threefry
@@ -35,8 +37,8 @@ _PER_MODEL_BYTES = {"mean": 4, "multi": 40, "single": 28}
 SCAN_QUERIES = ("AVG", "VAR", "MIN", "MAX")
 
 # profiler range names of the step's stages, in step order
-STAGES = ("budgets", "plan", "sample", "impute", "queries", "wan_bytes",
-          "controller", "totals")
+STAGES = ("budgets", "gate", "plan", "sample", "impute", "queries",
+          "wan_bytes", "controller", "totals")
 
 
 def stage(name: str):
@@ -186,13 +188,21 @@ def _masked_queries(parts, qnames):
 def make_window_step(pool, *, seed: int, plan_fn, qnames, multi: bool,
                      mean: bool, ctrl: CtrlParams,
                      static_exec_budgets: Optional[np.ndarray] = None,
-                     collect: str = "estimates"):
+                     collect: str = "estimates", adaptive=None,
+                     use_kernel=None):
     """Build ``step(state, wid) -> outputs`` for one window of E sites.
 
     pool: (P, E, k, N) f32 tensor; window ``wid`` reads slot ``wid % P``.
     plan_fn: (values, counts, budgets) -> FleetPlan.
     multi / mean: the model family's imputation (``ModelSpec`` flags).
     static_exec_budgets: host-computed executed budgets (static mode).
+    adaptive: an :class:`~repro_torch.adaptive.AdaptiveSpec`, or None to
+    plan every window.  With a spec the ``gate`` stage folds the window
+    into ``state.adaptive``'s drift gate (through the ``stream_stats_fleet``
+    kernel unless ``use_kernel`` is False) and the ``plan`` stage plans
+    only when the gate says so, else reuses the cached plan.  The
+    reference branches with ``lax.cond``; here the branch reads the
+    decision on the host, one read a window.
     The step updates ``state`` in place (controller EWMAs, running totals,
     the window cursor) and returns the window's output tensors.  Each
     stage of :data:`STAGES` runs inside its own profiler range.
@@ -217,8 +227,21 @@ def make_window_step(pool, *, seed: int, plan_fn, qnames, multi: bool,
                 budgets = static_exec
             else:
                 budgets = torch.clamp(torch.floor(raw_b), min=2.0)
-        with stage("plan"):
-            plan = plan_fn(values, counts, budgets)
+        if adaptive is None:
+            with stage("plan"):
+                plan = plan_fn(values, counts, budgets)
+        else:
+            with stage("gate"):
+                gate, replan = gate_update(adaptive, state.adaptive.gate,
+                                           values, counts,
+                                           use_kernel=use_kernel)
+                replan = bool(replan)
+            with stage("plan"):
+                # no stage writes into a plan's tensors, so the cached plan
+                # is kept as it is
+                plan = (plan_fn(values, counts, budgets) if replan
+                        else state.adaptive.plan)
+            state.adaptive = AdaptiveCarry(gate=gate, plan=plan)
         with stage("sample"):
             samples = sample_fleet(seed, wid, values, plan.n_real)
         with stage("impute"):

@@ -433,3 +433,69 @@ def test_cuda_single_scan_matches_live_reference_bytes(cuda):
     assert report.wan_bytes == 4662
     assert (ss_ops.LAUNCHES - before[0], poly_ops.LAUNCHES - before[1]) == (
         6, 3)
+
+
+# ---- the adaptive drift gate and the golden sweep on the card ------------
+
+def _gate_windows():
+    """fleet_scan_adaptive_ph's 12 windows: (T, E, k, N) = (12, 6, 4, 64)."""
+    import numpy as np
+    from repro_torch.data.streams import fleet_like, fleet_windows
+    vals, _ = fleet_like(n_sites=6, n_regions=2, k=4, n_points=768, seed=22,
+                         window=64,
+                         strength_schedule=[(0, [0.9, 0.2]),
+                                            (6, [0.25, 0.85])])
+    return np.stack(fleet_windows(vals, 64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_cuda_gate_matches_cpu(cuda, use_kernel):
+    """The drift gate over the adaptive golden's windows, on the card and
+    on the CPU.  Plain versions on the card: every field bitwise.  With
+    the kernel (one launch a window): the decisions, counters and power
+    sums bitwise, the cross products within the kernel's f32 tolerance
+    (it sums the Gram in its own order)."""
+    from repro_torch.adaptive import AdaptiveSpec, gate_init, gate_update
+    spec = AdaptiveSpec(detector="page_hinkley", halflife=12.0,
+                        ph_delta=0.02, ph_lambda=0.3, min_replan_interval=2)
+    wins = torch.as_tensor(_gate_windows())
+    t, e, k, n = wins.shape
+    counts = torch.full((e, k), n, dtype=torch.int32)
+    cpu, card = gate_init(e, k, device="cpu"), gate_init(e, k, device=cuda)
+    before = ss_ops.LAUNCHES
+    for w in wins:
+        cpu, r_cpu = gate_update(spec, cpu, w, counts)
+        card, r_card = gate_update(spec, card, w.to(cuda), counts.to(cuda),
+                                   use_kernel=use_kernel)
+        assert bool(r_cpu) == bool(r_card)
+    assert ss_ops.LAUNCHES - before == (t if use_kernel else 0)
+    ints = ("det_age", "windows_since", "replans", "reuses", "fires",
+            "lag_sum", "lag_events")
+    for f in ints:
+        assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+    exact = [("weight", card.ew.weight, cpu.ew.weight),
+             ("s1", card.ew.s1, cpu.ew.s1), ("s2", card.ew.s2, cpu.ew.s2)]
+    rest = [("xxt", card.ew.xxt, cpu.ew.xxt),
+            ("assumed_corr", card.assumed_corr, cpu.assumed_corr),
+            ("det_accum", card.det_accum, cpu.det_accum)]
+    for name, got, want in exact + (rest if not use_kernel else []):
+        assert torch.equal(got.cpu(), want), name
+    if use_kernel:
+        for name, got, want in rest:
+            torch.testing.assert_close(got.cpu(), want, rtol=SS_RTOL,
+                                       atol=SS_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_kernel", [False, None])
+def test_cuda_sweep_over_the_committed_reports(cuda, use_kernel):
+    """The port's sweep on the card against tests/torch_goldens/reports:
+    five scan goldens, no drift (with the kernels, the single-edge ones
+    held to the recorded f32 class)."""
+    from repro_torch.sweep import runner
+    logged = []
+    code = runner.run_sweep(pattern="scan", device="cuda",
+                            use_kernel=use_kernel, log=logged.append)
+    assert code == 0, "\n".join(logged)
+    assert "5 scenario(s) checked" in logged[-1]

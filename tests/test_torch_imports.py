@@ -51,7 +51,10 @@ def test_importing_the_port_leaves_jax_and_repro_out():
     assert len(res["mods"]) >= 30
     assert {"repro_torch.kernels.stream_stats.ops",
             "repro_torch.kernels.flash_attention.ops",
-            "repro_torch.kernels.flash_attention.ref"} <= set(res["mods"])
+            "repro_torch.kernels.flash_attention.ref",
+            "repro_torch.sweep", "repro_torch.sweep.runner",
+            "repro_torch.sweep.__main__", "repro_torch.adaptive",
+            "repro_torch.adaptive.policy"} <= set(res["mods"])
     assert res["bad"] == []
     assert res["libs"] == [] and res["built"] == []
 
@@ -60,7 +63,8 @@ def test_importing_the_port_leaves_jax_and_repro_out():
     str(p.relative_to(ROOT)) for p in [
         *PORT.rglob("*.py"), ROOT / "chip_smoke.py",
         *(ROOT / "scripts" / f"{name}_times.py"
-          for name in ("fleet_kernel", "flash_f32", "window_stats"))]))
+          for name in ("fleet_kernel", "flash_f32", "window_stats",
+                       "main_path"))]))
 def test_no_jax_or_repro_import_lines(path):
     assert not FORBIDDEN.search((ROOT / path).read_text()), path
 

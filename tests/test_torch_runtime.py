@@ -140,7 +140,7 @@ def test_resume_from_reference_carry(windows, reference):
 @pytest.mark.parametrize("change,item", [
     ({"runtime": "event"}, "Event path"),
     ({"runtime": "scan_sharded"}, "Sharding"),
-    ({"adaptive": {"detector": "always"}}, "Adaptive"),
+    ({"runtime": "event", "adaptive": {"detector": "always"}}, "Event path"),
     ({"chaos": {"faults": []}}, "Chaos"),
     ({"method": "srs"}, "Event path"),
     ({"planner": dict(SCENARIO["planner"], solver="ipm")}, "Event path"),

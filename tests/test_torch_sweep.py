@@ -1,0 +1,281 @@
+"""The port's golden sweep (``repro_torch.sweep``) against the reference's.
+
+* ``serialize_report`` and ``diff_reports`` give the reference's dicts and
+  ``Drift`` rows on the same inputs, under each tolerance class.
+* The committed port-owned reports (``tests/torch_goldens/reports/``)
+  are what the live reference gives now, regenerated through
+  ``scripts/torch_reference_reports.py``.
+* ``python -m repro_torch.sweep --check --filter scan --device cpu``
+  checks the five scan goldens the port runs, each in its own class, and
+  names the ones it cannot run yet.
+* The single-edge goldens meet their ``ulp`` class because the port sums
+  and solves the cubic fit's normal equations in the reference's order;
+  the pieces of that order are held bitwise here.  With the kernels on,
+  the fit is the fused one and meets ``f32`` only: each entry of the
+  sweep's ``KERNEL_CLASS_GAPS`` drifts under its golden's class and
+  passes under the recorded one.
+"""
+import dataclasses
+import importlib.util
+import json
+import os
+import pathlib
+import subprocess
+import sys
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.sweep import diff as ref_diff
+from repro.sweep import report as ref_report
+from repro_torch.core.stats import lane_sum, lu_solve4, sqrt
+from repro_torch.sweep import diff, report, runner
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+REPORTS = ROOT / "tests" / "torch_goldens" / "reports"
+SCAN_GOLDENS = ["fleet_scan", "fleet_scan_adaptive_ph",
+                "fleet_scan_steps_static", "single_scan", "single_scan_steps"]
+NOT_PORTED = {"fleet_scan_chaos_join": "Chaos",
+              "fleet_scan_chaos_region": "Chaos",
+              "fleet_scan_sharded": "Sharding"}
+CLASSES = sorted(ref_diff.TOLERANCE_CLASSES)
+
+
+def _script():
+    path = ROOT / "scripts" / "torch_reference_reports.py"
+    spec = importlib.util.spec_from_file_location("torch_reference_reports",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _fake_report(seed: int, adaptive: bool):
+    """A RunReport-shaped object with every field the serializer reads."""
+    rng = np.random.default_rng(seed)
+    raw = {"gaps": 2, "revisions": 1, "late_drops": 0, "duplicates": 3,
+           "retransmits": 4,
+           "window_age_ms": rng.uniform(0, 9, (5, 3)),
+           "revised_windows": rng.uniform(size=5) > 0.5,
+           "budget_history": rng.integers(2, 90, (5, 3)).astype(np.float32)}
+    if adaptive:
+        raw.update(planner_invocations=6, plans_reused=6, drift_fires=7,
+                   detection_lag_windows=1.5)
+    table = rng.uniform(0, 1, (3, 4))
+    table[1, 2] = np.nan
+    return types.SimpleNamespace(
+        n_sites=3, wan_bytes=21096, full_bytes=73728,
+        wan_bytes_by_region={"region1": 9000, "region0": 12096},
+        nrmse={"AVG": 0.0235, "VAR": float("nan"), "MAX": float("inf")},
+        nrmse_at_query={"AVG": 0.0235},
+        wan_cost=1234.5, wan_cost_by_region={"region0": 1.0,
+                                             "region1": 1233.5},
+        freshness_ms={"p50_ms": 0.0, "p99_ms": 0.0},
+        region_nrmse={"region0": {"AVG": 0.01}, "region1": {"AVG": 0.03}},
+        nrmse_per_stream={"AVG": table, "VAR": table * 2},
+        raw=raw)
+
+
+@pytest.mark.parametrize("tolerance", CLASSES)
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_serialize_report_is_the_reference_serializer(tolerance, adaptive):
+    rep = _fake_report(3, adaptive)
+    got = report.serialize_report(rep, name="x", tolerance=tolerance)
+    want = ref_report.serialize_report(rep, name="x", tolerance=tolerance)
+    assert json.dumps(got, sort_keys=True) == json.dumps(want,
+                                                         sort_keys=True)
+    assert ("planner_invocations" in got["counters"]) == adaptive
+
+
+def _perturbed(golden: dict) -> dict:
+    cur = json.loads(json.dumps(golden))
+    cur["counters"]["wan_bytes"] += 1
+    cur["floats"]["nrmse/AVG"] *= 1 + 5e-10          # inside ulp
+    cur["floats"]["nrmse_at_query/AVG"] *= 1 + 5e-6  # inside f32 only
+    cur["floats"]["wan_cost"] *= 1 + 1e-3            # outside every class
+    cur["floats"]["freshness_ms/p50_ms"] = None
+    del cur["floats"]["region_nrmse/region0/AVG"]
+    cur["floats"]["extra"] = 1.0
+    s = cur["streams"]["nrmse_per_stream/AVG"]
+    s["sha256"] = "0" * 64
+    s["mean"] *= 1 + 2e-5
+    s["max"] *= 1 + 1e-2
+    cur["streams"]["budget_history"]["sha256"] = "f" * 64
+    cur["streams"]["revised_windows"]["shape"] = [6]
+    return cur
+
+
+@pytest.mark.parametrize("tolerance", CLASSES)
+def test_diff_reports_is_the_reference_diff(tolerance):
+    golden = ref_report.serialize_report(_fake_report(4, True), name="x",
+                                         tolerance=tolerance)
+    current = _perturbed(golden)
+    got = diff.diff_reports(golden, current)
+    want = ref_diff.diff_reports(golden, current)
+    assert [dataclasses.astuple(d) for d in got] == \
+        [dataclasses.astuple(d) for d in want]
+    assert len(got) > 5
+    assert diff.format_drift_table(got) == ref_diff.format_drift_table(want)
+    assert diff.diff_reports(golden, golden) == []
+    with pytest.raises(ValueError, match="unknown tolerance"):
+        diff.diff_reports(dict(golden, tolerance="loose"), current)
+
+
+def test_committed_reports_are_the_live_reference(tmp_path):
+    """Regenerate every report with the live reference: the committed
+    files are byte for byte what it gives now."""
+    mod = _script()
+    assert [s.name for s in mod.ported_scan_goldens()] == SCAN_GOLDENS
+    mod.generate(tmp_path, log=lambda *_: None)
+    written = sorted(p.name for p in (tmp_path / "reports").iterdir())
+    assert written == sorted(p.name for p in REPORTS.iterdir())
+    assert written == [f"{n}.json" for n in SCAN_GOLDENS]
+    for name in written:
+        assert (tmp_path / "reports" / name).read_text() == \
+            (REPORTS / name).read_text(), name
+    prov = json.loads((tmp_path / "PROVENANCE.json").read_text())
+    assert prov["jax"] == jax.__version__
+    assert prov["scenarios"] == SCAN_GOLDENS
+
+
+def test_sweep_checks_the_scan_goldens_on_the_cpu():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.sweep", "--check", "--filter",
+         "scan", "--device", "cpu"], capture_output=True, text=True,
+        env=env, timeout=600, cwd=ROOT)
+    assert out.returncode == 0, out.stdout + out.stderr
+    lines = out.stdout.splitlines()
+    for name in SCAN_GOLDENS:
+        tol = "ulp" if name.startswith("single") else "f32"
+        assert any(ln.split() == [name, "ok", f"[{tol}]"] for ln in lines), \
+            (name, out.stdout)
+    for name, item in NOT_PORTED.items():
+        assert any(ln.split()[:3] == [name, "not", "ported"]
+                   and f"'{item}'" in ln for ln in lines), name
+    assert "5 scenario(s) checked" in lines[-1]
+    assert "3 not ported" in lines[-1]
+
+
+def test_sweep_list_lint_and_usage():
+    logged = []
+    assert runner.run_sweep(mode="lint", log=logged.append) == 0
+    assert "21 scenario file(s)" in logged[-1]
+    logged.clear()
+    assert runner.run_sweep(mode="list", pattern="scan",
+                            log=logged.append) == 0
+    assert len(logged) == 21
+    marked = [ln.split()[1] for ln in logged if ln.startswith(" *")]
+    assert marked == sorted([*SCAN_GOLDENS, *NOT_PORTED])
+    assert sum("not ported: queue 1, 'Event path'" in ln
+               for ln in logged) == 13
+    from repro_torch.sweep.__main__ import main
+    assert main(["--check", "--filter", "no_such_scenario",
+                 "--device", "cpu"]) == 2
+    with pytest.raises(SystemExit) as exc:
+        main(["--update"])
+    assert exc.value.code == 2
+
+
+@pytest.mark.parametrize("field,value", [
+    ("counters", "wan_bytes"), ("floats", "nrmse/AVG")])
+def test_sweep_reports_a_drift(tmp_path, field, value):
+    """A report that disagrees with the port by one counter, or by a float
+    beyond the class, fails the check with the field named."""
+    for p in REPORTS.iterdir():
+        (tmp_path / p.name).write_text(p.read_text())
+    path = tmp_path / "single_scan_steps.json"
+    rep = json.loads(path.read_text())
+    rep[field][value] = (rep[field][value] + 1 if field == "counters"
+                         else rep[field][value] * (1 + 1e-6))
+    path.write_text(json.dumps(rep))
+    logged = []
+    code = runner.run_sweep(pattern="single_scan_steps", report_dir=tmp_path,
+                            device="cpu", log=logged.append)
+    assert code == 1
+    assert f"{field}:{value}" in logged[-1]
+
+
+@pytest.fixture(scope="module")
+def kernel_path_reports():
+    """The port's reports of the gap map's scenarios with the kernels'
+    path on (on the CPU: the fused fit over the plain moments)."""
+    return {name: runner.run_scenario(
+        runner.load_scenario_file(runner.SCENARIO_DIR / f"{name}.json"),
+        device="cpu", use_kernel=True) for name in runner.KERNEL_CLASS_GAPS}
+
+
+@pytest.mark.parametrize("name", sorted(runner.KERNEL_CLASS_GAPS))
+def test_kernel_class_gap_entry_is_needed_and_enough(kernel_path_reports,
+                                                     name):
+    gap = runner.KERNEL_CLASS_GAPS[name]
+    golden = json.loads((REPORTS / f"{name}.json").read_text())
+    assert golden["tolerance"] == gap.golden
+    current = kernel_path_reports[name]
+    drifts = diff.diff_reports(golden, current)
+    assert drifts, f"{name} meets {gap.golden} now: remove its entry"
+    assert not any(d.field.startswith("counters:") for d in drifts)
+    assert diff.diff_reports(dict(golden, tolerance=gap.meets),
+                             current) == []
+    assert runner.kernel_path("cpu", True)
+    assert not runner.kernel_path("cpu", None)
+
+
+# ------------------------------------- the fit's order (the ulp class)
+
+def _dot(lhs, rhs, contract):
+    return np.asarray(jax.jit(lambda a, b: jax.lax.dot_general(
+        a, b, (contract, ((0,), (0,)))))(lhs, rhs))
+
+
+@pytest.mark.parametrize("n", [128, 256, 4096, 33])
+def test_one_site_normal_equations_are_summed_as_the_reference(n):
+    """One site's X^T X (four chains) and X^T y (eight) against the dot
+    the reference compiles for them."""
+    rng = np.random.default_rng(n)
+    ft = rng.standard_normal((5, 4, n)).astype(np.float32)
+    y = rng.standard_normal((5, n)).astype(np.float32)
+    f = np.ascontiguousarray(ft.transpose(0, 2, 1))
+    t = torch.as_tensor(ft)
+    assert np.array_equal(
+        lane_sum(t[:, :, None, :], t[:, None, :, :], 4).numpy(),
+        _dot(ft, f, ((2,), (1,))))
+    assert np.array_equal(lane_sum(t, torch.as_tensor(y)[:, None, :],
+                                   8).numpy(), _dot(ft, y, ((2,), (1,))))
+
+
+def test_a_fleet_s_normal_equations_are_one_chain():
+    rng = np.random.default_rng(6)
+    f = rng.standard_normal((6, 4, 64, 4)).astype(np.float32)
+    want = np.asarray(jax.jit(lambda a: jax.lax.dot_general(
+        a, a, (((2,), (2,)), ((0, 1), (0, 1)))))(f))
+    t = torch.as_tensor(f).transpose(-1, -2)
+    assert np.array_equal(
+        lane_sum(t[..., :, None, :], t[..., None, :, :], 1).numpy(), want)
+
+
+@pytest.mark.parametrize("kind", ["normal_equations", "random"])
+def test_lu_solve4_is_lapack_order(kind):
+    rng = np.random.default_rng(7)
+    if kind == "random":
+        a = rng.standard_normal((300, 4, 4)).astype(np.float32)
+    else:
+        u = (rng.standard_normal((300, 256))
+             * rng.uniform(0.5, 2.0, (300, 1))).astype(np.float32)
+        f = np.stack([np.ones_like(u), u, u * u, u * u * u], -1)
+        a = (np.einsum("bni,bnj->bij", f, f)
+             + np.float32(1e-6) * np.eye(4)).astype(np.float32)
+    b = (rng.standard_normal((300, 4)) * 50).astype(np.float32)
+    want = np.asarray(jax.jit(jax.vmap(jnp.linalg.solve))(a, b))
+    got = lu_solve4(torch.as_tensor(a), torch.as_tensor(b)).numpy()
+    assert np.array_equal(got, want)
+
+
+def test_sqrt_is_rounded_correctly():
+    rng = np.random.default_rng(8)
+    x = rng.uniform(1e-3, 1e4, 100_000).astype(np.float32)
+    assert np.array_equal(sqrt(torch.as_tensor(x)).numpy(), np.sqrt(x))
