@@ -7,7 +7,8 @@ Phases, one JSON line each; any failed check exits non-zero:
   1. the card (name and power limit from nvidia-smi), torch and CUDA versions;
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
   3. each kernel against its plain PyTorch version on the card at the main
-     path's shape and at ragged shapes, and timed beside its bound (event
+     path's shape and at ragged and short shapes (the fleet kernel's
+     outputs all bitwise), and timed beside its bound (event
      and profiler device time); the fleet path's two kernels also at a
      fleet larger than L2 (``LARGE``);
   4. the main path: ``Experiment.from_scenario(...).run`` on the card for a
@@ -44,11 +45,14 @@ Phases, one JSON line each; any failed check exits non-zero:
      kernels held against their plain versions and timed at this path's
      shapes and at ``single_scan``'s;
  11. ``fleet_scan`` under the mean and multi model families;
- 12. slice 8's golden sweep: ``repro_torch.sweep`` over the five scan
-     goldens the port runs, on the card with the kernels and with the
+ 12. slices 8 and 9's golden sweep: ``repro_torch.sweep`` over the seven
+     scan goldens the port runs, on the card with the kernels and with the
      plain versions, against the committed ``tests/torch_goldens/reports``
      (every counter bitwise, every float within the class the runner
-     holds it to);
+     holds it to; the two chaos goldens' counters also against the live
+     reference's, ``CHAOS_REF``, and on the kernels' path the region
+     golden against the reference's own kernel path,
+     ``CHAOS_REF_KERNEL_PATH``);
  13. slice 8's path: adaptive re-planning (the page_hinkley drift gate on
      ``stream_stats_fleet``) at the main path's width, E = 1024 sites,
      k = 8, N = 256, over ``ADAPTIVE["T"]`` generated windows whose
@@ -57,7 +61,19 @@ Phases, one JSON line each; any failed check exits non-zero:
      planned every window, the stage split with ``window_step/gate``, the
      plain versions on the card against the kernels, and the adaptive
      golden on the card against the live reference's counters;
- 14. the kernels line, then ``{"ok": true, "device": {...}}`` last.
+ 14. slice 9's path: chaos fault injection at the main path's width (its
+     fleet, planner and 4 windows cycled to ``CHAOS["T"]``; a regional
+     outage, joins, flaps and random flaps): launches asserted, dead
+     (window, site) cells with budget 0 and 0 bytes, the liveness table
+     against the CPU's, windows/sec, and the stage split and busy share
+     over a 3-window profile;
+ 15. the chaos path's checkpoint resume: the carry saved at window
+     ``CHAOS["cut"]`` (inside the outage), restored into a fresh runtime
+     and run to the end, held bitwise against the uninterrupted run (byte
+     and budget histories, served estimates, final state), each window's
+     live budgets summing to what the CPU computes from the same
+     controller state;
+ 16. the kernels line, then ``{"ok": true, "device": {...}}`` last.
 
 Detailed profiles go to ``chiprun_out/``.
 """
@@ -98,6 +114,27 @@ ADAPTIVE_REF = {"wan_bytes": 21096, "planner_invocations": 6,
                 "plans_reused": 6, "drift_fires": 7}
 ADAPTIVE = {"n_regions": 4, "sites_per_region": 256, "k": 8, "window": 256,
             "T": 24, "strength": [0.9, 0.65, 0.4, 0.15]}
+# slice 9: the chaos goldens' live reference (CPU, jax 0.9), on its CPU
+# path and, for the region golden, on its kernel path (Pallas in interpret
+# mode, the fused fit), which the kernels' path is held to; the committed
+# goldens say 10752 and 1052136 WAN bytes (ROADMAP.md queue 3, note b)
+CHAOS_REF = {"fleet_scan_chaos_join": {"wan_bytes": 10732,
+                                       "down_site_windows": 5,
+                                       "gap_served_cells": 3},
+             "fleet_scan_chaos_region": {"wan_bytes": 1053280,
+                                         "down_site_windows": 320,
+                                         "gap_served_cells": 320}}
+CHAOS_REF_KERNEL_PATH = {"fleet_scan_chaos_region": {
+    "wan_bytes": 1053064, "down_site_windows": 320, "gap_served_cells": 320}}
+# the chaos path: the main path's fleet, 4 windows cycled to T; region 1
+# dark for [30, 50), sites 0-31 joining at window 10, site 5 down for
+# [60, 70) by two flaps, and random flaps; resumed from a checkpoint at
+# window ``cut``, inside the outage
+CHAOS = {"T": 100, "cut": 40,
+         "spec": {"outages": [[30, 20, 1]],
+                  "joins": [[10, s] for s in range(32)],
+                  "flaps": [[60, 5, "down"], [70, 5, "up"]],
+                  "flap_prob": 0.01, "flap_len": 3, "seed": 7}}
 # a fleet of the main path's kind whose data (134 MB for stream_stats_fleet,
 # 268 MB for polyfit) does not fit in the 50 MB L2: (E, k, N)
 LARGE = (4096, 8, 1024)
@@ -405,21 +442,26 @@ def main() -> int:
                                  f"at {shape}: max |err| {err}")
         return err
 
-    # stream_stats_fleet: power sums bitwise, the Gram block within the
-    # tolerances of tests/test_kernel_stream_stats.py.  The large fleet's
-    # inputs are seeded torch.randn on the card.
+    # stream_stats_fleet: power sums and Gram block bitwise the plain
+    # version's (the same products in the same order); a short row also
+    # with fused (S2..S4 as multiply-add chains, the plan's order below 33
+    # tuples).  The large fleet's inputs are seeded torch.randn on the card.
     gen_l = torch.Generator(device=dev).manual_seed(16)
     El, kl, Nl = LARGE
     xl = torch.randn(El, kl, Nl, device=dev, generator=gen_l) * 1.5 + 2.0
     ss_cases = [("values", w0), ("ranks", ranks),
                 ("ragged", randn(3, 5, 200, scale=1.5, shift=2.0)),
-                ("ragged", randn(2, 9, 130, scale=3.0)), ("large", xl)]
+                ("ragged", randn(2, 9, 130, scale=3.0)),
+                ("short", randn(5, 8, 20, scale=1.5, shift=2.0)),
+                ("large", xl)]
     ss_err = 0.0
     for label, x in ss_cases:
-        got = ss_ops.stream_stats_fleet_cuda(x)
-        torch.cuda.synchronize()
-        err = check("stream_stats_fleet", got, fleet_stats_ref(x),
-                    [label, *x.shape], (True, False), 2e-5, 1e-2)
+        for fused in ((False, True) if label == "short" else (False,)):
+            got = ss_ops.stream_stats_fleet_cuda(x, fused)
+            torch.cuda.synchronize()
+            err = check("stream_stats_fleet", got, fleet_stats_ref(x, fused),
+                        [label + ("/fused" if fused else ""), *x.shape],
+                        (True, True), 0.0, 0.0)
         if label in ("values", "ranks"):
             ss_err = max(ss_err, err)
     for label, x in (("main", w0), ("large", xl)):
@@ -558,11 +600,17 @@ def main() -> int:
     golden_sweep_phase(torch)
     adaptive = adaptive_path(torch)
 
-    # ---- 14. the kernels line and the result -----------------------------
-    # launches: rows 1 and 2 on the two runtime paths driven with the
-    # counts at 0 (main_path, adaptive_path), rows 3 and 4 on the kernel
-    # entry points
-    by_path = {n: ({"main_path": launches[n], "adaptive_path": adaptive[n]}
+    # ---- 14.-15. slice 9: chaos at full width, and its resume ------------
+    chaos = chaos_phases(torch, windows, main_scenario(
+        k, N, MAIN["n_regions"], MAIN["sites_per_region"],
+        MAIN["pool"] * N))
+
+    # ---- 16. the kernels line and the result -----------------------------
+    # launches: rows 1 and 2 on the three runtime paths driven with the
+    # counts at 0 (main_path, adaptive_path, chaos_path), rows 3 and 4 on
+    # the kernel entry points
+    by_path = {n: ({"main_path": launches[n], "adaptive_path": adaptive[n],
+                    "chaos_path": chaos[n]}
                    if n in adaptive else {"kernel_entry_points": launches[n]})
                for n in KERNELS}
     emit({"kernels": [dict(name=n, route="cuda", source=KERNELS[n][0],
@@ -895,12 +943,11 @@ def single_edge_phases(torch, dev) -> None:
             torch.cuda.synchronize()
             mom, xxt = fleet_stats_ref(inp)
             err = float((got[1] - xxt).abs().max())
-            ok = (torch.equal(got[0], mom)
-                  and torch.allclose(got[1], xxt, rtol=2e-5, atol=1e-2))
+            ok = torch.equal(got[0], mom) and torch.equal(got[1], xxt)
             emit({"phase": "kernel_check", "kernel": "stream_stats_fleet",
                   "case": f"{label}/{inp_label}", "shape": list(inp.shape),
-                  "max_abs_err": err, "bitwise": [True, False],
-                  "rtol": 2e-5, "atol": 1e-2, "ok": ok})
+                  "max_abs_err": err, "bitwise": [True, True],
+                  "rtol": 0.0, "atol": 0.0, "ok": ok})
             if not ok:
                 raise AssertionError(f"stream_stats_fleet disagrees with its "
                                      f"plain version at {label}/{inp_label}")
@@ -964,7 +1011,7 @@ def single_edge_phases(torch, dev) -> None:
 
 
 def golden_sweep_phase(torch) -> None:
-    """Phase 12: the port's sweep on the card over the five scan goldens,
+    """Phase 12: the port's sweep on the card over the seven scan goldens,
     with the kernels (single-edge goldens held to the runner's recorded
     f32 class) and with the plain versions (every golden in its own
     class), against the committed port-owned reports.  Any drift
@@ -981,7 +1028,8 @@ def golden_sweep_phase(torch) -> None:
     for uk in (True, False):
         gaps = runner.KERNEL_CLASS_GAPS if uk else {}
         for s in scen:
-            golden = json.loads(runner.report_path(s).read_text())
+            golden = json.loads(
+                runner.golden_report_path(s, use_kernel=uk).read_text())
             ss_ops.LAUNCHES = 0
             poly_ops.LAUNCHES = 0
             cur = runner.run_scenario(s, device="cuda", use_kernel=uk)
@@ -1002,10 +1050,20 @@ def golden_sweep_phase(torch) -> None:
             if drifts:
                 print(diff.format_drift_table(drifts), flush=True)
                 bad.append((s.name, uk))
+            if s.name in CHAOS_REF:
+                want = ((uk and CHAOS_REF_KERNEL_PATH.get(s.name))
+                        or CHAOS_REF[s.name])
+                got = {f: cur["counters"][f] for f in want}
+                emit({"phase": "golden_chaos", "scenario": s.name,
+                      "use_kernel": uk, "got": got, "reference_cpu": want,
+                      "reference_path": "kernel" if
+                      want is not CHAOS_REF[s.name] else "cpu"})
+                if got != want:
+                    bad.append((s.name, uk))
     emit({"phase": "golden_sweep_seconds",
           "seconds": time.perf_counter() - t0, "checked": len(scen),
           "not_ported": skipped})
-    if len(scen) != 5 or bad:
+    if len(scen) != 7 or bad:
         raise AssertionError(f"golden sweep on the card: {len(scen)} "
                              f"scenarios checked, drifts in {bad}")
 
@@ -1130,6 +1188,131 @@ def adaptive_path(torch) -> dict:
     emit({"phase": "adaptive_path_seconds",
           "seconds": time.perf_counter() - t0})
     return launches
+
+
+def chaos_phases(torch, windows, scenario: dict) -> dict:
+    """Phases 14-15: chaos fault injection at the main path's width (the
+    main path's fleet, planner and windows, ``CHAOS["spec"]``), then a
+    checkpoint inside the outage restored into a fresh runtime.  Returns
+    the launches of rows 1 and 2 in the chaos run.  Every check raises."""
+    import tempfile
+    import numpy as np
+    from repro_torch.api.experiment import Experiment
+    from repro_torch.api.scenario import ScenarioConfig
+    from repro_torch.chaos import liveness_table, make_chaos_carry
+    from repro_torch.ckpt import flatten, latest_step, restore, save
+    from repro_torch.kernels.polyfit import ops as poly_ops
+    from repro_torch.kernels.stream_stats import ops as ss_ops
+    from repro_torch.runtime import scan as scan_mod
+    from repro_torch.runtime import step as step_mod
+    from repro_torch.runtime.state import ControllerState, init_state
+    t0 = time.perf_counter()
+    T, cut = CHAOS["T"], CHAOS["cut"]
+    sc = ScenarioConfig.from_dict(dict(scenario, chaos=CHAOS["spec"]))
+
+    def experiment():
+        return Experiment.from_scenario(sc, use_kernel=True,
+                                        collect="estimates", device="cuda")
+
+    ex = experiment()
+    ex.run(windows, n_windows=2)                 # warm-up
+    ss_ops.LAUNCHES = 0
+    poly_ops.LAUNCHES = 0
+    rep = ex.run(windows, n_windows=T)
+    torch.cuda.synchronize()
+    launches = {"stream_stats_fleet": ss_ops.LAUNCHES,
+                "polyfit": poly_ops.LAUNCHES}
+    raw = rep.raw
+    topo = ex.runtime.topology
+    live = np.asarray(raw["liveness"]).astype(bool)
+    cpu_tbl = liveness_table(sc.chaos, T, topo.n_sites, topo.region_of())
+    budgets = np.asarray(raw["budget_history"])
+    nbytes = np.asarray(raw["bytes_history"])
+    emit({"phase": "chaos_path", "E": topo.n_sites, "k": topo.k, "T": T,
+          "windows_per_sec": raw["windows_per_sec"],
+          "scan_seconds": raw["scan_seconds"],
+          "launches": launches,
+          "launches_per_window": {n: v / T for n, v in launches.items()},
+          "down_site_windows": raw["down_site_windows"],
+          "gap_served_cells": raw["gap_served_cells"],
+          "recovery_windows": raw["recovery_windows"],
+          "availability_by_region": raw["availability_by_region"],
+          "wan_bytes": rep.wan_bytes, "full_bytes": rep.full_bytes,
+          "nrmse": rep.nrmse, "outage_nrmse": raw["outage_nrmse"],
+          "steady_nrmse": raw["steady_nrmse"]})
+    if launches != {"stream_stats_fleet": 2 * T, "polyfit": T}:
+        raise AssertionError(f"chaos path launches {launches}, want "
+                             f"{2 * T} and {T}")
+    if not np.array_equal(live, cpu_tbl):
+        raise AssertionError("chaos path: liveness table differs from the "
+                             "CPU's")
+    if (budgets[~live] != 0).any() or (nbytes[~live] != 0).any():
+        raise AssertionError("chaos path: a dead site got a budget or "
+                             "shipped bytes")
+    if not (live.sum() < live.size and (nbytes[live] > 0).all()
+            and 0 < rep.wan_bytes < rep.full_bytes):
+        raise AssertionError("chaos path: output out of range")
+    profile_main_path(ex, windows, torch, out_name="profile_chaos.txt")
+
+    # the uninterrupted run again, each window's raw budgets beside the
+    # same controller state's budgets computed on the CPU, and the served
+    # tables kept; then the run split at ``cut`` through a checkpoint
+    sums, stacked = [], []
+    budgets_fn, stack_fn = step_mod.controller_budgets, scan_mod._stack_outputs
+
+    def hooked(state, p, live=None):
+        out = budgets_fn(state, p, live=live)
+        host = ControllerState(**{f: getattr(state, f).cpu() for f in
+                                  ControllerState.__dataclass_fields__})
+        cpu = budgets_fn(host, p, live=None if live is None else live.cpu())
+        sums.append((float(out.sum()), float(cpu.sum())))
+        return out
+
+    step_mod.controller_budgets = hooked
+    scan_mod._stack_outputs = lambda outs: stacked.append(stack_fn(outs)) \
+        or stacked[-1]
+    try:
+        full = experiment().run(windows, n_windows=T)
+        step_mod.controller_budgets = budgets_fn
+        head = experiment().run(windows, n_windows=cut)
+        with tempfile.TemporaryDirectory() as tmp:
+            save(head.raw["final_state"], cut, tmp)
+            E, k = topo.n_sites, topo.k
+            template = init_state(E, k, 0.0, device="cuda")
+            template.chaos = make_chaos_carry(E, k, sc.queries,
+                                              device="cuda")
+            state = restore(tmp, latest_step(tmp), template, device="cuda")
+        tail = experiment().run(windows, n_windows=T - cut, state=state)
+    finally:
+        step_mod.controller_budgets = budgets_fn
+        scan_mod._stack_outputs = stack_fn
+    ys_full, ys_tail = stacked[0], stacked[2]
+    rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in sums)
+    same = {
+        "bytes_history": np.array_equal(
+            tail.raw["bytes_history"], full.raw["bytes_history"][cut:]),
+        "budget_history": np.array_equal(
+            tail.raw["budget_history"], full.raw["budget_history"][cut:]),
+        "served": all(np.array_equal(ys_tail["est"][q],
+                                     ys_full["est"][q][cut:], equal_nan=True)
+                      for q in sc.queries),
+        "final_state": _same_leaves(flatten(tail.raw["final_state"]),
+                                    flatten(full.raw["final_state"])),
+        "wan_bytes": head.wan_bytes + tail.wan_bytes == full.wan_bytes}
+    emit({"phase": "chaos_resume", "cut": cut, "T": T, "bitwise": same,
+          "budget_sum_max_rel_gap_cpu": rel, "windows_checked": len(sums),
+          "seconds": time.perf_counter() - t0})
+    if not all(same.values()) or rel > 1e-5 or len(sums) != T:
+        raise AssertionError(f"chaos resume: {same}, budget sums rel {rel} "
+                             f"over {len(sums)} windows")
+    return launches
+
+
+def _same_leaves(a: dict, b: dict) -> bool:
+    import numpy as np
+    return a.keys() == b.keys() and all(
+        np.array_equal(a[key], b[key], equal_nan=a[key].dtype.kind == "f")
+        for key in a)
 
 
 def _head_dim(m) -> int:

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Device time of the fleet path's two CUDA kernels at two shapes.
+"""Device time of the fleet path's two CUDA kernels at three shapes.
 
 Run from the root of a checkout, on a machine with an NVIDIA GPU:
 
@@ -12,9 +12,11 @@ one card: ``--src parent/src``, then the default, in turns.  For
 it prints one JSON line per (kernel, shape): the device time per call
 from ``torch.profiler`` (``chip_smoke.device_ms``), the CUDA-event time,
 and the bytes bound.  The shapes are the main path's (E 1024, k 8,
-N 256) and a larger fleet whose data does not fit in L2 (E 4096, k 8,
-N 1024).  Inputs are seeded ``torch.randn`` on the card; each output is
-held against its plain version (power sums bitwise).
+N 256), a larger fleet whose data does not fit in L2 (E 4096, k 8,
+N 1024) and one edge gateway's (E 1, k 8, N 4096).  Inputs are seeded
+``torch.randn`` on the card; each output is held against its plain
+version (power sums bitwise, the Gram block to f32 rounding, and whether
+it is bitwise is printed).
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-SHAPES = {"main": (1024, 8, 256), "large": (4096, 8, 1024)}
+SHAPES = {"main": (1024, 8, 256), "large": (4096, 8, 1024),
+          "edge": (1, 8, 4096)}
 # profiled and event-timed calls per kernel and shape, as in chip_smoke.py
 REPS = 50
 
@@ -62,6 +65,7 @@ def main() -> int:
         pu, py = poly_ops.polyfit_cuda(y, u)
         pu_r, py_r = polyfit_ref(y, u)
         pu_r[:, 0] = float(n)
+        xxt_bitwise = bool(torch.equal(xxt, xxt_r))
         ok = {"stream_stats_fleet": bool(
                   torch.equal(mom, mom_r)
                   and torch.allclose(xxt, xxt_r, rtol=2e-5, atol=1e-2)),
@@ -76,13 +80,16 @@ def main() -> int:
                         2 * y.numel() * 4 + y.shape[0] * 11 * 4)}
         for kernel, (fn, match, nbytes) in cases.items():
             print(json.dumps({
-                "label": args.label, "kernel": kernel, "shape_name": shape_name,
+                "label": args.label, "kernel": kernel,
+                "shape_name": shape_name,
                 "shape": [e, k, n] if kernel != "polyfit" else [e * k, n],
                 "device_ms": device_ms(fn, torch, REPS, match,
                                        launches_per_call=1),
                 "event_ms": time_cuda(fn, torch, REPS),
                 "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bytes": nbytes,
-                "ok": ok[kernel], "card": card}), flush=True)
+                "ok": ok[kernel], "card": card,
+                **({"xxt_bitwise": xxt_bitwise}
+                   if kernel == "stream_stats_fleet" else {})}), flush=True)
         if not all(ok.values()):
             print(f"fleet_kernel_times: {args.label} {shape_name}: a kernel "
                   f"disagrees with its plain version: {ok}", file=sys.stderr)

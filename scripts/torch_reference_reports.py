@@ -8,7 +8,10 @@ For each scenario of ``tests/goldens/scenarios/`` that ``repro_torch``
 runs (``repro_torch.sweep.not_ported`` is None) and that is tagged
 ``scan``, this runs the reference's ``Experiment`` on the CPU, serializes
 the report with the reference's ``repro.sweep.report.serialize_report``
-and writes ``tests/torch_goldens/reports/<name>.json``.  Provenance (JAX
+and writes ``tests/torch_goldens/reports/<name>.json``; for the scenarios
+of ``repro_torch.sweep.runner.KERNEL_PATH_REPORTS`` it also runs the
+reference's kernel path (its Pallas kernels in interpret mode) and writes
+``tests/torch_goldens/kernel_reports/<name>.json``.  Provenance (JAX
 version, commit, date) goes into ``tests/torch_goldens/PROVENANCE.json``,
 never into the reports, so a report changes only when a number does.
 
@@ -36,13 +39,15 @@ def ported_scan_goldens() -> list:
             if "scan" in s.tags and not_ported(s) is None]
 
 
-def reference_report(name: str) -> dict:
-    """The live reference's serialized report of golden ``name``."""
+def reference_report(name: str, kernels: bool = False) -> dict:
+    """The live reference's serialized report of golden ``name``; with
+    ``kernels``, of its kernel path (Pallas in interpret mode)."""
     from repro.api.experiment import Experiment
     from repro.sweep.report import serialize_report
     from repro.sweep.runner import SCENARIO_DIR, load_scenario_file
     s = load_scenario_file(SCENARIO_DIR / f"{name}.json")
-    report = Experiment.from_scenario(s.config).run()
+    opts = {"use_kernel": True, "interpret": True} if kernels else {}
+    report = Experiment.from_scenario(s.config, **opts).run()
     return serialize_report(report, name=s.name, tolerance=s.tolerance)
 
 
@@ -53,16 +58,24 @@ def write_json(payload: dict, path: Path) -> None:
 
 def generate(out_dir: Path = OUT_DIR, names=None, log=print) -> dict:
     """Write ``<out_dir>/reports/<name>.json`` for ``names`` (default:
-    every ported scan golden) and ``<out_dir>/PROVENANCE.json``; returns
-    {name: report}."""
+    every ported scan golden), ``<out_dir>/kernel_reports/<name>.json``
+    for those of them the sweep holds to the reference's kernel path, and
+    ``<out_dir>/PROVENANCE.json``; returns {name: report}."""
     import jax
     if names is None:
         names = [s.name for s in ported_scan_goldens()]
+    from repro_torch.sweep.runner import KERNEL_PATH_REPORTS
     reports = {}
+    kernel_names = []
     for name in names:
         reports[name] = reference_report(name)
         write_json(reports[name], Path(out_dir) / "reports" / f"{name}.json")
         log(f"  {name:<34} written")
+        if name in KERNEL_PATH_REPORTS:
+            write_json(reference_report(name, kernels=True),
+                       Path(out_dir) / "kernel_reports" / f"{name}.json")
+            kernel_names.append(name)
+            log(f"  {name:<34} written (kernel path)")
     try:
         commit = subprocess.run(["git", "rev-parse", "HEAD"], cwd=ROOT,
                                 capture_output=True, text=True,
@@ -73,7 +86,8 @@ def generate(out_dir: Path = OUT_DIR, names=None, log=print) -> dict:
                 "jax": jax.__version__, "jax_backend": jax.default_backend(),
                 "commit": commit,
                 "date": datetime.date.today().isoformat(),
-                "scenarios": sorted(reports)},
+                "scenarios": sorted(reports),
+                "kernel_path_scenarios": sorted(kernel_names)},
                Path(out_dir) / "PROVENANCE.json")
     return reports
 

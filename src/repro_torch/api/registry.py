@@ -96,6 +96,8 @@ class Registry:
 #   RUNTIMES          repro_torch.runtime        (scan | scan_steps)
 #   DRIFT_DETECTORS   repro_torch.adaptive.drift (threshold | page_hinkley
 #                                                 | always | never)
+#   FAULTS            repro_torch.chaos.spec     (flap | join | outage
+#                                                 | random)
 MODELS = Registry("imputation model")
 EPSILON_POLICIES = Registry("epsilon policy")
 DEPENDENCE = Registry("dependence measure")
@@ -104,6 +106,7 @@ DATASETS = Registry("dataset")
 ENGINES = Registry("plan engine")
 RUNTIMES = Registry("runtime")
 DRIFT_DETECTORS = Registry("drift detector")
+FAULTS = Registry("fault family")
 
 
 def populate() -> None:
@@ -114,3 +117,4 @@ def populate() -> None:
     import repro_torch.planning         # noqa: F401
     import repro_torch.runtime          # noqa: F401
     import repro_torch.adaptive.drift   # noqa: F401
+    import repro_torch.chaos.spec       # noqa: F401

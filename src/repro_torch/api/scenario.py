@@ -10,8 +10,8 @@ unknown name raises with the alternatives listed); whether the port can
 run a scenario is decided when it is built into an experiment, which
 raises ``NotImplementedError`` naming the ROADMAP item for anything not
 ported yet.  ``adaptive`` is an
-:class:`~repro_torch.adaptive.AdaptiveSpec` (a dict is converted); the
-chaos spec is kept as plain data.
+:class:`~repro_torch.adaptive.AdaptiveSpec` and ``chaos`` a
+:class:`~repro_torch.chaos.ChaosSpec` (a dict is converted to either).
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ from repro_torch.core.types import PlannerConfig
 _reg.populate()        # spelling checks need the registries filled
 
 from repro_torch.adaptive import AdaptiveSpec  # noqa: E402  (needs populate())
+from repro_torch.chaos import ChaosSpec  # noqa: E402
 
 DEMAND_SIGNALS = ("obs_err", "pred_err", "max_err")
 SOLVERS = ("ipm", "slsqp", "closed_form")
@@ -47,13 +48,6 @@ def _freeze(v):
     if isinstance(v, dict):
         return {k: _freeze(x) for k, x in v.items()}
     return v
-
-
-def _chaos_is_trivial(chaos: dict) -> bool:
-    """A chaos spec that injects nothing (``ChaosSpec.is_trivial``)."""
-    return (not chaos.get("flaps") and not chaos.get("outages")
-            and not chaos.get("joins")
-            and float(chaos.get("flap_prob", 0.0)) == 0.0)
 
 
 def _one_of(kind: str, name: str, names: tuple) -> None:
@@ -167,7 +161,7 @@ class ScenarioConfig:
     runtime: str = "event"
     name: str = ""
     adaptive: Optional[AdaptiveSpec] = None   # None = plan every window
-    chaos: Optional[dict] = None       # plain data; not ported yet
+    chaos: Optional[ChaosSpec] = None         # None = fixed membership
 
     def __post_init__(self):
         planner = self.planner
@@ -177,8 +171,8 @@ class ScenarioConfig:
                 planner = dataclasses.replace(planner, **{f: _freeze(v)})
         object.__setattr__(self, "planner", planner)
         object.__setattr__(self, "queries", tuple(self.queries))
-        if self.chaos is not None:
-            object.__setattr__(self, "chaos", _freeze(dict(self.chaos)))
+        if isinstance(self.chaos, dict):
+            object.__setattr__(self, "chaos", ChaosSpec.from_dict(self.chaos))
         if isinstance(self.adaptive, dict):
             object.__setattr__(self, "adaptive",
                                AdaptiveSpec.from_dict(self.adaptive))
@@ -223,12 +217,21 @@ class ScenarioConfig:
                     "adaptive re-planning cannot reuse host-engine plans "
                     "(plan_window draws samples inside the plan); use the "
                     "batched or sharded engine")
-        if self.chaos is not None and self.adaptive is not None:
-            if not _chaos_is_trivial(self.chaos):
+        # chaos varies fleet membership: it needs a fleet, cannot combine
+        # with adaptive re-planning, and its fault indices are checked
+        # against the topology here
+        if self.chaos is not None:
+            if not self.is_fleet:
+                raise ValueError(
+                    "chaos fault injection requires a fleet topology; a "
+                    "single edge has no membership to vary")
+            if self.adaptive is not None and not self.chaos.is_trivial:
                 raise ValueError(
                     "chaos and adaptive re-planning cannot be combined: "
                     "the drift gate's cached plan would replay "
                     "allocations for dead sites")
+            self.chaos.validate_topology(self.topology.n_sites,
+                                         self.topology.n_regions)
 
     @property
     def is_fleet(self) -> bool:

@@ -15,8 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.stats import (blocked_sum, fma, ipow, lane_sum,
-                                    lu_solve4, recip, sqrt)
+from repro_torch.core.stats import (blocked_sum, fma_chain, ipow,
+                                    lane_sum, lu_solve4, recip, sqrt)
 from repro_torch.core.types import CompactModel, Tensor
 
 _RIDGE = 1e-6
@@ -30,16 +30,14 @@ def _features(u: Tensor, degree: int) -> Tensor:
     return feats * keep
 
 
-def _unbiased(total: Tensor, n: Tensor, n_static) -> Tensor:
-    """total / max(n - 1, 1); with a static window length the reference
-    multiplies by the folded reciprocal instead of dividing."""
-    if n_static is not None:
-        return total * recip(max(int(n_static) - 1, 1))
+def _unbiased(total: Tensor, n: Tensor) -> Tensor:
+    """total / max(n - 1, 1).  n counts a gathered pair mask, which is data
+    to the reference's compiler even when the window length is static, so
+    the division stays a division."""
     return total / torch.clamp(n - 1.0, min=1.0)
 
 
-def _fit_one(y: Tensor, x_pred: Tensor, pair_mask: Tensor, degree: int,
-             n_static=None):
+def _fit_one(y: Tensor, x_pred: Tensor, pair_mask: Tensor, degree: int):
     """LSQ fit of y ~ poly(x_pred) over co-valid positions, batched over
     leading dims.  Returns (coeffs (..., 4), loc, scale, explained_var).
 
@@ -49,8 +47,9 @@ def _fit_one(y: Tensor, x_pred: Tensor, pair_mask: Tensor, degree: int,
     axis squeezed away, so the operands lie differently) in four chains
     for X^T X and eight for X^T y.  Every system is solved in LAPACK's
     order (:func:`~repro_torch.core.stats.lu_solve4`) and the fitted
-    values are 4-term multiply-add chains, so on the CPU the fit is
-    bitwise the reference's.
+    values are 4-term multiply-add chains (:func:`~repro_torch.core.stats.
+    fma_chain`, the reference's compiled length-4 dot), so on the CPU the
+    fit is bitwise the reference's.
     """
     w = pair_mask
     n = torch.clamp(blocked_sum(w), min=1.0)
@@ -66,11 +65,10 @@ def _fit_one(y: Tensor, x_pred: Tensor, pair_mask: Tensor, degree: int,
                     4 if one else 1) + _RIDGE * eye
     xty = lane_sum(ft, (y * w)[..., None, :], 8 if one else 1)
     coeffs = lu_solve4(xtx, xty)
-    fitted = _dot4(f, coeffs[..., None, :])
+    fitted = fma_chain(f, coeffs[..., None, :])
     mean_fit = blocked_sum(fitted * w) / n
     # Var[E[X|Xp]] — unbiased over co-valid samples (the V_i of eqs. 3/7/11)
-    ev = _unbiased(blocked_sum(ipow(fitted - mean_fit[..., None], 2) * w),
-                   n, n_static)
+    ev = _unbiased(blocked_sum(ipow(fitted - mean_fit[..., None], 2) * w), n)
     return coeffs, loc, scale, ev
 
 
@@ -80,8 +78,8 @@ def fit_models(values: Tensor, counts: Tensor, predictor: Tensor,
     """Fit E[X_i | X_{p_i}] for every stream of every site.
 
     values (..., k, N) f32, counts (..., k), predictor (..., k) int64.
-    ``n_static``: all counts equal this window length (see
-    :func:`~repro_torch.core.stats.stats_from_sums`).
+    ``n_static`` is accepted for the families' fit signature: the fit
+    counts a gathered pair mask, which the reference never folds.
     """
     n_max = values.shape[-1]
     idx = torch.arange(n_max, device=values.device)
@@ -91,25 +89,14 @@ def fit_models(values: Tensor, counts: Tensor, predictor: Tensor,
     mp = torch.gather(mask, -2, gather_idx)        # predictor validity
     pair = mask * mp
     if use_kernel is True:
-        coeffs, loc, scale, ev = _fit_fused(values, xp, pair, degree,
-                                            n_static)
+        coeffs, loc, scale, ev = _fit_fused(values, xp, pair, degree)
     else:
-        coeffs, loc, scale, ev = _fit_one(values, xp, pair, degree, n_static)
+        coeffs, loc, scale, ev = _fit_one(values, xp, pair, degree)
     return CompactModel(coeffs=coeffs, loc=loc, scale=scale,
                         explained_var=ev, predictor=predictor)
 
 
-def _dot4(a: Tensor, b: Tensor) -> Tensor:
-    """Length-4 dot product over the last axis as the reference's compiler
-    emits it: a chain of fused multiply-adds from zero, in index order."""
-    acc = torch.zeros_like(a[..., 0])
-    for i in range(a.shape[-1]):
-        acc = fma(a[..., i], b[..., i], acc)
-    return acc
-
-
-def _fit_fused(values: Tensor, xp: Tensor, pair: Tensor, degree: int,
-               n_static=None):
+def _fit_fused(values: Tensor, xp: Tensor, pair: Tensor, degree: int):
     """The `_fit_one` system assembled from fused Vandermonde moments.
 
     With the 0/1 pair mask w folded into the standardized predictor,
@@ -137,10 +124,11 @@ def _fit_fused(values: Tensor, xp: Tensor, pair: Tensor, degree: int,
     keep = (idx4 <= degree).to(pu.dtype)
     c = coeffs * keep
     gram = pu[..., idx4[:, None] + idx4[None, :]]   # (..., 4, 4) Hankel
-    s = _dot4(c, pu[..., :4])                       # sum of fitted*w
-    ss = _dot4(torch.stack([_dot4(c, gram[..., :, j]) for j in range(4)],
-                           dim=-1), c)              # sum of fitted^2*w
-    ev = _unbiased(torch.clamp(ss - s * s / n, min=0.0), n, n_static)
+    s = fma_chain(c, pu[..., :4])                   # sum of fitted*w
+    ss = fma_chain(torch.stack([fma_chain(c, gram[..., :, j])
+                                for j in range(4)], dim=-1),
+                   c)                               # sum of fitted^2*w
+    ev = _unbiased(torch.clamp(ss - s * s / n, min=0.0), n)
     return coeffs, loc, scale, ev
 
 
@@ -178,8 +166,7 @@ def mean_model(values: Tensor, counts: Tensor, predictor: Tensor,
 # E[X_i | X_p, X_q] ~ c0 + c1 u + c2 v + c3 uv — still 4 coefficients;
 # constraint 1d becomes n_s,i <= min(n_r,p, n_r,q).
 
-def _fit_one_multi(y: Tensor, xp: Tensor, xq: Tensor, pair_mask: Tensor,
-                   n_static=None):
+def _fit_one_multi(y: Tensor, xp: Tensor, xq: Tensor, pair_mask: Tensor):
     """LSQ fit of y ~ (1, u, v, uv) over co-valid positions, batched over
     leading dims.  Returns (coeffs (..., 4), loc (..., 2), scale (..., 2),
     explained_var)."""
@@ -201,8 +188,7 @@ def _fit_one_multi(y: Tensor, xp: Tensor, xq: Tensor, pair_mask: Tensor,
                                 (ft @ (y * w)[..., None])[..., 0])
     fitted = (f @ coeffs[..., None])[..., 0]
     mean_fit = blocked_sum(fitted * w) / n
-    ev = _unbiased(blocked_sum(ipow(fitted - mean_fit[..., None], 2) * w),
-                   n, n_static)
+    ev = _unbiased(blocked_sum(ipow(fitted - mean_fit[..., None], 2) * w), n)
     return (coeffs, torch.stack([loc_u, loc_v], dim=-1),
             torch.stack([sc_u, sc_v], dim=-1), ev)
 
@@ -213,7 +199,8 @@ def fit_models_multi(values: Tensor, counts: Tensor, predictors: Tensor,
 
     Returns the reference's dict model {coeffs (..., k, 4), loc and scale
     (..., k, 2), explained_var (..., k), predictor (..., k, 2)}.  No
-    kernel serves this family (``use_kernel`` is accepted and unused).
+    kernel serves this family, and nothing folds (``use_kernel`` and
+    ``n_static`` are accepted for the families' fit signature).
     """
     n_max = values.shape[-1]
     mask = (torch.arange(n_max, device=values.device)
@@ -225,7 +212,7 @@ def fit_models_multi(values: Tensor, counts: Tensor, predictors: Tensor,
     p0, p1 = predictors[..., 0], predictors[..., 1]
     pair = mask * take(mask, p0) * take(mask, p1)
     coeffs, loc, scale, ev = _fit_one_multi(values, take(values, p0),
-                                            take(values, p1), pair, n_static)
+                                            take(values, p1), pair)
     return {"coeffs": coeffs, "loc": loc, "scale": scale,
             "explained_var": ev, "predictor": predictors}
 

@@ -76,23 +76,23 @@ def ipow(x: Tensor, n: int) -> Tensor:
     return acc
 
 
-_PEEL = 8
-
-
 def lane_sum(a: Tensor, b: Tensor, lanes: int) -> Tensor:
     """sum(a * b) over the last axis in the order of XLA:CPU's dot.
 
-    The first N - N % 8 products go into ``lanes`` chains of fused
+    The first N - N % lanes products go into ``lanes`` chains of fused
     multiply-adds (product p into chain p % lanes), which are then added:
-    4 chains pairwise, 8 by halves.  The rest is one more chain from
-    zero, added last; ``lanes=1`` is one chain throughout.  Which
-    ``lanes`` a dot takes depends on its operands' layout (the callers
-    say which); each was checked bitwise against the compiled dot for N
-    a multiple of 8 (a tail of N % 8 = 4 can differ in the last bit).
+    4 chains pairwise, 8 by halves.  The other N % lanes products are
+    summed apart and added last: with 4 lanes as rounded products added
+    left to right, with 8 as one more chain of fused multiply-adds from
+    zero.  ``lanes=1`` is one chain throughout.  Which ``lanes`` a dot
+    takes depends on its operands' layout (the callers say which).
+    Checked bitwise against the compiled dots at every N from 12 to 31
+    and at 100 to 103: a fleet's Gram block and one site's X^T X (4
+    lanes), one site's X^T y (8 lanes).
     """
     a, b = torch.broadcast_tensors(a, b)
     n = a.shape[-1]
-    m = n if lanes == 1 else n - n % _PEEL
+    m = n - n % lanes
     acc = torch.zeros((*a.shape[:-1], lanes), dtype=a.dtype,
                       device=a.device)
     pa = a[..., :m].reshape(*a.shape[:-1], m // lanes, lanes)
@@ -107,11 +107,43 @@ def lane_sum(a: Tensor, b: Tensor, lanes: int) -> Tensor:
             acc = acc[..., :h] + acc[..., h:]
         out = acc[..., 0]
     if m < n:
-        tail = torch.zeros_like(out)
-        for p in range(m, n):
-            tail = fma(a[..., p], b[..., p], tail)
+        if lanes == 4:
+            tail = a[..., m] * b[..., m]
+            for p in range(m + 1, n):
+                tail = tail + a[..., p] * b[..., p]
+        else:
+            tail = fma_chain(a[..., m:], b[..., m:])
         out = out + tail
     return out
+
+
+def fma_chain(a: Tensor, b: Tensor) -> Tensor:
+    """sum(a * b) over the last axis as one chain of fused multiply-adds
+    from zero, left to right."""
+    a, b = torch.broadcast_tensors(a, b)
+    acc = torch.zeros(a.shape[:-1], dtype=a.dtype, device=a.device)
+    for p in range(a.shape[-1]):
+        acc = fma(a[..., p], b[..., p], acc)
+    return acc
+
+
+def product_sum(a: Tensor, b: Tensor, fused: bool = False) -> Tensor:
+    """sum(a * b) over the last axis, in the order the caller's reduction
+    gets in the reference.
+
+    A row longer than ``REDUCE_BLOCK`` is summed in :func:`blocked_sum`'s
+    order of rounded products.  For a shorter row XLA:CPU keeps the
+    product in the reduction's loop, and the compiler may contract the
+    two into fused multiply-adds: ``fused=True`` sums such a row as one
+    chain of them (:func:`fma_chain`), ``fused=False`` adds the rounded
+    products left to right.  Which one a reduction gets depends on the
+    fusion around it, so the caller says: the plan's power sums of
+    values and ranks are contracted (S2..S4 from the scan's compiled
+    step at N = 16 and 32), the adaptive gate's are not.
+    """
+    if fused and a.shape[-1] <= REDUCE_BLOCK:
+        return fma_chain(a, b)
+    return blocked_sum(a * b)
 
 
 def lu_solve4(a: Tensor, b: Tensor) -> Tensor:
@@ -201,6 +233,21 @@ def blocked_sum(x: Tensor) -> Tensor:
         x = torch.nn.functional.pad(x, (lo, total - lo))
     x = x.reshape(*x.shape[:-1], nb, REDUCE_BLOCK)
     return blocked_sum(_sequential_sum(x))
+
+
+def host_blocked_sum(x: np.ndarray) -> np.float32:
+    """:func:`blocked_sum` of a 1-D f32 host array, as an f32 scalar: the
+    same windows, each summed left to right (``np.cumsum`` accumulates in
+    order, in the array's type)."""
+    n = x.shape[-1]
+    if n <= REDUCE_BLOCK:
+        return np.cumsum(x, dtype=np.float32)[-1] if n else np.float32(0)
+    nb = -(-n // REDUCE_BLOCK)
+    total = nb * REDUCE_BLOCK - n
+    x = np.pad(x, (total // 2, total - total // 2))
+    windows = np.cumsum(x.reshape(nb, REDUCE_BLOCK), axis=1,
+                        dtype=np.float32)[:, -1]
+    return host_blocked_sum(windows)
 
 
 def _mask(values: Tensor, counts: Tensor) -> Tensor:
@@ -315,8 +362,10 @@ def stats_from_sums(mom: Tensor, xxt: Tensor, counts: Tensor,
         inv = recip(max(n, 1))
         mean = s1 * inv
         m2p = mean * mean
-        var = (s2 * inv - m2p) * float(np.float32(max(n, 1))
-                                       * np.float32(recip(max(n - 1, 1))))
+        # s2 / n - mean^2 contracted as one fused multiply-add, then the
+        # folded n / (n - 1)
+        var = fma(s2, inv, -m2p) * float(np.float32(max(n, 1))
+                                         * np.float32(recip(max(n - 1, 1))))
         m4 = fma(-(s1 * f32_const(4.0 * inv)), s3, s4)
         m4 = fma(m2p * 6.0, s2, m4)
         m4 = fma(-(m2p * m2p), f32_const(3.0 * n), m4) * inv

@@ -29,23 +29,26 @@
 // Power sums: one thread per (stream, window) sums its window left to
 // right, the four moments as independent accumulators; one thread per
 // (stream, moment) then adds the window sums in blocked_sum's order,
-// carried across chunks in shared memory.  Products and sums use the _rn
-// intrinsics, which the compiler never contracts into FMAs, so the power
-// sums are bitwise the plain version's: the statistics built on them cancel
+// carried across chunks in shared memory.  A row of one window (N <= 32)
+// with ``fused`` set sums S2..S4 as chains of fused multiply-adds instead
+// (core/stats.py::product_sum: the caller says which order its reduction
+// gets in the reference).  Products and sums use the _rn intrinsics, which
+// the compiler never contracts into FMAs, so the power sums are bitwise
+// the plain version's: the statistics built on them cancel
 // catastrophically, and a different rounding would move allocations.
 //
-// Gram block: the k rows are cut into blocks of 8, and each pair of row
-// blocks (a <= b) is one item.  A Gram warp owns an item (or a share of its
-// columns when a tile has fewer items than Gram warps); each lane reads one
-// column's 8 + 8 values from shared memory once and accumulates the item's
-// 64 products (36 on a diagonal block) in registers.  A butterfly across
-// the warp's lanes (32 + 16 + 8 + 4 + 2 shuffles) leaves each lane two of
-// the 64 sums, which it adds to the warp's own slot in shared memory; at
-// the end of the group the slots of an item are added in a fixed order.
-// No atomics: the result is the same on every run.  The Gram block agrees
-// with the plain version's matmul to f32 rounding (it is not in
-// blocked_sum's order); tensor cores are not used, since TF32 would not
-// hold 2e-5.
+// Gram block: each entry (i <= j) of a site is summed in the order of the
+// plain version (core/stats.py::lane_sum with 4 lanes, the order of the
+// reference's compiled dot): product p of the first m = N - N % 4 goes
+// into chain p % 4 by __fmaf_rn, in column order, the chains carried
+// across chunks in shared memory; the chains are added as
+// (c0 + c1) + (c2 + c3), and the last N % 4 products, rounded and added
+// left to right, are added last.  One Gram thread owns one (site, entry,
+// chain) of the tile at a time and walks its N / 4 columns; at the end of
+// the group one thread per (site, entry) adds the chains and the tail and
+// writes both halves of the symmetric block.  No atomics: the result is
+// bitwise the plain version's, on every run.  Tensor cores are not used:
+// TF32 would not hold the order, nor 2e-5.
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -57,78 +60,27 @@ namespace {
 using wt::kPitch;
 using wt::kThreads;
 using wt::kWarps;
-constexpr int kKB = 8;            // rows per Gram row block
-constexpr int kBlockPairs = kKB * kKB;
 
 struct Params {
   int e, k, n, nwin, lo, lo2;
   int sites;      // G: sites per group
   int nwc, nch;   // windows per chunk, chunks per group
   int groups;
-  int nb, nbp;    // row blocks of 8, pairs of them (a <= b)
+  int npairs;     // Gram entries (i <= j) of a site: k (k + 1) / 2
+  int m4;         // products in the four chains: N - N % 4
   int gram_warps; // warps on the Gram block; the rest take the power sums
-  int wpi;        // Gram warps per item (1: each warp loops over items)
   int vec;        // 16-byte copies
+  int fma_sums;   // S2..S4 of a one-window row as fused multiply-adds
 };
 
-// row blocks (a, b), a <= b, of pair p in row-major upper-triangle order
-__device__ __forceinline__ void block_pair(int p, int nb, int& a, int& b) {
-  a = 0;
-  while (p >= nb - a) {
-    p -= nb - a;
-    ++a;
+// rows (i, j), i <= j, of Gram entry q in row-major upper-triangle order
+__device__ __forceinline__ void entry_rows(int q, int k, int& i, int& j) {
+  i = 0;
+  while (q >= k - i) {
+    q -= k - i;
+    ++i;
   }
-  b = a + p;
-}
-
-// one level of warp_butterfly: c values a lane, partner lane ^ (c / 4);
-// the lane with that bit set keeps the upper half, the other the lower
-template <int C>
-__device__ __forceinline__ void butterfly_level(float (&v)[kBlockPairs],
-                                                int lane) {
-  const bool upper = lane & (C / 4);
-#pragma unroll
-  for (int i = 0; i < C / 2; ++i) {
-    const float send = upper ? v[i] : v[i + C / 2];
-    const float keep = upper ? v[i + C / 2] : v[i];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, C / 4);
-  }
-}
-
-// sum v[64] over the 32 lanes of a warp; lane l ends with the sums of
-// entries 2l and 2l + 1 in v[0], v[1]
-__device__ __forceinline__ void warp_butterfly(float (&v)[kBlockPairs]) {
-  const int lane = threadIdx.x & 31;
-  butterfly_level<64>(v, lane);
-  butterfly_level<32>(v, lane);
-  butterfly_level<16>(v, lane);
-  butterfly_level<8>(v, lane);
-  butterfly_level<4>(v, lane);
-}
-
-// products of rows row_a .. row_a + 7 and row_b .. row_b + 7 over the
-// columns col0, col0 + step, ... of the tile; rows past k read as 0
-template <bool kDiag>
-__device__ __forceinline__ void gram_item(const float* tile, int row_a,
-                                          int row_b, int na, int nb_rows,
-                                          int row_pitch, int ncols, int col0,
-                                          int step, float (&acc)[kBlockPairs]) {
-#pragma unroll
-  for (int i = 0; i < kBlockPairs; ++i) acc[i] = 0.f;
-  for (int col = col0; col < ncols; col += step) {
-    const float* p = tile + (col >> 5) * kPitch + (col & 31);
-    float va[kKB], vb[kKB];
-#pragma unroll
-    for (int i = 0; i < kKB; ++i) {
-      va[i] = i < na ? p[(row_a + i) * row_pitch] : 0.f;
-      vb[i] = kDiag ? va[i] : (i < nb_rows ? p[(row_b + i) * row_pitch] : 0.f);
-    }
-#pragma unroll
-    for (int i = 0; i < kKB; ++i)
-#pragma unroll
-      for (int j = kDiag ? i : 0; j < kKB; ++j)
-        acc[i * kKB + j] = fmaf(va[i], vb[j], acc[i * kKB + j]);
-  }
+  j = i + q;
 }
 
 // wait at barrier ``id`` (1..15) for the ``count`` threads of some warps
@@ -136,62 +88,61 @@ __device__ __forceinline__ void named_barrier(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
 }
 
-// The Gram warps' share of a tile: their items' products added to their
-// slots, and at the end of a group each site's block written from them.
-__device__ __forceinline__ void gram_tile(const float* tile, float* slot,
-                                          const Params p, int items,
-                                          int sites, int nw, int c, bool last,
+// The Gram warps' share of a tile: each (site, entry, chain) of the group
+// carries its chain over the tile's columns, and at the end of the group
+// each site's block is written from the chains and the tail.
+__device__ __forceinline__ void gram_tile(const float* tile, float* chains,
+                                          const Params p, int sites, int w0,
+                                          int nw, int c, bool last,
                                           int row_pitch, int site0,
                                           float* __restrict__ xxt) {
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
   const int gram_threads = p.gram_warps * 32;
-  const int first = p.wpi > 1 ? warp / p.wpi : warp;
-  const int split = p.wpi > 1 ? warp - first * p.wpi : 0;
-  // one item a warp if wpi > 1, else every gram_warps-th
-  const int stride = p.wpi > 1 ? items : p.gram_warps;
-  for (int it = first; it < items; it += stride) {
-    const int gs = it / p.nbp;
-    if (gs >= sites) break;
-    int a, b;
-    block_pair(it - gs * p.nbp, p.nb, a, b);
-    const int na = min(kKB, p.k - a * kKB);
-    const int nbr = min(kKB, p.k - b * kKB);
-    const float* base = tile + gs * p.k * row_pitch;
-    float acc[kBlockPairs];
-    if (a == b) {
-      gram_item<true>(base, a * kKB, a * kKB, na, na, row_pitch, nw * 32,
-                      split * 32 + lane, p.wpi * 32, acc);
-    } else {
-      gram_item<false>(base, a * kKB, b * kKB, na, nbr, row_pitch, nw * 32,
-                       split * 32 + lane, p.wpi * 32, acc);
+  // data column of the tile's column 0 (the staging pads lo zeros first)
+  const int col0 = w0 * wt::kWin - p.lo;
+  const int first = max(0, -col0);
+  const int end = min(nw * wt::kWin, p.m4 - col0);
+  for (int t = tid; t < sites * p.npairs * 4; t += gram_threads) {
+    const int q = t & 3;
+    const int se = t >> 2;
+    const int gs = se / p.npairs;
+    int i, j;
+    entry_rows(se - gs * p.npairs, p.k, i, j);
+    const float* ra = tile + (gs * p.k + i) * row_pitch;
+    const float* rb = tile + (gs * p.k + j) * row_pitch;
+    float acc = c == 0 ? 0.f : chains[t];
+    // the columns whose data column is q mod 4, in order
+    for (int col = first + ((q - col0 - first) & 3); col < end; col += 4) {
+      const int off = (col >> 5) * kPitch + (col & 31);
+      acc = __fmaf_rn(ra[off], rb[off], acc);
     }
-    warp_butterfly(acc);
-    float* sl = slot + (it * p.wpi + split) * kBlockPairs + 2 * lane;
-    sl[0] = c == 0 ? acc[0] : sl[0] + acc[0];
-    sl[1] = c == 0 ? acc[1] : sl[1] + acc[1];
+    chains[t] = acc;
   }
   if (!last) return;
-  named_barrier(2, gram_threads);   // every slot of the group
+  named_barrier(2, gram_threads);   // every chain of the group
 
-  // each site's Gram block from its items' slots, added in slot order
   const int kk = p.k * p.k;
-  for (int t = tid; t < sites * kk; t += gram_threads) {
-    const int gs = t / kk;
-    const int ij = t - gs * kk;
-    const int i0 = ij / p.k;
-    const int j0 = ij - i0 * p.k;
-    const int lo_ = min(i0, j0);
-    const int hi_ = max(i0, j0);
-    const int a = lo_ / kKB;
-    const int b = hi_ / kKB;
-    const int item = gs * p.nbp + a * p.nb - a * (a - 1) / 2 + (b - a);
-    const float* sl = slot + item * p.wpi * kBlockPairs +
-                      (lo_ - a * kKB) * kKB + (hi_ - b * kKB);
-    float v = sl[0];
-    for (int s2 = 1; s2 < p.wpi; ++s2) v += sl[s2 * kBlockPairs];
-    xxt[static_cast<size_t>(site0) * kk + t] = v;
+  for (int se = tid; se < sites * p.npairs; se += gram_threads) {
+    const int gs = se / p.npairs;
+    int i, j;
+    entry_rows(se - gs * p.npairs, p.k, i, j);
+    const float* ch = chains + 4 * se;
+    float v = __fadd_rn(__fadd_rn(ch[0], ch[1]), __fadd_rn(ch[2], ch[3]));
+    if (p.m4 < p.n) {
+      // the tail lies in the row's last window, so in this tile
+      const float* ra = tile + (gs * p.k + i) * row_pitch;
+      const float* rb = tile + (gs * p.k + j) * row_pitch;
+      float tail = 0.f;
+      for (int d = p.m4; d < p.n; ++d) {
+        const int col = d - col0;
+        const int off = (col >> 5) * kPitch + (col & 31);
+        tail = __fadd_rn(tail, __fmul_rn(ra[off], rb[off]));
+      }
+      v = __fadd_rn(v, tail);
+    }
+    float* out = xxt + static_cast<size_t>(site0 + gs) * kk;
+    out[i * p.k + j] = v;
+    out[j * p.k + i] = v;
   }
 }
 
@@ -206,9 +157,8 @@ stream_stats_fleet_kernel(const float* __restrict__ x, float* __restrict__ mom,
   float* part = smem + 2 * stage_floats;       // window sums, part_index
   float* cur_s = part + p.nwc * (4 * rows + 1);   // (4, rows) carried sums
   float* tot_s = cur_s + rows * 4;
-  float* slot = tot_s + rows * 4;              // (items x wpi, 64) Gram
+  float* chains = tot_s + rows * 4;            // (sites, npairs, 4) Gram
   const int tid = threadIdx.x;
-  const int items = p.sites * p.nbp;
   // warps [0, gram_warps) take the Gram block, the others the power sums
   const int gram_threads = p.gram_warps * 32;
   const int sum_threads = kThreads - gram_threads;
@@ -265,9 +215,15 @@ stream_stats_fleet_kernel(const float* __restrict__ x, float* __restrict__ mom,
             const float v = vs[j];
             const float v2 = __fmul_rn(v, v);
             s1 = __fadd_rn(s1, v);
-            s2 = __fadd_rn(s2, v2);
-            s3 = __fadd_rn(s3, __fmul_rn(v2, v));
-            s4 = __fadd_rn(s4, __fmul_rn(v2, v2));
+            if (p.fma_sums) {
+              s2 = __fmaf_rn(v, v, s2);
+              s3 = __fmaf_rn(v2, v, s3);
+              s4 = __fmaf_rn(v2, v2, s4);
+            } else {
+              s2 = __fadd_rn(s2, v2);
+              s3 = __fadd_rn(s3, __fmul_rn(v2, v));
+              s4 = __fadd_rn(s4, __fmul_rn(v2, v2));
+            }
           }
         }
         part[wt::part_index(w, 0, r, 4, rows)] = s1;
@@ -297,7 +253,7 @@ stream_stats_fleet_kernel(const float* __restrict__ x, float* __restrict__ mom,
         }
       }
     } else {
-      gram_tile(tile, slot, p, items, sites, nw, c, last, row_pitch, site0,
+      gram_tile(tile, chains, p, sites, w0, nw, c, last, row_pitch, site0,
                 xxt);
     }
     __syncthreads();   // every thread is done with tile i's stage
@@ -307,7 +263,8 @@ stream_stats_fleet_kernel(const float* __restrict__ x, float* __restrict__ mom,
 }  // namespace
 
 extern "C" int stream_stats_fleet(const float* x, float* mom, float* xxt,
-                                  int e, int k, int n, void* stream) {
+                                  int e, int k, int n, int fused,
+                                  void* stream) {
   if (e <= 0 || k <= 0 || n <= 0 || k > 64 || n > wt::kWin * wt::kWin * wt::kWin)
     return static_cast<int>(cudaErrorInvalidValue);
   const wt::Windows win = wt::windows_of(n);
@@ -333,20 +290,19 @@ extern "C" int stream_stats_fleet(const float* x, float* mom, float* xxt,
   }
   p.nch = (win.nwin + p.nwc - 1) / p.nwc;
   p.groups = (e + p.sites - 1) / p.sites;
-  p.nb = (k + kKB - 1) / kKB;
-  p.nbp = p.nb * (p.nb + 1) / 2;
-  const int items = p.sites * p.nbp;
-  // k <= 8: one 8 x 8 item per site, as much work as the power sums; a
-  // larger k has k^2 / 2 products per column to the power sums' 7
-  p.gram_warps = p.nbp == 1 ? kWarps / 2 : kWarps - 1;
-  p.wpi = items >= p.gram_warps ? 1 : p.gram_warps / items;
+  p.npairs = k * (k + 1) / 2;
+  p.m4 = n - n % 4;
+  p.fma_sums = fused && win.nwin == 1;
+  // k <= 8: the Gram block is about as much work as the power sums; a
+  // larger k has k (k + 1) / 2 products per column to the power sums' 7
+  p.gram_warps = k <= 8 ? kWarps / 2 : kWarps - 1;
   p.vec = n % 4 == 0 && p.lo % 4 == 0 &&
           reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const int rows = p.sites * k;
   const size_t smem = sizeof(float) *
       (2 * static_cast<size_t>(rows) * p.nwc * kPitch +
        static_cast<size_t>(p.nwc) * (4 * rows + 1) + rows * 8 +
-       static_cast<size_t>(items) * p.wpi * kBlockPairs);
+       static_cast<size_t>(p.sites) * p.npairs * 4);
   int grid = 0;
   cudaError_t err = wt::persistent_grid(stream_stats_fleet_kernel, smem,
                                         p.groups, &grid);

@@ -7,9 +7,9 @@ Port of ``repro.kernels.stream_stats.ops``.  ``fleet_window_moments_xxt``
 ``csrc/stream_stats.cu``) take the plain version (:mod:`.ref`) for a CPU
 tensor and launch their hand-written kernel for a CUDA tensor unless the
 caller passes ``use_kernel=False``.  A failed build or launch raises.
-The fleet kernel takes the power sums in the plain version's order, so
-they are bitwise the plain version's; every other sum agrees to f32
-rounding.
+The fleet kernel takes every sum in the plain version's order, so its
+power sums and cross products are bitwise the plain version's; the
+one-window kernel's agree to f32 rounding.
 """
 from __future__ import annotations
 
@@ -29,15 +29,17 @@ LAUNCHES = 0
 WINDOW_LAUNCHES = 0
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p]
 _WINDOW_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                     *[ctypes.c_int] * 7, ctypes.c_void_p]
 
 
-def stream_stats_fleet_cuda(x: torch.Tensor):
+def stream_stats_fleet_cuda(x: torch.Tensor, fused: bool = False):
     """Launch the kernel on a contiguous (E, k, N) f32 CUDA tensor.
 
     Returns (moments (E, k, 4), xxt (E, k, k)), f32, on ``x``'s device.
+    ``fused`` as in :func:`~.ref.fleet_stats_ref`.
     """
     global LAUNCHES
     if not x.is_cuda:
@@ -59,22 +61,26 @@ def stream_stats_fleet_cuda(x: torch.Tensor):
     fn = build.load("stream_stats_fleet", _ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), mom.data_ptr(), xxt.data_ptr(), e, k, n, stream)
+        rc = fn(x.data_ptr(), mom.data_ptr(), xxt.data_ptr(), e, k, n,
+                int(fused), stream)
     build.check("stream_stats_fleet", rc)
     LAUNCHES += 1
     return mom, xxt
 
 
-def fleet_window_moments_xxt(x: torch.Tensor, use_kernel=None):
+def fleet_window_moments_xxt(x: torch.Tensor, use_kernel=None,
+                             fused: bool = False):
     """Raw power sums + per-site cross products for a fleet (E, k, N).
 
     Returns (moments (E, k, 4), xxt (E, k, k)), both f32.  ``use_kernel``
     None or True launches the CUDA kernel for a CUDA tensor; False keeps
     the plain version everywhere.  A CPU tensor takes the plain version.
+    ``fused``: the caller's reduction order for rows of 32 or fewer
+    (:func:`~.ref.fleet_stats_ref`).
     """
     if x.is_cuda and use_kernel is not False:
-        return stream_stats_fleet_cuda(x)
-    return fleet_stats_ref(x)
+        return stream_stats_fleet_cuda(x, fused)
+    return fleet_stats_ref(x, fused)
 
 
 # the one-window kernel's plan (csrc/stream_stats.cu): row tiles above

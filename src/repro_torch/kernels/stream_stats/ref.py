@@ -3,23 +3,27 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.stats import blocked_sum, lane_sum
+from repro_torch.core.stats import blocked_sum, lane_sum, product_sum
 
 
-def fleet_stats_ref(x: torch.Tensor):
+def fleet_stats_ref(x: torch.Tensor, fused: bool = False):
     """x (E, k, N) -> (moments (E, k, 4) [S1..S4], xxt (E, k, k)), f32.
 
     Everything is summed in the reference's order: the power sums in
     XLA:CPU's 32-wide windows (:func:`~repro_torch.core.stats.
-    blocked_sum`), the cross products as its compiled ``x @ x.T`` sums
-    them (four multiply-add chains, :func:`~repro_torch.core.stats.
-    lane_sum`), so the adaptive gate's EW correlation is bitwise the
-    reference's on the CPU.
+    blocked_sum`), or for rows of 32 or fewer with ``fused`` S2..S4 as
+    chains of fused multiply-adds (:func:`~repro_torch.core.stats.
+    product_sum`: the caller knows which its reduction gets); the cross
+    products as its compiled ``x @ x.T`` sums them (four multiply-add
+    chains, :func:`~repro_torch.core.stats.lane_sum`), so the plan's and
+    the adaptive gate's statistics are bitwise the reference's on the
+    CPU.
     """
     x = x.to(torch.float32)
     x2 = x * x
-    mom = torch.stack([blocked_sum(x), blocked_sum(x2), blocked_sum(x2 * x),
-                       blocked_sum(x2 * x2)], dim=-1)
+    mom = torch.stack([blocked_sum(x), product_sum(x, x, fused),
+                       product_sum(x2, x, fused), product_sum(x2, x2, fused)],
+                      dim=-1)
     return mom, lane_sum(x[..., :, None, :], x[..., None, :, :], 4)
 
 

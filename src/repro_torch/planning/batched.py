@@ -103,12 +103,15 @@ def fleet_plan(values: Tensor, counts: Tensor, budgets: Tensor,
             < cf[..., None]).to(values.dtype)
     xm = values * mask
 
-    mom, xxt = fleet_window_moments_xxt(xm, use_kernel=use_kernel)
+    # the reference's compiled plan contracts the power sums of a short
+    # row into fused multiply-adds (core/stats.py::product_sum)
+    mom, xxt = fleet_window_moments_xxt(xm, use_kernel=use_kernel, fused=True)
     stats = stats_mod.stats_from_sums(mom, xxt, counts, n_static=n_static)
     if dependence == "spearman":
         ranks = stats_mod.rank_transform(values, counts)
         rmom, rxxt = fleet_window_moments_xxt(ranks * mask,
-                                              use_kernel=use_kernel)
+                                              use_kernel=use_kernel,
+                                              fused=True)
         corr = stats_mod.corr_from_sums(rmom, rxxt, counts,
                                         n_static=n_static)
     else:

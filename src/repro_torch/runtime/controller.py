@@ -1,10 +1,12 @@
 """The fleet budget controller on tensors — port of
-``repro.runtime.controller`` (single device, no chaos masks).
+``repro.runtime.controller`` (single device).
 
 ``water_fill`` is the clip-and-redistribute allocator with the host
 version's early ``break`` written as a ``where`` guard;
 ``controller_budgets`` / ``controller_update`` are the budgets()/update()
-pair, with the demand signal routed statically.
+pair, with the demand signal routed statically.  On a chaos run both take
+the window's (E,) liveness mask: dead sites get no budget, their share is
+water-filled over the live fleet, and their EWMAs hold.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.stats import sqrt
+from repro_torch.core.stats import host_blocked_sum, sqrt
 from repro_torch.runtime.state import ControllerState
 
 
@@ -43,44 +45,73 @@ class CtrlParams:
         return tuple(np.sqrt(c).tolist())
 
 
-def water_fill(demand, total: float, lo, hi, iters: int = 8):
+def _host(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def water_fill(demand, total: float, lo, hi, iters: int = 8) -> np.ndarray:
     """Budgets proportional to demand, clipped to [lo, hi] and summing to
-    ``total`` (8 redistribution passes)."""
-    d = torch.where(torch.isfinite(demand), demand, torch.zeros_like(demand))
+    ``total`` (8 redistribution passes), on (E,) f32 host arrays.
+
+    Every operation is f32, as the reference's compiled graph has it, and
+    the fleet sums are in its reduction order (:func:`~repro_torch.core.
+    stats.host_blocked_sum`): their last bits reach the controller's
+    EWMAs, which a checkpoint carries.  The host runs it because each of
+    the ~17 sums would be ~60 launches on the card.
+    """
+    f32 = np.float32
+    total = f32(total)
+    d = np.where(np.isfinite(demand), demand, f32(0.0))
     # no usable signal: uniform in the box instead of NaN-poisoning the carry
-    d = torch.where((d > 0).any(), d, torch.ones_like(d))
-    d = torch.clamp(d, min=1e-12)
-    b = torch.minimum(torch.maximum(total * d / d.sum(), lo), hi)
+    if not (d > 0).any():
+        d = np.ones_like(d)
+    d = np.maximum(d, f32(1e-12))
+    b = np.minimum(np.maximum(total * d / host_blocked_sum(d), lo), hi)
     for _ in range(iters):
-        excess = total - b.sum()
-        movable = torch.where(excess > 0, b < hi, b > lo)
+        excess = total - host_blocked_sum(b)
+        movable = np.where(excess > 0, b < hi, b > lo)
         w = d * movable
-        wsum = w.sum()
-        moved = torch.minimum(torch.maximum(
-            b + excess * w / torch.where(wsum > 0, wsum, torch.ones_like(wsum)),
-            lo), hi)
-        b = torch.where((torch.abs(excess) >= 1e-9) & (wsum > 0), moved, b)
+        wsum = host_blocked_sum(w)
+        moved = np.minimum(np.maximum(
+            b + excess * w / (wsum if wsum > 0 else f32(1.0)), lo), hi)
+        if abs(excess) >= f32(1e-9) and wsum > 0:
+            b = moved
     return b
 
 
-def controller_budgets(state: ControllerState, p: CtrlParams):
-    """(E,) raw per-window budgets."""
+def controller_budgets(state: ControllerState, p: CtrlParams, live=None):
+    """(E,) raw per-window budgets, on the state's device (computed on the
+    host: :func:`water_fill`).
+
+    ``live``: the window's (E,) bool membership mask on a chaos run.
+    Dead sites' ceiling, floor and demand collapse to 0, so the water-fill
+    spreads their share over the live fleet, and they get 0.  None (no
+    chaos) skips the masking; an all-live mask gives the same budgets
+    bitwise.
+    """
+    f32 = np.float32
     eq = p.equal_share
     e = state.demand.shape[0]
     dev = state.demand.device
-    hi = torch.full((e,), p.ceil_mult * eq, dtype=torch.float32, device=dev)
-    static_b = torch.minimum(
-        torch.full((e,), eq, dtype=torch.float32, device=dev), hi)
-    if p.mode == "static":
-        return static_b
-    lo = torch.minimum(torch.full((e,), p.floor_mult * eq,
-                                  dtype=torch.float32, device=dev), hi)
-    demand = state.demand
+    hi = np.full(e, p.ceil_mult * eq, f32)
+    static_b = np.minimum(np.full(e, eq, f32), hi)
+    if live is not None:
+        livf = _host(live).astype(f32)
+        hi = hi * livf
+        static_b = static_b * livf
+    if p.mode == "static" or not bool(state.seen):
+        return torch.as_tensor(static_b, device=dev)
+    lo = np.minimum(np.full(e, p.floor_mult * eq, f32), hi)
+    demand = _host(state.demand)
+    if live is not None:
+        demand = demand * livf
     if p.cost_discount is not None:
-        demand = demand / torch.as_tensor(p.cost_discount,
-                                          dtype=torch.float32, device=dev)
+        demand = demand / np.asarray(p.cost_discount, f32)
     reb = water_fill(demand, p.total_budget, lo, hi)
-    return torch.where(state.seen, reb, static_b)
+    if live is not None:
+        # an all-dead window fills a [0, 0] box; ship 0 all the same
+        reb = reb * livf
+    return torch.as_tensor(reb, device=dev)
 
 
 def _signal(name: str, obs, pred):
@@ -95,9 +126,13 @@ def _signal(name: str, obs, pred):
 
 
 def controller_update(state: ControllerState, p: CtrlParams, raw_budgets,
-                      obs_err, r2, objective) -> None:
+                      obs_err, r2, objective, live=None) -> None:
     """``BudgetController.update`` with ``last_budgets = raw_budgets``, at
-    zero WAN latency.  Updates ``state`` in place."""
+    zero WAN latency.  Updates ``state`` in place.
+
+    ``live`` (chaos runs): dead sites' demand and r2 EWMAs hold their
+    value, so a site that rejoins resumes from its last known demand.
+    """
     a = p.ewma
     lag_obs = torch.zeros_like(state.lag)      # zero latency: every lag is 0
     state.lag = torch.where(state.lag_seen,
@@ -110,9 +145,13 @@ def controller_update(state: ControllerState, p: CtrlParams, raw_budgets,
                            nan=1.0)
     demand_new = sqrt(torch.clamp(err, min=1e-9) * b)
     r2_new = torch.clamp(torch.nan_to_num(r2), 0.0, 1.0)
-    state.demand = torch.where(state.seen,
-                               (1 - a) * state.demand + a * demand_new,
-                               demand_new)
-    state.r2 = torch.where(state.seen, (1 - a) * state.r2 + a * r2_new, r2_new)
+    demand = torch.where(state.seen, (1 - a) * state.demand + a * demand_new,
+                         demand_new)
+    r2_mix = torch.where(state.seen, (1 - a) * state.r2 + a * r2_new, r2_new)
+    if live is not None:
+        demand = torch.where(live, demand, state.demand)
+        r2_mix = torch.where(live, r2_mix, state.r2)
+    state.demand = demand
+    state.r2 = r2_mix
     state.seen = torch.ones_like(state.seen)
     state.last_budgets = raw_budgets

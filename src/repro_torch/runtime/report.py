@@ -25,15 +25,16 @@ def aggregate_fleet(*, topology, qnames, est, est_q, tru, ages,
                     bytes_per_site, cost_per_site, gaps, revisions,
                     late_drops, duplicates, arrival_lag_ms, plan_seconds,
                     plan_windows, budget_history, total_tuples,
-                    retransmits=0, adaptive=None) -> dict:
+                    retransmits=0, adaptive=None, chaos=None) -> dict:
     """Roll per-window tables into the fleet result dict.
 
     est/est_q/tru: {query: (T, E, k)} float arrays (NaN where unanswered);
     ages: (T, E) window age at query time (ms); bytes/cost_per_site: (E,)
     totals over the run; budget_history: (T, E) executed budgets.
     ``adaptive``: the re-plan policy's counters
-    (:func:`repro_torch.adaptive.gate_counters`) or None; merged into the
-    result.
+    (:func:`repro_torch.adaptive.gate_counters`) or None; ``chaos``: the
+    run's :func:`repro_torch.chaos.chaos_metrics` or None.  Both are merged
+    into the result only when given.
     """
     E = topology.n_sites
     reg_idx = topology.region_of()
@@ -96,5 +97,14 @@ def aggregate_fleet(*, topology, qnames, est, est_q, tru, ages,
             "drift_fires": int(adaptive["drift_fires"]),
             "detection_lag_windows":
                 float(adaptive["detection_lag_windows"]),
+        }),
+        **({} if chaos is None else {
+            "liveness": chaos["liveness"],
+            "down_site_windows": int(chaos["down_site_windows"]),
+            "gap_served_cells": int(chaos["gap_served_cells"]),
+            "availability_by_region": chaos["availability_by_region"],
+            "recovery_windows": float(chaos["recovery_windows"]),
+            "outage_nrmse": chaos["outage_nrmse"],
+            "steady_nrmse": chaos["steady_nrmse"],
         }),
     }

@@ -50,6 +50,7 @@ class ScanRuntime:
     use_kernel: Optional[bool] = None
     device: object = None              # None -> "cuda"
     adaptive: Optional["AdaptiveSpec"] = None   # None = plan every window
+    chaos: Optional["ChaosSpec"] = None         # None = fixed membership
 
     def __post_init__(self):
         if self.mode not in ("scan", "steps"):
@@ -80,6 +81,21 @@ class ScanRuntime:
             raise ValueError("adaptive re-planning requires a fleet "
                              "topology (>1 site); single-edge scans plan "
                              "per window by construction")
+        if self.chaos is not None and self.topology is None:
+            raise ValueError("chaos fault injection requires a fleet "
+                             "topology; a single edge has no membership "
+                             "to vary")
+        # a trivial spec injects nothing: the step runs unmasked
+        self._chaos_active = (self.chaos is not None
+                              and not self.chaos.is_trivial)
+        if self._chaos_active:
+            if self.adaptive is not None:
+                raise ValueError(
+                    "chaos and adaptive re-planning cannot be combined: "
+                    "the drift gate's cached plan would replay allocations "
+                    "for dead sites")
+            self.chaos.validate_topology(
+                self.topology.n_sites, len(self.topology.region_names))
         self.spec = MODELS.get(cfg.model)
         if self.topology is None:
             self.n_sites = 1
@@ -127,7 +143,7 @@ class ScanRuntime:
         return cls(cfg=scenario.planner, ctrl=ctrl, topology=topo,
                    query_names=tuple(scenario.queries), mode=mode,
                    collect=collect, use_kernel=use_kernel, device=device,
-                   adaptive=scenario.adaptive)
+                   adaptive=scenario.adaptive, chaos=scenario.chaos)
 
     def _plan_fn(self, values, counts, budgets):
         # full windows: every count is the window length, a constant of
@@ -154,6 +170,15 @@ class ScanRuntime:
             return tuple(np.maximum(np.floor(b), 2.0).tolist())
         return None                    # rebalance: budgets live on device
 
+    def _liveness_table(self, T: int, w0: int) -> Optional[np.ndarray]:
+        """(T, E) bool membership of windows w0 .. w0 + T - 1, or None (all
+        live).  Absolute window ids key it, so a resumed run slices it."""
+        if not self._chaos_active:
+            return None
+        from repro_torch.chaos import liveness_table
+        return liveness_table(self.chaos, T, self.n_sites,
+                              self.topology.region_of(), first_window=w0)
+
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -171,7 +196,8 @@ class ScanRuntime:
         window ids start at ``first_window``, default ``state.window_id``.
         The passed state is updated in place.  On an adaptive run a state
         without an adaptive carry gets a fresh one (the first window
-        plans).
+        plans); on a chaos run a state without a chaos carry gets a fresh
+        one (everyone live, nothing served yet).
         """
         single = self.topology is None
         if single:
@@ -198,17 +224,29 @@ class ScanRuntime:
             from repro_torch.adaptive import make_adaptive_carry
             state.adaptive = make_adaptive_carry(self.n_sites, k,
                                                  device=self.device)
+        live_tbl = self._liveness_table(T, w0)
+        if live_tbl is None:
+            xs = list(range(w0, w0 + T))
+        else:
+            if state.chaos is None:
+                from repro_torch.chaos import make_chaos_carry
+                state.chaos = make_chaos_carry(self.n_sites, k,
+                                               self.query_names,
+                                               device=self.device)
+            live = torch.as_tensor(live_tbl, device=self.device)
+            xs = [(w0 + t, live[t]) for t in range(T)]
         pool = torch.as_tensor(pool_np, device=self.device)
         step = make_window_step(
             pool, seed=self.cfg_eff.seed, plan_fn=self._plan_fn,
             qnames=self.query_names, multi=self.spec.multi,
             mean=self.spec.mean, ctrl=self.ctrl,
             static_exec_budgets=static_exec, collect=self.collect,
-            adaptive=self.adaptive, use_kernel=self.use_kernel)
+            adaptive=self.adaptive, use_kernel=self.use_kernel,
+            chaos=live_tbl is not None)
 
         self._sync()
         t0 = time.perf_counter()
-        outs = [step(state, w) for w in range(w0, w0 + T)]
+        outs = [step(state, x) for x in xs]
         self._sync()
         scan_seconds = time.perf_counter() - t0
         ys = _stack_outputs(outs)
@@ -216,7 +254,7 @@ class ScanRuntime:
 
         if self.collect == "payloads":
             est, tru, bytes_site, cost_site = self._replay(
-                ys, pool_np, T, windows, w0=w0)
+                ys, pool_np, T, windows, w0=w0, live_tbl=live_tbl)
         else:
             est = {q: np.asarray(ys["est"][q], np.float64)
                    for q in self.query_names}
@@ -251,25 +289,38 @@ class ScanRuntime:
         if self.adaptive is not None:
             from repro_torch.adaptive import gate_counters
             ad = gate_counters(state.adaptive.gate)
+        gaps, chaos_info = 0, None
+        if live_tbl is not None:
+            from repro_torch.chaos import chaos_metrics
+            gaps = int((~live_tbl).sum())
+            chaos_info = chaos_metrics(
+                live_tbl, np.asarray(ys["budgets"], np.float64),
+                self.ctrl.equal_share, est, tru, self.query_names,
+                self.topology.region_of(), self.topology.region_names)
         raw = aggregate_fleet(
             topology=self.topology, qnames=self.query_names,
             est=est, est_q=est, tru=tru, ages=np.zeros((T, self.n_sites)),
             bytes_per_site=bytes_site, cost_per_site=cost_site,
-            gaps=0, revisions=0, late_drops=0, duplicates=0,
+            gaps=gaps, revisions=0, late_drops=0, duplicates=0,
             arrival_lag_ms=np.asarray(host_state.controller.lag, np.float64),
             plan_seconds=scan_seconds,
             plan_windows=T if ad is None else ad["planner_invocations"],
             budget_history=ys["budgets"],
-            total_tuples=T * self.n_sites * k * n, adaptive=ad)
+            total_tuples=T * self.n_sites * k * n, adaptive=ad,
+            chaos=chaos_info)
         raw.update(extras)
         return raw
 
-    def _replay(self, ys, pool_np, T, windows, w0: int = 0):
+    def _replay(self, ys, pool_np, T, windows, w0: int = 0, live_tbl=None):
         """Host replay of the collected payloads through the event path's
         assemble/reconstruct/query code (host numpy).  Output row ``t``
         holds window ``w0 + t``, which read pool slot ``(w0 + t) % P``.
         One edge's truth comes from its original windows' values, as the
-        event path computes it."""
+        event path computes it.
+
+        ``live_tbl`` (chaos runs): a dead (window, site) cell assembles no
+        payload, so ships no bytes, and is served from the site's last live
+        reconstruction (NaN before its first live window)."""
         from repro_torch.core.reconstruct import reconstruct_window
         from repro_torch.planning.engine import assemble_payload
         E, k = self.n_sites, pool_np.shape[2]
@@ -280,10 +331,18 @@ class ScanRuntime:
         bytes_site = np.zeros(E, np.int64)
         cost_site = np.zeros(E, np.float64)
         samples = ys["samples"]
+        last_rec = [None] * E          # gap-serving memory (chaos only)
         for t in range(T):
             plan_t = {f: ys[f][t] for f in PAYLOAD_PLAN_FIELDS}
             vals = pool_np[(w0 + t) % P]
             for s in range(E):
+                if live_tbl is not None and not live_tbl[t, s]:
+                    for q in qnames:
+                        fn = Q.QUERIES[q]
+                        if last_rec[s] is not None:
+                            est[q][t, s] = [fn(r) for r in last_rec[s]]
+                        tru[q][t, s] = [fn(vals[s, i]) for i in range(k)]
+                    continue
                 real = [samples[t, s, i, :int(plan_t["n_real"][s, i])]
                         for i in range(k)]
                 payload = assemble_payload(self.spec, plan_t, s, w0 + t, real)
@@ -291,6 +350,8 @@ class ScanRuntime:
                 bytes_site[s] += nb
                 cost_site[s] += nb * self._cost[s]
                 rec = reconstruct_window(payload)
+                if live_tbl is not None:
+                    last_rec[s] = rec
                 if self.topology is None:
                     w = windows[(w0 + t) % P]
                     true_rows = [np.asarray(w.values[i, :int(w.counts[i])])

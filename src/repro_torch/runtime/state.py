@@ -2,8 +2,9 @@
 
 One :class:`RuntimeState` is the entire mutable state of the streaming
 system: the controller's EWMAs, running per-stream moment sums and the
-window cursor that keys the sampler, and on an adaptive run the drift
-gate and its cached plan.  The port updates it in place from window to
+window cursor that keys the sampler, on an adaptive run the drift gate
+and its cached plan, and on a chaos run the liveness mask and the
+gap-serving memory.  The port updates it in place from window to
 window (the reference's functional carry becomes a dataclass of tensors
 the step overwrites).
 """
@@ -50,6 +51,9 @@ class RuntimeState:
     # adaptive re-planning carry (repro_torch.adaptive.AdaptiveCarry: the
     # EW gate + the cached FleetPlan); None when every window plans
     adaptive: Optional["AdaptiveCarry"] = None
+    # chaos carry (repro_torch.chaos.ChaosCarry: the last liveness mask +
+    # the gap-serving estimate memory); None outside chaos runs
+    chaos: Optional["ChaosCarry"] = None
 
 
 def init_state(n_sites: int, k: int, equal_share: float,
@@ -76,13 +80,9 @@ def state_from_numpy(tree, device=None) -> RuntimeState:
     or any object with the same attribute layout) as a port state.
 
     An adaptive carry (the gate, its ``EWStats`` and the cached
-    ``FleetPlan``) comes across; a chaos carry is not ported yet and
-    raises.
+    ``FleetPlan``) and a chaos carry (the liveness mask and the served
+    tables) come across.
     """
-    if getattr(tree, "chaos", None) is not None:
-        raise NotImplementedError(
-            "chaos carries are not ported to repro_torch yet "
-            "(ROADMAP.md: queue 1, 'Chaos')")
     dev = resolve_device(device)
 
     def t(a, dtype=torch.float32):
@@ -97,7 +97,17 @@ def state_from_numpy(tree, device=None) -> RuntimeState:
             last_budgets=t(c.last_budgets)),
         totals=StreamTotals(count=t(tot.count), s1=t(tot.s1), s2=t(tot.s2)),
         adaptive=_adaptive_from_numpy(getattr(tree, "adaptive", None), t,
-                                      dev))
+                                      dev),
+        chaos=_chaos_from_numpy(getattr(tree, "chaos", None), t))
+
+
+def _chaos_from_numpy(carry, t):
+    """A reference ``ChaosCarry`` as the port's (None stays None)."""
+    if carry is None:
+        return None
+    from repro_torch.chaos import ChaosCarry
+    return ChaosCarry(live=t(carry.live, torch.bool),
+                      served={q: t(v) for q, v in carry.served.items()})
 
 
 def _adaptive_from_numpy(carry, t, dev):
@@ -123,11 +133,12 @@ def _adaptive_from_numpy(carry, t, dev):
 
 def state_to_numpy(state: RuntimeState) -> RuntimeState:
     """The same state with the controller's and the totals' tensors moved
-    to host numpy (the adaptive carry stays where it is)."""
+    to host numpy (the adaptive and chaos carries stay where they are)."""
     def host(obj):
         return type(obj)(**{f.name: getattr(obj, f.name).cpu().numpy()
                             for f in dataclasses.fields(obj)})
 
     return RuntimeState(window_id=state.window_id,
                         controller=host(state.controller),
-                        totals=host(state.totals), adaptive=state.adaptive)
+                        totals=host(state.totals), adaptive=state.adaptive,
+                        chaos=state.chaos)

@@ -1,9 +1,9 @@
 """One scan window: budgets -> plan -> sample -> impute -> serve.
 
 Port of ``repro.runtime.step`` for fleets and single edges, with adaptive
-re-planning, without chaos or site sharding.  :func:`make_window_step`
-builds ``step(state, wid) -> outputs``; the step updates the carry in
-place.
+re-planning and chaos fault injection, without site sharding.
+:func:`make_window_step` builds ``step(state, xs) -> outputs``; the step
+updates the carry in place.
 
 Sampling reproduces the reference bit for bit through the threefry
 replica (:mod:`repro_torch.runtime.threefry`):
@@ -16,13 +16,15 @@ replica (:mod:`repro_torch.runtime.threefry`):
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.adaptive import AdaptiveCarry, gate_update
-from repro_torch.core.stats import blocked_sum, ipow
+from repro_torch.chaos.carry import ChaosCarry
+from repro_torch.core.stats import blocked_sum, fma, ipow, recip
 from repro_torch.planning.batched import FleetPlan
 from repro_torch.runtime import threefry
 from repro_torch.runtime.controller import (CtrlParams, controller_budgets,
@@ -141,25 +143,34 @@ def _impute(plan: FleetPlan, samples, n_real, *, multi: bool, mean: bool):
         else:
             u = ((front(plan.predictor) - plan.loc[..., None])
                  / plan.scale[..., None])
-            imp = (c[..., 0:1] + c[..., 1:2] * u + c[..., 2:3] * ipow(u, 2)
-                   + c[..., 3:4] * ipow(u, 3))
+            # the reference's compiler contracts the polynomial into
+            # fused multiply-adds, term by term
+            imp = fma(c[..., 3:4], ipow(u, 3),
+                      fma(c[..., 2:3], ipow(u, 2),
+                          fma(c[..., 1:2], u, c[..., 0:1])))
     mask = iota < ns[..., None]
     return torch.where(mask, imp, torch.zeros_like(imp)), ns, mask
 
 
-def _masked_queries(parts, qnames):
+def _masked_queries(parts, qnames, n_static: Optional[int] = None):
     """Aggregate queries over masked sample sets, numpy-NaN semantics.
 
     parts: (values (E, k, N), mask (E, k, N) bool) pairs making up each
     stream's reconstruction.  AVG/VAR two-pass; VAR is ddof=1; empty ->
-    NaN, a single sample's VAR -> NaN.
+    NaN, a single sample's VAR -> NaN.  ``n_static``: the one part's mask
+    is all true, so every count is this constant, and the reference's
+    compiler turns the divisions by it into multiplications by the
+    rounded reciprocal (:func:`~repro_torch.core.stats.recip`).
     """
     nan = float("nan")
     tot = sum(m.sum(-1) for _, m in parts).to(torch.float32)
     s1 = sum(blocked_sum(torch.where(m, x, torch.zeros_like(x)))
              for x, m in parts)
-    avg = torch.where(tot > 0, s1 / torch.clamp(tot, min=1.0),
-                      torch.full_like(s1, nan))
+    if n_static is not None:
+        avg = s1 * recip(max(n_static, 1))
+    else:
+        avg = torch.where(tot > 0, s1 / torch.clamp(tot, min=1.0),
+                          torch.full_like(s1, nan))
     out = {}
     for q in qnames:
         if q == "AVG":
@@ -168,8 +179,13 @@ def _masked_queries(parts, qnames):
             ss = sum(blocked_sum(ipow(torch.where(m, x - avg[..., None],
                                                   torch.zeros_like(x)), 2))
                      for x, m in parts)
-            out[q] = torch.where(tot > 1, ss / torch.clamp(tot - 1.0, min=1.0),
-                                 torch.full_like(ss, nan))
+            if n_static is not None:
+                out[q] = (ss * recip(n_static - 1) if n_static > 1
+                          else torch.full_like(ss, nan))
+            else:
+                out[q] = torch.where(tot > 1,
+                                     ss / torch.clamp(tot - 1.0, min=1.0),
+                                     torch.full_like(ss, nan))
         elif q in ("MIN", "MAX"):
             fill = float("inf") if q == "MIN" else float("-inf")
             best = None
@@ -189,8 +205,8 @@ def make_window_step(pool, *, seed: int, plan_fn, qnames, multi: bool,
                      mean: bool, ctrl: CtrlParams,
                      static_exec_budgets: Optional[np.ndarray] = None,
                      collect: str = "estimates", adaptive=None,
-                     use_kernel=None):
-    """Build ``step(state, wid) -> outputs`` for one window of E sites.
+                     use_kernel=None, chaos: bool = False):
+    """Build ``step(state, xs) -> outputs`` for one window of E sites.
 
     pool: (P, E, k, N) f32 tensor; window ``wid`` reads slot ``wid % P``.
     plan_fn: (values, counts, budgets) -> FleetPlan.
@@ -203,6 +219,14 @@ def make_window_step(pool, *, seed: int, plan_fn, qnames, multi: bool,
     only when the gate says so, else reuses the cached plan.  The
     reference branches with ``lax.cond``; here the branch reads the
     decision on the host, one read a window.
+    chaos: when True, ``xs`` is ``(wid, live)`` with ``live`` the
+    window's (E,) bool membership mask on the device, else a bare ``wid``.
+    The step then masks dead sites end to end: a budget of 0 (their share
+    water-filled over the live fleet, no >= 2 clamp), no samples and no
+    bytes, not even a header (``n_real`` is masked after the plan, so live
+    rows' Fisher–Yates draws stay bitwise), NaN raw estimates (which hold
+    the controller's EWMAs), no ingest, and served estimates from the
+    ``state.chaos`` gap-serving memory.  When False no mask is applied.
     The step updates ``state`` in place (controller EWMAs, running totals,
     the window cursor) and returns the window's output tensors.  Each
     stage of :data:`STAGES` runs inside its own profiler range.
@@ -219,14 +243,24 @@ def make_window_step(pool, *, seed: int, plan_fn, qnames, multi: bool,
                    torch.as_tensor(static_exec_budgets, dtype=torch.float32,
                                    device=dev))
 
-    def step(state: RuntimeState, wid: int) -> dict:
+    def step(state: RuntimeState, xs) -> dict:
+        if chaos:
+            wid, live = xs
+            livf = live.to(torch.float32)
+        else:
+            wid, live = xs, None
         values = pool[wid % p_]
         with stage("budgets"):
-            raw_b = controller_budgets(state.controller, ctrl)
+            raw_b = controller_budgets(state.controller, ctrl, live=live)
             if static_exec is not None:
-                budgets = static_exec
-            else:
+                budgets = static_exec if live is None else static_exec * livf
+            elif live is None:
                 budgets = torch.clamp(torch.floor(raw_b), min=2.0)
+            else:
+                # the >= 2 clamp would bring dead sites' zero budgets back
+                budgets = torch.where(live,
+                                      torch.clamp(torch.floor(raw_b), min=2.0),
+                                      torch.zeros_like(raw_b))
         if adaptive is None:
             with stage("plan"):
                 plan = plan_fn(values, counts, budgets)
@@ -242,6 +276,11 @@ def make_window_step(pool, *, seed: int, plan_fn, qnames, multi: bool,
                 plan = (plan_fn(values, counts, budgets) if replan
                         else state.adaptive.plan)
             state.adaptive = AdaptiveCarry(gate=gate, plan=plan)
+        if live is not None:
+            # the solver floors every stream at one sample even on a zero
+            # budget; a dead site ships nothing
+            plan = dataclasses.replace(
+                plan, n_real=plan.n_real * live[:, None].to(plan.n_real.dtype))
         with stage("sample"):
             samples = sample_fleet(seed, wid, values, plan.n_real)
         with stage("impute"):
@@ -252,12 +291,23 @@ def make_window_step(pool, *, seed: int, plan_fn, qnames, multi: bool,
         with stage("queries"):
             est = _masked_queries([(samples, mask_r), (imputed, mask_i)],
                                   qnames)
-            tru = _masked_queries([(values, full_mask)], qnames)
+            tru = _masked_queries([(values, full_mask)], qnames, n)
+            if live is None:
+                served = est
+            else:
+                # gap serving: a dead site answers from the freshest
+                # estimate that ever arrived; live sites refresh it
+                served = {q: torch.where(live[:, None], est[q],
+                                         state.chaos.served[q])
+                          for q in qnames}
+                state.chaos = ChaosCarry(live=live, served=served)
 
         with stage("wan_bytes"):
             # WAN accounting — EdgePayload.wan_bytes() per site
             nbytes = (4 * plan.n_real.sum(-1) + header
                       + per_model * (ns > 0).sum(-1)).to(torch.int32)
+            if live is not None:
+                nbytes = torch.where(live, nbytes, torch.zeros_like(nbytes))
 
         with stage("controller"):
             # edge-local error proxy -> controller
@@ -267,21 +317,28 @@ def make_window_step(pool, *, seed: int, plan_fn, qnames, multi: bool,
                                          (imputed, mask_i)], ("AVG",))["AVG"]
             t_avg = tru.get("AVG")
             if t_avg is None:
-                t_avg = _masked_queries([(values, full_mask)],
-                                        ("AVG",))["AVG"]
+                t_avg = _masked_queries([(values, full_mask)], ("AVG",),
+                                        n)["AVG"]
             rel = torch.abs(e_avg - t_avg) / torch.clamp(torch.abs(t_avg),
                                                          min=1e-6)
             obs_err = torch.nanmean(rel, dim=1)
             controller_update(state.controller, ctrl, raw_b, obs_err,
-                              plan.r2, plan.objective)
+                              plan.r2, plan.objective, live=live)
         with stage("totals"):
-            state.totals.count = state.totals.count + n
-            state.totals.s1 = state.totals.s1 + blocked_sum(values)
-            state.totals.s2 = state.totals.s2 + blocked_sum(values * values)
+            t, s1, s2 = n, blocked_sum(values), blocked_sum(values * values)
+            if live is not None:             # dead sites ingest nothing
+                lcol = livf[:, None]
+                t, s1, s2 = n * lcol, s1 * lcol, s2 * lcol
+            state.totals.count = state.totals.count + t
+            state.totals.s1 = state.totals.s1 + s1
+            state.totals.s2 = state.totals.s2 + s2
             state.window_id = wid + 1
 
-        out = {"est": est, "tru": tru, "bytes": nbytes, "budgets": budgets,
-               "obs_err": obs_err, "r2": plan.r2, "objective": plan.objective}
+        out = {"est": served, "tru": tru, "bytes": nbytes,
+               "budgets": budgets, "obs_err": obs_err, "r2": plan.r2,
+               "objective": plan.objective}
+        if live is not None:
+            out["live"] = live
         if collect == "payloads":
             out["samples"] = samples
             for f in PAYLOAD_PLAN_FIELDS:

@@ -395,7 +395,22 @@ def test_resume_from_the_reference_carry_is_bitwise(runs):
 
 
 def test_a_chaos_carry_still_raises():
-    class Carry:
-        chaos = object()
-    with pytest.raises(NotImplementedError, match="Chaos"):
-        state_from_numpy(Carry(), device="cpu")
+    """A reference chaos carry now comes across (tests/test_torch_chaos.py
+    resumes one); an object that is not one still raises."""
+    import types
+    d = _golden()
+    del d["adaptive"]
+    d["chaos"] = {"joins": [[2, 0]]}
+    sc = RefScenario.from_dict(d)
+    windows = RefExperiment.from_scenario(sc).make_windows()
+    head = RefExperiment.from_scenario(sc).runtime.run(windows, n_windows=2)
+    carry = jax.tree.map(np.asarray, head["final_state"])
+    state = state_from_numpy(carry, device="cpu")
+    assert torch.equal(state.chaos.live, torch.as_tensor(
+        np.array(carry.chaos.live)))
+    assert sorted(state.chaos.served) == sorted(carry.chaos.served)
+    broken = types.SimpleNamespace(**{f: getattr(carry, f) for f in
+                                      ("window_id", "controller", "totals",
+                                       "adaptive")}, chaos=object())
+    with pytest.raises(AttributeError):
+        state_from_numpy(broken, device="cpu")

@@ -15,9 +15,10 @@ from repro_torch.kernels.stream_stats import ops as ss_ops
 from repro_torch.kernels.stream_stats.ref import (fleet_stats_ref,
                                                   stream_stats_ref)
 
-# the Gram block's f32 tolerance, as in tests/test_kernel_stream_stats.py;
-# it holds for bf16 input too, since kernel and plain version both sum in
-# f32 from the same bf16-rounded values
+# the one-window kernel's Gram f32 tolerance, as in
+# tests/test_kernel_stream_stats.py; it holds for bf16 input too, since
+# kernel and plain version both sum in f32 from the same bf16-rounded
+# values (the fleet kernel's outputs are bitwise the plain version's)
 SS_RTOL, SS_ATOL = 2e-5, 1e-2
 # flash attention against the plain version on the card.  f32: max |err|.
 # bf16: the tensor-core kernel forms the scores exactly in f32 and carries
@@ -54,9 +55,24 @@ def test_cuda_stream_stats_matches_plain(cuda, shape):
     torch.cuda.synchronize()
     assert ss_ops.LAUNCHES == before + 1
     mom, xxt = fleet_stats_ref(x)
-    # the power sums are taken in the plain version's order: bitwise
+    # every sum is taken in the plain version's order: bitwise
     assert torch.equal(got[0], mom)
-    torch.testing.assert_close(got[1], xxt, rtol=SS_RTOL, atol=SS_ATOL)
+    assert torch.equal(got[1], xxt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 20, 23, 32, 33])
+@pytest.mark.parametrize("fused", [False, True])
+def test_cuda_stream_stats_short_rows_in_the_callers_order(cuda, n, fused):
+    """Rows of 32 or fewer in the order the caller asks for (S2..S4 as
+    multiply-add chains with ``fused``), and a 33-tuple row unchanged by
+    it: bitwise the plain version."""
+    g = torch.Generator().manual_seed(n)
+    x = (torch.randn(6, 8, n, generator=g) * 1.5 + 2.0).to(cuda)
+    got = ss_ops.fleet_window_moments_xxt(x, fused=fused)
+    torch.cuda.synchronize()
+    mom, xxt = fleet_stats_ref(x, fused)
+    assert torch.equal(got[0], mom) and torch.equal(got[1], xxt)
 
 
 @pytest.mark.cuda
@@ -396,7 +412,7 @@ def test_cuda_single_edge_sampler_equals_cpu(cuda, k, n):
 @pytest.mark.parametrize("k,n", [(5, 256), (8, 4096)], ids=lambda v: str(v))
 def test_cuda_fleet_kernels_at_one_site_match_plain(cuda, k, n):
     """Both fleet kernels at E = 1, the single-edge scan's shapes: one
-    launch each; power sums and Vandermonde sums bitwise."""
+    launch each; every output bitwise."""
     g = torch.Generator().manual_seed(k + n)
     x = (torch.randn(1, k, n, generator=g) * 1.5 + 2.0).to(cuda)
     before = ss_ops.LAUNCHES
@@ -404,8 +420,7 @@ def test_cuda_fleet_kernels_at_one_site_match_plain(cuda, k, n):
     torch.cuda.synchronize()
     assert ss_ops.LAUNCHES == before + 1
     mom_r, xxt_r = fleet_stats_ref(x)
-    assert torch.equal(mom, mom_r)
-    torch.testing.assert_close(xxt, xxt_r, rtol=SS_RTOL, atol=SS_ATOL)
+    assert torch.equal(mom, mom_r) and torch.equal(xxt, xxt_r)
     y, u = x[0], torch.randn(k, n, generator=g).to(cuda)
     before = poly_ops.LAUNCHES
     pu, py = poly_ops.vandermonde_moments(y, u)
@@ -452,10 +467,10 @@ def _gate_windows():
 @pytest.mark.parametrize("use_kernel", [False, True])
 def test_cuda_gate_matches_cpu(cuda, use_kernel):
     """The drift gate over the adaptive golden's windows, on the card and
-    on the CPU.  Plain versions on the card: every field bitwise.  With
-    the kernel (one launch a window): the decisions, counters and power
-    sums bitwise, the cross products within the kernel's f32 tolerance
-    (it sums the Gram in its own order)."""
+    on the CPU: every field bitwise, the EW cross products and the
+    correlation the plan assumed included, with the plain versions and
+    with the kernel (one launch a window, its Gram in the plain version's
+    order)."""
     from repro_torch.adaptive import AdaptiveSpec, gate_init, gate_update
     spec = AdaptiveSpec(detector="page_hinkley", halflife=12.0,
                         ph_delta=0.02, ph_lambda=0.3, min_replan_interval=2)
@@ -474,28 +489,24 @@ def test_cuda_gate_matches_cpu(cuda, use_kernel):
             "lag_sum", "lag_events")
     for f in ints:
         assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
-    exact = [("weight", card.ew.weight, cpu.ew.weight),
-             ("s1", card.ew.s1, cpu.ew.s1), ("s2", card.ew.s2, cpu.ew.s2)]
-    rest = [("xxt", card.ew.xxt, cpu.ew.xxt),
-            ("assumed_corr", card.assumed_corr, cpu.assumed_corr),
-            ("det_accum", card.det_accum, cpu.det_accum)]
-    for name, got, want in exact + (rest if not use_kernel else []):
+    fields = [("weight", card.ew.weight, cpu.ew.weight),
+              ("s1", card.ew.s1, cpu.ew.s1), ("s2", card.ew.s2, cpu.ew.s2),
+              ("xxt", card.ew.xxt, cpu.ew.xxt),
+              ("assumed_corr", card.assumed_corr, cpu.assumed_corr),
+              ("det_accum", card.det_accum, cpu.det_accum)]
+    for name, got, want in fields:
         assert torch.equal(got.cpu(), want), name
-    if use_kernel:
-        for name, got, want in rest:
-            torch.testing.assert_close(got.cpu(), want, rtol=SS_RTOL,
-                                       atol=SS_ATOL)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("use_kernel", [False, None])
 def test_cuda_sweep_over_the_committed_reports(cuda, use_kernel):
     """The port's sweep on the card against tests/torch_goldens/reports:
-    five scan goldens, no drift (with the kernels, the single-edge ones
+    seven scan goldens, no drift (with the kernels, the single-edge ones
     held to the recorded f32 class)."""
     from repro_torch.sweep import runner
     logged = []
     code = runner.run_sweep(pattern="scan", device="cuda",
                             use_kernel=use_kernel, log=logged.append)
     assert code == 0, "\n".join(logged)
-    assert "5 scenario(s) checked" in logged[-1]
+    assert "7 scenario(s) checked" in logged[-1]

@@ -54,7 +54,10 @@ def test_importing_the_port_leaves_jax_and_repro_out():
             "repro_torch.kernels.flash_attention.ref",
             "repro_torch.sweep", "repro_torch.sweep.runner",
             "repro_torch.sweep.__main__", "repro_torch.adaptive",
-            "repro_torch.adaptive.policy"} <= set(res["mods"])
+            "repro_torch.adaptive.policy", "repro_torch.chaos",
+            "repro_torch.chaos.spec", "repro_torch.chaos.carry",
+            "repro_torch.chaos.metrics", "repro_torch.ckpt",
+            "repro_torch.ckpt.checkpoint"} <= set(res["mods"])
     assert res["bad"] == []
     assert res["libs"] == [] and res["built"] == []
 

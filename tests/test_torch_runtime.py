@@ -141,7 +141,7 @@ def test_resume_from_reference_carry(windows, reference):
     ({"runtime": "event"}, "Event path"),
     ({"runtime": "scan_sharded"}, "Sharding"),
     ({"runtime": "event", "adaptive": {"detector": "always"}}, "Event path"),
-    ({"chaos": {"faults": []}}, "Chaos"),
+    ({"runtime": "event", "chaos": {"joins": [[2, 0]]}}, "Event path"),
     ({"method": "srs"}, "Event path"),
     ({"planner": dict(SCENARIO["planner"], solver="ipm")}, "Event path"),
     ({"planner": dict(SCENARIO["planner"], engine="sharded")}, "Sharding"),

@@ -89,3 +89,62 @@ def test_scan_variant_matches_live_reference(reference, name):
     for q, table in ref.nrmse_per_stream.items():
         np.testing.assert_allclose(port.nrmse_per_stream[q], table,
                                    rtol=rtol, atol=atol)
+
+
+# Windows of 32 tuples or fewer, and windows whose N % 4 leaves a tail
+# (ROADMAP.md queue 3): the reference's compiled plan sums a short row's
+# products as chains of fused multiply-adds, its dots take the first
+# N - N % lanes products in lane chains and the rest as one more chain.
+def _short(name: str, window: int) -> dict:
+    d = _golden(name)
+    d["data"] = dict(d["data"], window=window, n_points=6 * window)
+    return d
+
+
+SHORT = {**{f"fleet_scan_w{w}": _short("fleet_scan", w)
+            for w in (16, 20, 24, 32, 100)},
+         "fleet_scan_adaptive_ph_w32": _short("fleet_scan_adaptive_ph", 32)}
+
+
+@pytest.fixture(scope="module")
+def short_reference():
+    return {name: RefExperiment.from_scenario(RefScenario.from_dict(d)).run()
+            for name, d in SHORT.items()}
+
+
+@pytest.mark.parametrize("name", list(SHORT))
+def test_short_window_matches_live_reference(short_reference, name):
+    ref = short_reference[name]
+    port = Experiment.from_scenario(ScenarioConfig.from_dict(SHORT[name]),
+                                    device="cpu").run()
+    assert port.wan_bytes == ref.wan_bytes
+    for k in ("bytes_history", "budget_history"):
+        assert np.array_equal(np.asarray(port.raw[k]),
+                              np.asarray(ref.raw[k])), k
+    for q, table in ref.nrmse_per_stream.items():
+        np.testing.assert_array_equal(port.nrmse_per_stream[q], table)
+
+
+@pytest.mark.parametrize("n", [12, 17, 18, 19, 20, 22, 23, 28, 100, 102,
+                               103])
+def test_lane_sum_tail_is_the_compiled_dots(n):
+    """A fleet's Gram block and one site's X^T X (4 lanes) and one site's
+    X^T y (8 lanes) bitwise the compiled dots, whatever N % lanes."""
+    import jax
+    import torch
+
+    from repro_torch.core.stats import lane_sum
+    rng = np.random.default_rng(n)
+    x = (rng.standard_normal((3, 4, n)) * 3 + 1).astype(np.float32)
+    f = rng.standard_normal((1, 4, n, 4)).astype(np.float32)
+    gram = np.asarray(jax.jit(jax.vmap(lambda v: v @ v.T))(x))
+    xty = np.asarray(jax.jit(jax.vmap(jax.vmap(lambda a, y: a.T @ y)))(
+        f, x[:1]))
+    xtx = np.asarray(jax.jit(jax.vmap(jax.vmap(lambda a: a.T @ a)))(f))
+    t, ft = torch.from_numpy(x), torch.from_numpy(f).transpose(-1, -2)
+    np.testing.assert_array_equal(
+        lane_sum(t[..., :, None, :], t[..., None, :, :], 4).numpy(), gram)
+    np.testing.assert_array_equal(
+        lane_sum(ft, t[:1, :, None, :], 8).numpy(), xty)
+    np.testing.assert_array_equal(
+        lane_sum(ft[..., :, None, :], ft[..., None, :, :], 4).numpy(), xtx)

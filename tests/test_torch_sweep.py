@@ -6,14 +6,16 @@
   are what the live reference gives now, regenerated through
   ``scripts/torch_reference_reports.py``.
 * ``python -m repro_torch.sweep --check --filter scan --device cpu``
-  checks the five scan goldens the port runs, each in its own class, and
-  names the ones it cannot run yet.
+  checks the seven scan goldens the port runs, each in its own class, and
+  names the one it cannot run yet.
 * The single-edge goldens meet their ``ulp`` class because the port sums
   and solves the cubic fit's normal equations in the reference's order;
   the pieces of that order are held bitwise here.  With the kernels on,
   the fit is the fused one and meets ``f32`` only: each entry of the
   sweep's ``KERNEL_CLASS_GAPS`` drifts under its golden's class and
-  passes under the recorded one.
+  passes under the recorded one, and each entry of its
+  ``KERNEL_PATH_REPORTS`` drifts in its counters against the CPU report
+  and not at all against the reference's own kernel path.
 """
 import dataclasses
 import importlib.util
@@ -38,10 +40,9 @@ from repro_torch.sweep import diff, report, runner
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 REPORTS = ROOT / "tests" / "torch_goldens" / "reports"
 SCAN_GOLDENS = ["fleet_scan", "fleet_scan_adaptive_ph",
+                "fleet_scan_chaos_join", "fleet_scan_chaos_region",
                 "fleet_scan_steps_static", "single_scan", "single_scan_steps"]
-NOT_PORTED = {"fleet_scan_chaos_join": "Chaos",
-              "fleet_scan_chaos_region": "Chaos",
-              "fleet_scan_sharded": "Sharding"}
+NOT_PORTED = {"fleet_scan_sharded": "Sharding"}
 CLASSES = sorted(ref_diff.TOLERANCE_CLASSES)
 
 
@@ -137,9 +138,15 @@ def test_committed_reports_are_the_live_reference(tmp_path):
     for name in written:
         assert (tmp_path / "reports" / name).read_text() == \
             (REPORTS / name).read_text(), name
+    kernel = sorted(p.name for p in (tmp_path / "kernel_reports").iterdir())
+    assert kernel == [f"{n}.json" for n in sorted(runner.KERNEL_PATH_REPORTS)]
+    for name in kernel:
+        assert (tmp_path / "kernel_reports" / name).read_text() == \
+            (runner.KERNEL_REPORT_DIR / name).read_text(), name
     prov = json.loads((tmp_path / "PROVENANCE.json").read_text())
     assert prov["jax"] == jax.__version__
     assert prov["scenarios"] == SCAN_GOLDENS
+    assert prov["kernel_path_scenarios"] == sorted(runner.KERNEL_PATH_REPORTS)
 
 
 def test_sweep_checks_the_scan_goldens_on_the_cpu():
@@ -157,8 +164,8 @@ def test_sweep_checks_the_scan_goldens_on_the_cpu():
     for name, item in NOT_PORTED.items():
         assert any(ln.split()[:3] == [name, "not", "ported"]
                    and f"'{item}'" in ln for ln in lines), name
-    assert "5 scenario(s) checked" in lines[-1]
-    assert "3 not ported" in lines[-1]
+    assert "7 scenario(s) checked" in lines[-1]
+    assert "1 not ported" in lines[-1]
 
 
 def test_sweep_list_lint_and_usage():
@@ -202,11 +209,12 @@ def test_sweep_reports_a_drift(tmp_path, field, value):
 
 @pytest.fixture(scope="module")
 def kernel_path_reports():
-    """The port's reports of the gap map's scenarios with the kernels'
+    """The port's reports of the two maps' scenarios with the kernels'
     path on (on the CPU: the fused fit over the plain moments)."""
     return {name: runner.run_scenario(
         runner.load_scenario_file(runner.SCENARIO_DIR / f"{name}.json"),
-        device="cpu", use_kernel=True) for name in runner.KERNEL_CLASS_GAPS}
+        device="cpu", use_kernel=True)
+        for name in [*runner.KERNEL_CLASS_GAPS, *runner.KERNEL_PATH_REPORTS]}
 
 
 @pytest.mark.parametrize("name", sorted(runner.KERNEL_CLASS_GAPS))
@@ -223,6 +231,26 @@ def test_kernel_class_gap_entry_is_needed_and_enough(kernel_path_reports,
                              current) == []
     assert runner.kernel_path("cpu", True)
     assert not runner.kernel_path("cpu", None)
+
+
+@pytest.mark.parametrize("name", sorted(runner.KERNEL_PATH_REPORTS))
+def test_kernel_path_report_entry_is_needed_and_enough(kernel_path_reports,
+                                                       name):
+    golden = json.loads((REPORTS / f"{name}.json").read_text())
+    current = kernel_path_reports[name]
+    assert any(d.field.startswith("counters:")
+               for d in diff.diff_reports(golden, current)), \
+        f"{name}'s kernel path gives the CPU report's counters now"
+    kernel = json.loads(
+        (runner.KERNEL_REPORT_DIR / f"{name}.json").read_text())
+    assert kernel["tolerance"] == golden["tolerance"]
+    assert diff.diff_reports(kernel, current) == []
+    s = runner.load_scenario_file(runner.SCENARIO_DIR / f"{name}.json")
+    assert runner.golden_report_path(s, use_kernel=True).parent == \
+        runner.KERNEL_REPORT_DIR
+    for use_kernel in (None, False):        # the fit is not the fused one
+        assert runner.golden_report_path(
+            s, use_kernel=use_kernel).parent == runner.REPORT_DIR
 
 
 # ------------------------------------- the fit's order (the ulp class)
