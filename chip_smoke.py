@@ -73,7 +73,26 @@ Phases, one JSON line each; any failed check exits non-zero:
      and budget histories, served estimates, final state), each window's
      live budgets summing to what the CPU computes from the same
      controller state;
- 16. the kernels line, then ``{"ok": true, "device": {...}}`` last.
+ 16. slice 10's fleet event path (``runtime="event"``) at the main path's
+     width: its fleet, planner and 4 windows cycled to ``EVENT["T"]`` on
+     the WAN of ``fleet_event_cost_aware_wan`` (latency, jitter, drops,
+     bandwidth, the link-cost-aware controller) with
+     ``single_event_retransmit``'s retransmits and a fixed straggler rule
+     (~1% of counts at 0); launches asserted (row 1 = 2 T, row 2 = T),
+     windows/sec, the plan's and the per-site loop's seconds a window,
+     the WAN counters, freshness, and the card's busy share over a
+     3-window profile;
+ 17. the event loop fed the scan's per-window plans (zero-latency links,
+     a static controller, samples drawn on the card) at E = 1024: WAN
+     bytes and cost, every per-stream NRMSE table and the budget history
+     bitwise the scan's;
+ 18. phase 16's scenario with the plain versions on the card, held
+     against the kernels (WAN bytes within 0.1%, AVG NRMSE within 1%);
+ 19. the kernels line, then ``{"ok": true, "device": {...}}`` last.
+
+Phase 12's sweep also runs the four fleet event goldens (eleven goldens
+in all), their counters held also against the live reference's
+(``EVENT_REF``).
 
 Detailed profiles go to ``chiprun_out/``.
 """
@@ -135,6 +154,31 @@ CHAOS = {"T": 100, "cut": 40,
                   "joins": [[10, s] for s in range(32)],
                   "flaps": [[60, 5, "down"], [70, 5, "up"]],
                   "flap_prob": 0.01, "flap_len": 3, "seed": 7}}
+# slice 10: the four fleet event goldens' live reference (CPU, jax 0.9); the
+# committed goldens differ (ROADMAP.md queue 3, note b)
+EVENT_REF = {"fleet_event_batched_rebalance": {"wan_bytes": 10816,
+                                               "gaps": 0},
+             "fleet_event_cost_aware_wan": {"wan_bytes": 6916, "gaps": 5,
+                                            "revisions": 18,
+                                            "retransmits": 0},
+             "fleet_event_adaptive_threshold": {"wan_bytes": 21264,
+                                                "planner_invocations": 6},
+             "fleet_event_chaos_flap": {"wan_bytes": 10412, "gaps": 3}}
+# the fleet event path: the main path's fleet, planner and windows on the
+# WAN of fleet_event_cost_aware_wan (heterogeneous links, latency_scale 1,
+# 30 ms jitter, 10% drops, a 100 ms period, link-cost-aware controller),
+# with single_event_retransmit's retransmits.  The golden's 5 B/ms is
+# scaled by the payload's size (k N is 8x the golden's), so that a payload
+# takes as long to put on the wire (~60 ms of the period): at 5 B/ms a
+# main-width payload takes ~490 ms, every retry timer fires before its
+# first copy lands, and each window ships four copies, more than the raw
+# tuples.  A fixed rule zeroes ~1% of the (site, stream) counts a window.
+EVENT = {"T": 16, "T_parity": 8, "T_plain": 4, "n_prof": 3,
+         "wan": {"latency_scale": 1.0, "jitter_ms": 30.0, "drop_prob": 0.1,
+                 "bandwidth_bytes_per_ms": 40.0, "hetero_links": True},
+         "transport": {"window_period_ms": 100.0,
+                       "retransmit_timeout_ms": 150.0, "max_retries": 3},
+         "straggle_mod": 97}
 # a fleet of the main path's kind whose data (134 MB for stream_stats_fleet,
 # 268 MB for polyfit) does not fit in the 50 MB L2: (E, k, N)
 LARGE = (4096, 8, 1024)
@@ -605,12 +649,17 @@ def main() -> int:
         k, N, MAIN["n_regions"], MAIN["sites_per_region"],
         MAIN["pool"] * N))
 
-    # ---- 16. the kernels line and the result -----------------------------
-    # launches: rows 1 and 2 on the three runtime paths driven with the
-    # counts at 0 (main_path, adaptive_path, chaos_path), rows 3 and 4 on
-    # the kernel entry points
+    # ---- 16.-18. slice 10: the fleet event path ---------------------------
+    event = event_phases(torch, windows, main_scenario(
+        k, N, MAIN["n_regions"], MAIN["sites_per_region"],
+        MAIN["pool"] * N), card_line)
+
+    # ---- 19. the kernels line and the result -----------------------------
+    # launches: rows 1 and 2 on the four runtime paths driven with the
+    # counts at 0 (main_path, adaptive_path, chaos_path, event_path), rows
+    # 3 and 4 on the kernel entry points
     by_path = {n: ({"main_path": launches[n], "adaptive_path": adaptive[n],
-                    "chaos_path": chaos[n]}
+                    "chaos_path": chaos[n], "event_path": event[n]}
                    if n in adaptive else {"kernel_entry_points": launches[n]})
                for n in KERNELS}
     emit({"kernels": [dict(name=n, route="cuda", source=KERNELS[n][0],
@@ -1011,19 +1060,19 @@ def single_edge_phases(torch, dev) -> None:
 
 
 def golden_sweep_phase(torch) -> None:
-    """Phase 12: the port's sweep on the card over the seven scan goldens,
-    with the kernels (single-edge goldens held to the runner's recorded
-    f32 class) and with the plain versions (every golden in its own
-    class), against the committed port-owned reports.  Any drift
-    raises."""
+    """Phase 12: the port's sweep on the card over the eleven goldens it
+    runs (seven scan, four fleet event), with the kernels (each golden of
+    the runner's ``KERNEL_CLASS_GAPS`` held to its recorded f32 class) and
+    with the plain versions (every golden in its own class), against the
+    committed port-owned reports.  Any drift raises."""
     from repro_torch.kernels.polyfit import ops as poly_ops
     from repro_torch.kernels.stream_stats import ops as ss_ops
     from repro_torch.sweep import diff, runner
     t0 = time.perf_counter()
     scen = [s for s in runner.load_scenarios()
-            if "scan" in s.tags and runner.not_ported(s) is None]
+            if runner.not_ported(s) is None]
     skipped = {s.name: runner.not_ported(s) for s in runner.load_scenarios()
-               if "scan" in s.tags and runner.not_ported(s) is not None}
+               if runner.not_ported(s) is not None}
     bad = []
     for uk in (True, False):
         gaps = runner.KERNEL_CLASS_GAPS if uk else {}
@@ -1060,10 +1109,17 @@ def golden_sweep_phase(torch) -> None:
                       want is not CHAOS_REF[s.name] else "cpu"})
                 if got != want:
                     bad.append((s.name, uk))
+            if s.name in EVENT_REF:
+                want = EVENT_REF[s.name]
+                got = {f: cur["counters"][f] for f in want}
+                emit({"phase": "golden_event", "scenario": s.name,
+                      "use_kernel": uk, "got": got, "reference_cpu": want})
+                if got != want:
+                    bad.append((s.name, uk))
     emit({"phase": "golden_sweep_seconds",
           "seconds": time.perf_counter() - t0, "checked": len(scen),
           "not_ported": skipped})
-    if len(scen) != 7 or bad:
+    if len(scen) != 11 or bad:
         raise AssertionError(f"golden sweep on the card: {len(scen)} "
                              f"scenarios checked, drifts in {bad}")
 
@@ -1308,6 +1364,190 @@ def chaos_phases(torch, windows, scenario: dict) -> dict:
     return launches
 
 
+def _event_straggler(wid: int, site: int, stream: int) -> bool:
+    """The fleet event path's fixed straggler rule (~1% of counts)."""
+    return (wid * 131 + site * 8 + stream) % EVENT["straggle_mod"] == 0
+
+
+class _InjectedPlans:
+    """A plan engine serving the scan's own per-window plan arrays to the
+    event loop (the injected-plans harness): given the same plans, every
+    byte and estimate goes through the event loop's host code."""
+
+    name = "injected"
+    fields = ("r2", "objective", "n_real", "n_imputed", "predictor",
+              "coeffs", "loc", "scale", "explained_var", "mean", "var")
+
+    def __init__(self, ys):
+        self.ys = ys
+
+    def check(self, cfg):
+        pass
+
+    def plan_fleet(self, values, counts, budgets, cfg, *, window_id, **kw):
+        import numpy as np
+        return {f: np.asarray(self.ys[f][window_id]) for f in self.fields}
+
+
+def event_phases(torch, windows, scenario: dict, card_line: str) -> dict:
+    """Phases 16-18: the fleet event loop at the main path's width, then
+    fed the scan's plans, then with the plain versions.  Returns the
+    launches of rows 1 and 2 in phase 16's run.  Every check raises."""
+    import numpy as np
+    from repro_torch.api.experiment import Experiment
+    from repro_torch.api.scenario import ScenarioConfig
+    from repro_torch.kernels.polyfit import ops as poly_ops
+    from repro_torch.kernels.stream_stats import ops as ss_ops
+    t_all = time.perf_counter()
+    T = EVENT["T"]
+    d = dict(scenario, runtime="event",
+             topology=dict(scenario["topology"], **EVENT["wan"]),
+             transport=dict(scenario["transport"], **EVENT["transport"]),
+             controller=dict(scenario["controller"], link_cost_aware=True))
+    sc = ScenarioConfig.from_dict(d)
+
+    def experiment(use_kernel=True):
+        return Experiment.from_scenario(sc, use_kernel=use_kernel,
+                                        straggler_drop=_event_straggler,
+                                        device="cuda")
+
+    experiment().run(windows, n_windows=1)       # warm-up
+    ex = experiment()
+    ss_ops.LAUNCHES = 0
+    poly_ops.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    rep = ex.run(windows, n_windows=T)
+    torch.cuda.synchronize()
+    launches = {"stream_stats_fleet": ss_ops.LAUNCHES,
+                "polyfit": poly_ops.LAUNCHES}
+    raw = rep.raw
+    E, k = ex.runtime.topology.n_sites, ex.runtime.topology.k
+    straggled = sum(_event_straggler(w, s_, i) for w in range(T)
+                    for s_ in range(E) for i in range(k))
+    emit({"phase": "fleet_event_path", "card": card_line, "E": E, "k": k,
+          "N": windows[0].shape[-1], "T": T,
+          "windows_per_sec": raw["windows_per_sec"],
+          "run_seconds": raw["run_seconds"],
+          "plan_s_per_window": raw["plan_seconds"] / T,
+          "site_loop_s_per_window": raw["site_seconds"] / T,
+          "launches": launches,
+          "launches_per_window": {n: v / T for n, v in launches.items()},
+          "straggled_counts_share": straggled / (T * E * k),
+          "gaps": rep.gaps, "revisions": rep.revisions,
+          "late_drops": rep.late_drops, "duplicates": rep.duplicates,
+          "retransmits": rep.retransmits, "freshness_ms": rep.freshness_ms,
+          "wan_bytes": rep.wan_bytes, "full_bytes": rep.full_bytes,
+          "wan_fraction": rep.wan_fraction, "nrmse": rep.nrmse,
+          "nrmse_at_query": rep.nrmse_at_query,
+          "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+    if launches != {"stream_stats_fleet": 2 * T, "polyfit": T}:
+        raise AssertionError(f"event path launches {launches}, want "
+                             f"stream_stats_fleet {2 * T}, polyfit {T}")
+    finite = (all(np.isfinite(v) for v in rep.nrmse.values())
+              and all(np.isfinite(t).all()
+                      for t in rep.nrmse_per_stream.values()))
+    if not finite or not 0 < rep.wan_bytes < rep.full_bytes:
+        raise AssertionError(f"event path output out of range: nrmse "
+                             f"{rep.nrmse}, wan {rep.wan_bytes} of "
+                             f"{rep.full_bytes}")
+    profile_event_path(experiment(), windows, torch, card_line)
+
+    # ---- 17. the event loop fed the scan's plans --------------------------
+    Tp = EVENT["T_parity"]
+    dp = dict(scenario, runtime="scan",
+              topology=dict(scenario["topology"], latency_scale=0.0),
+              controller=dict(scenario["controller"], mode="static"))
+    scan = Experiment.from_scenario(ScenarioConfig.from_dict(dp),
+                                    use_kernel=True, collect="payloads",
+                                    device="cuda")
+    stash = {}
+    replay = scan.runtime._replay
+
+    def spy(ys, *a, **kw):
+        stash["ys"] = ys
+        return replay(ys, *a, **kw)
+
+    scan.runtime._replay = spy
+    t0 = time.perf_counter()
+    rep_s = scan.run(windows, n_windows=Tp)
+    scan_s = time.perf_counter() - t0
+    ev = Experiment.from_scenario(ScenarioConfig.from_dict(
+        dict(dp, runtime="event")), use_kernel=True, device="cuda")
+    ev.runtime.sampling = "device"
+    ev.runtime.engine = _InjectedPlans(stash["ys"])
+    rep_e = ev.run(windows, n_windows=Tp)
+    same = {"wan_bytes": rep_e.wan_bytes == rep_s.wan_bytes,
+            "wan_cost": rep_e.wan_cost == rep_s.wan_cost,
+            "budget_history": bool(np.array_equal(
+                rep_e.raw["budget_history"], rep_s.raw["budget_history"])),
+            **{f"nrmse_per_stream/{q}": bool(np.array_equal(
+                rep_e.nrmse_per_stream[q], rep_s.nrmse_per_stream[q],
+                equal_nan=True)) for q in rep_s.nrmse_per_stream}}
+    emit({"phase": "event_scan_parity", "card": card_line, "E": E, "T": Tp,
+          "wan_bytes_scan": rep_s.wan_bytes, "wan_bytes_event":
+          rep_e.wan_bytes, "bitwise": same, "scan_seconds": scan_s,
+          "event_run_seconds": rep_e.raw["run_seconds"]})
+    if not all(same.values()):
+        raise AssertionError(f"event loop fed the scan's plans differs from "
+                             f"the scan: {same}")
+
+    # ---- 18. the plain versions on the card -------------------------------
+    T2 = EVENT["T_plain"]
+    rk = experiment(True).run(windows, n_windows=T2)
+    rp = experiment(False).run(windows, n_windows=T2)
+    d_avg = abs(rk.nrmse["AVG"] - rp.nrmse["AVG"]) / abs(rp.nrmse["AVG"])
+    d_wan = abs(rk.wan_bytes - rp.wan_bytes) / rp.wan_bytes
+    emit({"phase": "event_plain_vs_kernel", "card": card_line, "T": T2,
+          "nrmse_kernel": rk.nrmse, "nrmse_plain": rp.nrmse,
+          "wan_kernel": rk.wan_bytes, "wan_plain": rp.wan_bytes,
+          "avg_rel_diff": d_avg, "wan_rel_diff": d_wan,
+          "windows_per_sec_kernel": rk.raw["windows_per_sec"],
+          "windows_per_sec_plain": rp.raw["windows_per_sec"]})
+    if d_avg > 0.01 or d_wan > 0.001:
+        raise AssertionError(f"event path: kernel and plain disagree: AVG "
+                             f"NRMSE rel {d_avg}, WAN bytes rel {d_wan}")
+    emit({"phase": "event_phases_seconds", "card": card_line,
+          "seconds": time.perf_counter() - t_all})
+    return launches
+
+
+def profile_event_path(ex, windows, torch, card_line: str) -> None:
+    """Profile ``EVENT["n_prof"]`` windows of the event loop: the host time
+    of its plan range and of its per-site loop, and the card's busy share
+    (kernel device time over the loop's wall time); the table goes to
+    chiprun_out/profile_event.txt."""
+    from torch.profiler import ProfilerActivity, profile
+    n_prof = EVENT["n_prof"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rep = ex.run(windows, n_windows=n_prof)
+        torch.cuda.synchronize()
+    evs = prof.key_averages()
+    with open(os.path.join(OUT_DIR, "profile_event.txt"), "w") as f:
+        f.write(evs.table(sort_by="cpu_time_total", row_limit=60))
+    ranges = {e.key.split("/", 1)[1]: e.cpu_time_total / 1e3 / n_prof
+              for e in evs if e.key.startswith("event_loop/")
+              and not str(e.device_type).endswith("CUDA")}
+    on_dev = [e for e in evs if str(e.device_type).endswith("CUDA")
+              and not e.key.startswith("event_loop/")]
+    kernels = [e for e in on_dev if not e.key.startswith("Memcpy")]
+    kernel_ms = sum(_dev_ms(e) for e in kernels)
+    loop_ms = rep.raw["run_seconds"] * 1e3
+    emit({"phase": "profile_event", "card": card_line,
+          "file": "profile_event.txt", "windows": n_prof,
+          "range_host_ms_per_window": ranges,
+          "site_loop_ms_per_window": rep.raw["site_seconds"] * 1e3 / n_prof,
+          "loop_ms": loop_ms,
+          "kernel_ms": kernel_ms,
+          "memcpy_ms": sum(_dev_ms(e) for e in on_dev
+                           if e.key.startswith("Memcpy")),
+          "device_busy_share": kernel_ms / loop_ms,
+          "kernel_launches_per_window":
+              sum(e.count for e in kernels) / n_prof})
+    if "plan" not in ranges:
+        raise AssertionError(f"event profile lacks its plan range: {ranges}")
+
+
 def _same_leaves(a: dict, b: dict) -> bool:
     import numpy as np
     return a.keys() == b.keys() and all(
@@ -1391,6 +1631,13 @@ def build_facts(kernel: str) -> dict:
             if sass is not None else None}
 
 
+def _dev_ms(e, total=False) -> float:
+    """A profiler row's device time (ms), self or with its children."""
+    name = "device_time_total" if total else "self_device_time_total"
+    old = "cuda_time_total" if total else "self_cuda_time_total"
+    return getattr(e, name, getattr(e, old, 0)) / 1e3
+
+
 def profile_main_path(ex, windows, torch, n_prof: int = 3,
                       out_name: str = "profile_main_path.txt") -> None:
     """Profile ``n_prof`` windows of a path with torch.profiler: the time
@@ -1405,11 +1652,7 @@ def profile_main_path(ex, windows, torch, n_prof: int = 3,
     evs = prof.key_averages()
     with open(os.path.join(OUT_DIR, out_name), "w") as f:
         f.write(evs.table(sort_by="cpu_time_total", row_limit=60))
-
-    def dev_ms(e, total=False):
-        name = "device_time_total" if total else "self_device_time_total"
-        old = "cuda_time_total" if total else "self_cuda_time_total"
-        return getattr(e, name, getattr(e, old, 0)) / 1e3
+    dev_ms = _dev_ms
 
     # the stage ranges as the host ran them (one CPU event per range name)
     ranges = {e.key.split("/", 1)[1]: e for e in evs

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Write the port's reference reports: the live JAX reference's report of
-every scan golden the port runs.
+every golden the port runs.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/torch_reference_reports.py
 
 For each scenario of ``tests/goldens/scenarios/`` that ``repro_torch``
-runs (``repro_torch.sweep.not_ported`` is None) and that is tagged
-``scan``, this runs the reference's ``Experiment`` on the CPU, serializes
+runs (``repro_torch.sweep.not_ported`` is None), scan and event alike,
+this runs the reference's ``Experiment`` on the CPU, serializes
 the report with the reference's ``repro.sweep.report.serialize_report``
 and writes ``tests/torch_goldens/reports/<name>.json``; for the scenarios
 of ``repro_torch.sweep.runner.KERNEL_PATH_REPORTS`` it also runs the
@@ -32,11 +32,10 @@ ROOT = Path(__file__).resolve().parents[1]
 OUT_DIR = ROOT / "tests" / "torch_goldens"
 
 
-def ported_scan_goldens() -> list:
-    """The scan goldens the port runs, as port ``SweepScenario``s."""
+def ported_goldens() -> list:
+    """The goldens the port runs, as port ``SweepScenario``s."""
     from repro_torch.sweep import load_scenarios, not_ported
-    return [s for s in load_scenarios()
-            if "scan" in s.tags and not_ported(s) is None]
+    return [s for s in load_scenarios() if not_ported(s) is None]
 
 
 def reference_report(name: str, kernels: bool = False) -> dict:
@@ -58,12 +57,12 @@ def write_json(payload: dict, path: Path) -> None:
 
 def generate(out_dir: Path = OUT_DIR, names=None, log=print) -> dict:
     """Write ``<out_dir>/reports/<name>.json`` for ``names`` (default:
-    every ported scan golden), ``<out_dir>/kernel_reports/<name>.json``
+    every ported golden), ``<out_dir>/kernel_reports/<name>.json``
     for those of them the sweep holds to the reference's kernel path, and
     ``<out_dir>/PROVENANCE.json``; returns {name: report}."""
     import jax
     if names is None:
-        names = [s.name for s in ported_scan_goldens()]
+        names = [s.name for s in ported_goldens()]
     from repro_torch.sweep.runner import KERNEL_PATH_REPORTS
     reports = {}
     kernel_names = []
@@ -96,7 +95,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", type=Path, default=OUT_DIR)
     p.add_argument("names", nargs="*",
-                   help="golden names (default: every ported scan golden)")
+                   help="golden names (default: every ported golden)")
     args = p.parse_args(argv)
     generate(args.out, args.names or None)
     return 0

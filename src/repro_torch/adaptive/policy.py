@@ -1,6 +1,7 @@
 """Re-plan policy: cache the last plan, reuse it until drift fires.
 
-Port of ``repro.adaptive.policy`` for the scan runtime:
+Port of ``repro.adaptive.policy`` for the scan runtime and the fleet
+event loop:
 
 * :class:`AdaptiveSpec` — the scenario-level knob block, validated at
   construction and JSON-round-trippable.
@@ -8,6 +9,8 @@ Port of ``repro.adaptive.policy`` for the scan runtime:
   sums, the correlation snapshot the cached plan assumed, the detector
   scalars, the cooldown clock and the re-plan counters.
 * :func:`gate_update` — one window of the policy.
+* :class:`AdaptivePolicy` — the fleet event loop's policy: the gate on
+  the device, the cached plan and the planner callback on the host.
 
 Decision rule per window (after folding the window into the EW sums)::
 
@@ -16,8 +19,7 @@ Decision rule per window (after folding the window into the EW sums)::
     cool   = windows_since_replan + 1 >= min_replan_interval
     replan = first_window  OR  (fire AND cool)
 
-The event loop's host-side policy (``AdaptivePolicy``) belongs to the
-event path and the site-sharded gate to sharding; neither is ported yet.
+The site-sharded gate belongs to sharding and is not ported yet.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.adaptive import drift as drift_mod
 from repro_torch.adaptive import stats as ew_mod
 from repro_torch.api.registry import DRIFT_DETECTORS
@@ -173,3 +176,47 @@ def make_adaptive_carry(n_sites: int, k: int, device=None) -> AdaptiveCarry:
     ``lax.cond`` agree in structure)."""
     return AdaptiveCarry(gate=gate_init(n_sites, k, device=device),
                          plan=None)
+
+
+class AdaptivePolicy:
+    """Event-loop wrapper around :func:`gate_update` with plan caching.
+
+    The gate runs on the device (the scan's gate, with the counts as
+    data); the cached plan and the planner callback stay on the host, so
+    a re-plan window makes the event loop's exact calls in their order
+    (an ``always`` detector replays the plain event loop bitwise).  One
+    host read a window: the gate's ``replan``.
+    """
+
+    def __init__(self, spec: AdaptiveSpec, *, use_kernel=None, device=None):
+        self.spec = spec
+        self.use_kernel = use_kernel
+        self.device = resolve_device(device)
+        self._gate: Optional[GateState] = None
+        self._cached = None
+
+    def step(self, values, counts, plan_cb):
+        """Advance one window; call ``plan_cb()`` only when re-planning
+        (or when nothing is cached yet).
+
+        ``values`` (E, k, N) and ``counts`` (E, k): host arrays or tensors
+        on the device.  Returns ``(plan, replanned)``, where ``plan`` is
+        the fresh result or the cached object itself.
+        """
+        v = torch.as_tensor(values, dtype=torch.float32, device=self.device)
+        c = torch.as_tensor(counts, dtype=torch.int32, device=self.device)
+        if self._gate is None:
+            self._gate = gate_init(v.shape[0], v.shape[1],
+                                   device=self.device)
+        self._gate, replan = gate_update(self.spec, self._gate, v, c,
+                                         use_kernel=self.use_kernel)
+        replan = bool(replan)
+        if replan or self._cached is None:
+            self._cached = plan_cb()
+        return self._cached, replan
+
+    def counters(self) -> dict:
+        if self._gate is None:
+            return {"planner_invocations": 0, "plans_reused": 0,
+                    "drift_fires": 0, "detection_lag_windows": 0.0}
+        return gate_counters(self._gate)

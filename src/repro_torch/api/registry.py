@@ -92,8 +92,10 @@ class Registry:
 #   QUERIES           repro_torch.core.queries   (AVG | VAR | MIN | MAX)
 #   DATASETS          repro_torch.data.streams   (home | turbine | smartcity
 #                                                 | mvn | fleet)
+#   DEMAND_SIGNALS    repro_torch.fleet.controller (obs_err | pred_err
+#                                                 | max_err)
 #   ENGINES           repro_torch.planning       (batched)
-#   RUNTIMES          repro_torch.runtime        (scan | scan_steps)
+#   RUNTIMES          repro_torch.runtime        (event | scan | scan_steps)
 #   DRIFT_DETECTORS   repro_torch.adaptive.drift (threshold | page_hinkley
 #                                                 | always | never)
 #   FAULTS            repro_torch.chaos.spec     (flap | join | outage
@@ -103,6 +105,7 @@ EPSILON_POLICIES = Registry("epsilon policy")
 DEPENDENCE = Registry("dependence measure")
 QUERIES = Registry("query")
 DATASETS = Registry("dataset")
+DEMAND_SIGNALS = Registry("controller demand signal")
 ENGINES = Registry("plan engine")
 RUNTIMES = Registry("runtime")
 DRIFT_DETECTORS = Registry("drift detector")
@@ -114,6 +117,7 @@ def populate() -> None:
     import repro_torch.core.planner     # noqa: F401  (models, epsilon, ...)
     import repro_torch.core.queries     # noqa: F401
     import repro_torch.data.streams     # noqa: F401
+    import repro_torch.fleet.controller  # noqa: F401  (demand signals)
     import repro_torch.planning         # noqa: F401
     import repro_torch.runtime          # noqa: F401
     import repro_torch.adaptive.drift   # noqa: F401

@@ -28,7 +28,6 @@ _reg.populate()        # spelling checks need the registries filled
 from repro_torch.adaptive import AdaptiveSpec  # noqa: E402  (needs populate())
 from repro_torch.chaos import ChaosSpec  # noqa: E402
 
-DEMAND_SIGNALS = ("obs_err", "pred_err", "max_err")
 SOLVERS = ("ipm", "slsqp", "closed_form")
 IID_MODES = ("none", "iid", "thinning", "m_dependence")
 # baseline planners of the event path (not ported yet)
@@ -140,10 +139,8 @@ class ControllerSpec:
         if self.mode not in ("rebalance", "static"):
             raise ValueError(f"controller mode must be 'rebalance' or "
                              f"'static', got {self.mode!r}")
-        _one_of("controller demand signal", self.demand_signal,
-                DEMAND_SIGNALS)
-        _one_of("controller demand signal", self.tail_demand_signal,
-                DEMAND_SIGNALS)
+        _reg.DEMAND_SIGNALS.get(self.demand_signal)
+        _reg.DEMAND_SIGNALS.get(self.tail_demand_signal)
 
 
 @dataclasses.dataclass(frozen=True)

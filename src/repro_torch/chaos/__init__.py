@@ -1,14 +1,15 @@
 """Declarative fault injection and dynamic fleet membership — port of
-``repro.chaos`` for the scan runtime.
+``repro.chaos`` for the scan runtime and the fleet event loop.
 
 A :class:`ChaosSpec` (``ScenarioConfig.chaos``) describes site flaps,
 regional outages, mid-run joins and a deterministic random-flap process;
 all of it reduces to one host-computed boolean liveness table
 (:func:`liveness_table`, numpy, bitwise the reference's).  The scan step
 masks dead sites end to end and gap-serves them from a
-:class:`ChaosCarry`; :func:`chaos_metrics` rolls a run into recovery and
-degradation numbers.  Chaos on the event loop is not ported yet
-(ROADMAP.md: queue 1, 'Event path').
+:class:`ChaosCarry`; the event loop gives a dead site no budget, sends
+nothing for it and lets its cloud gap-serve (``api/experiment.py::
+FleetRuntime``); :func:`chaos_metrics` rolls a run into recovery and
+degradation numbers.
 """
 from __future__ import annotations
 

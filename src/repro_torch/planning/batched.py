@@ -31,6 +31,8 @@ from repro_torch.kernels.stream_stats.ops import fleet_window_moments_xxt
 from repro_torch.planning.engine import PlanEngine, UnsupportedPlanConfig
 
 _INT_FIELDS = ("n_real", "n_imputed")
+_NP_DTYPES = {torch.int32: np.dtype(np.int32), torch.int64: np.dtype(np.int64),
+              torch.float32: np.dtype(np.float32)}
 
 
 @dataclasses.dataclass
@@ -74,8 +76,19 @@ class FleetPlan:
         return cls(**out)
 
     def to_numpy(self) -> dict:
-        return {f.name: getattr(self, f.name).cpu().numpy()
-                for f in dataclasses.fields(self)}
+        """Every field as a host numpy array, through one device-to-host
+        copy of all fields' bytes."""
+        fields = dataclasses.fields(self)
+        ts = [getattr(self, f.name).contiguous() for f in fields]
+        flat = torch.cat([t.reshape(-1).view(torch.uint8)
+                          for t in ts]).cpu().numpy()
+        out, off = {}, 0
+        for f, t in zip(fields, ts):
+            dt = _NP_DTYPES[t.dtype]
+            out[f.name] = np.frombuffer(flat, dt, t.numel(), off) \
+                .reshape(tuple(t.shape)).copy()
+            off += t.numel() * dt.itemsize
+        return out
 
 
 def fleet_plan(values: Tensor, counts: Tensor, budgets: Tensor,
@@ -187,15 +200,17 @@ class BatchedEngine(PlanEngine):
             raise UnsupportedPlanConfig(
                 self.name, "heterogeneous cost_per_sample is host-only")
 
-    def plan_fleet(self, values, counts, budgets, cfg, *, use_kernel=None,
-                   device=None) -> dict:
+    def plan_fleet(self, values, counts, budgets, cfg, *, window_id=0,
+                   use_kernel=None, device=None) -> dict:
+        """Host arrays (or tensors already on ``device``: the event loop
+        uploads each window once) in, the plan's host arrays out."""
         self.check(cfg)
         dev = resolve_device(device)
-        plan = self.run(torch.as_tensor(np.asarray(values, np.float32),
+        plan = self.run(torch.as_tensor(values, dtype=torch.float32,
                                         device=dev),
-                        torch.as_tensor(np.asarray(counts, np.int32),
+                        torch.as_tensor(counts, dtype=torch.int32,
                                         device=dev),
-                        torch.as_tensor(np.asarray(budgets, np.float32),
+                        torch.as_tensor(budgets, dtype=torch.float32,
                                         device=dev),
                         cfg, use_kernel=use_kernel)
         return plan.to_numpy()

@@ -70,6 +70,6 @@ class PlanEngine:
         this engine does not implement."""
 
     def plan_fleet(self, values, counts, budgets, cfg: PlannerConfig, *,
-                   use_kernel=None, device=None) -> dict:
+                   window_id: int = 0, use_kernel=None, device=None) -> dict:
         """(E, k, N) windows + per-site budgets -> host numpy plan arrays."""
         raise NotImplementedError

@@ -5,7 +5,10 @@ Scenarios select a runtime through the RUNTIMES registry:
 
   * ``"scan"`` / ``"scan_steps"`` — :class:`~repro_torch.runtime.scan.ScanRuntime`
     (one Python loop over the windows; the two names run the same loop).
-  * ``"event"`` and ``"scan_sharded"`` are not ported yet.
+  * ``"event"`` — the fleet event loop,
+    :class:`~repro_torch.api.experiment.FleetRuntime` (imported when
+    built: it lives beside the front door, as in the reference).
+  * ``"scan_sharded"`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -17,17 +20,26 @@ from repro_torch.runtime.scan import ScanRuntime
 from repro_torch.runtime.state import (ControllerState, RuntimeState,
                                        StreamTotals, init_state,
                                        state_from_numpy, state_to_numpy)
-from repro_torch.runtime.step import (SCAN_QUERIES, make_window_step,
-                                      sample_fleet)
+from repro_torch.runtime.step import (SCAN_QUERIES, draw_fleet_samples,
+                                      make_window_step, sample_fleet)
 
 __all__ = [
     "CtrlParams", "ControllerState", "RuntimeState", "StreamTotals",
     "ScanRuntime", "SCAN_QUERIES", "aggregate_fleet", "controller_budgets",
-    "controller_update", "init_state", "make_window_step", "sample_fleet",
+    "controller_update", "draw_fleet_samples", "event_runtime", "init_state",
+    "make_window_step", "sample_fleet",
     "state_from_numpy", "state_to_numpy", "water_fill",
 ]
 
+
+def event_runtime(**kwargs):
+    """``runtime="event"``: a :class:`~repro_torch.api.experiment.
+    FleetRuntime` built from ``kwargs``."""
+    from repro_torch.api.experiment import FleetRuntime
+    return FleetRuntime(**kwargs)
+
+
+RUNTIMES.register("event", event_runtime)
 RUNTIMES.register("scan", ScanRuntime)
 RUNTIMES.register("scan_steps", ScanRuntime)
-RUNTIMES.defer("event", "queue 1, 'Event path'")
 RUNTIMES.defer("scan_sharded", "queue 1, 'Sharding'")

@@ -22,6 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.adaptive import AdaptiveCarry, gate_update
 from repro_torch.chaos.carry import ChaosCarry
 from repro_torch.core.stats import blocked_sum, fma, ipow, recip
@@ -110,6 +111,18 @@ def sample_fleet(seed: int, wid: int, values, n_real):
     if values.shape[0] == 1:
         return _permutation_sample(base, values, n_real)
     return _fy_sample(threefry.fold_in(base, 0x5A), values, n_real)
+
+
+def draw_fleet_samples(seed: int, wid: int, values, n_real,
+                       device=None) -> np.ndarray:
+    """Host entry to :func:`sample_fleet` (the fleet event loop's
+    ``sampling="device"``): host arrays in (``values`` may also be a
+    tensor already on ``device``), host array out, drawn on ``device``;
+    bitwise the streams the scan consumes."""
+    dev = resolve_device(device)
+    v = torch.as_tensor(values, dtype=torch.float32, device=dev)
+    nr = torch.as_tensor(n_real, dtype=torch.int32, device=dev)
+    return sample_fleet(int(seed), int(wid), v, nr).cpu().numpy()
 
 
 def _impute(plan: FleetPlan, samples, n_real, *, multi: bool, mean: bool):

@@ -21,10 +21,11 @@ recorded exceptions on the CUDA kernels' path (the fused fit).
 class there (the class they meet beside the golden's, and why); such a
 scenario is held to the recorded class on that path only, and every
 ``--check`` line prints both classes.  ``KERNEL_PATH_REPORTS`` lists the
-scenarios whose counters differ between the reference's own two paths:
-where the fit is the fused one (``use_kernel=True``) they are held, in
-their golden's class, to the live reference's kernel path (its Pallas
-kernels in interpret mode, ``tests/torch_goldens/kernel_reports/``).  Counters are always bitwise.
+scenarios whose counters, or floats beyond the class the port is held to
+on that path, differ between the reference's own two paths: where the fit
+is the fused one (``use_kernel=True``) they are held, in that class, to
+the live reference's kernel path (its Pallas kernels in interpret mode,
+``tests/torch_goldens/kernel_reports/``).  Counters are always bitwise.
 A scenario the port cannot run yet is listed by name with the ROADMAP
 item that ports it ("not ported"); it is never counted as checked.
 """
@@ -63,9 +64,11 @@ _FUSED_FIT = ("with the kernels on, the cubic fit takes its normal "
               "f32, not to the last bit (ROADMAP.md queue 3, note e)")
 # the kernels' path only (use_kernel True, or None on a CUDA device)
 KERNEL_CLASS_GAPS = {
-    "single_scan": ClassGap("f32", "ulp", _FUSED_FIT),
-    "single_scan_steps": ClassGap("f32", "ulp", _FUSED_FIT),
-}
+    name: ClassGap("f32", "ulp", _FUSED_FIT)
+    for name in ("single_scan", "single_scan_steps",
+                 "fleet_event_adaptive_threshold",
+                 "fleet_event_batched_rebalance", "fleet_event_chaos_flap",
+                 "fleet_event_cost_aware_wan")}
 
 
 # the fused fit's path only (use_kernel True): held to the reference's own
@@ -76,6 +79,11 @@ KERNEL_PATH_REPORTS = {
         "reference's kernel path gives 1053064 WAN bytes, its CPU path "
         "1053280, and the port gives each on the same path (ROADMAP.md "
         "queue 3)"),
+    "fleet_event_adaptive_threshold": (
+        "the fused fit moves this golden's floats past f32 in the "
+        "reference itself (its counters agree): its kernel path gives a "
+        "worst-stream VAR NRMSE of 3.769237, its CPU path 3.769494 "
+        "(ROADMAP.md queue 3)"),
 }
 
 
@@ -128,9 +136,9 @@ def load_scenarios(directory: Path = SCENARIO_DIR) -> list[SweepScenario]:
 
 def not_ported(s: SweepScenario) -> Optional[str]:
     """The ROADMAP item that ports ``s``, or None when the port runs it."""
-    from repro_torch.api.experiment import check_scan_scenario
+    from repro_torch.api.experiment import check_scenario
     try:
-        check_scan_scenario(s.config)
+        check_scenario(s.config)
     except NotImplementedError as exc:
         m = re.search(r"ROADMAP\.md: (.*)\)", str(exc))
         return m.group(1) if m else str(exc)

@@ -108,9 +108,9 @@ def test_scenario_takes_a_chaos_spec_and_refuses_what_it_cannot_run():
     single = _golden("single_scan")
     with pytest.raises(ValueError, match="requires a fleet topology"):
         ScenarioConfig.from_dict(dict(single, chaos={"joins": [[1, 0]]}))
-    with pytest.raises(NotImplementedError, match="Event path"):
+    with pytest.raises(NotImplementedError, match="Sharding"):
         Experiment.from_scenario(ScenarioConfig.from_dict(
-            dict(d, runtime="event")), device="cpu")
+            dict(d, runtime="scan_sharded")), device="cpu")
 
 
 # ------------------------------------------------------------- controller

@@ -510,3 +510,52 @@ def test_cuda_sweep_over_the_committed_reports(cuda, use_kernel):
                             use_kernel=use_kernel, log=logged.append)
     assert code == 0, "\n".join(logged)
     assert "7 scenario(s) checked" in logged[-1]
+
+
+# ---- the fleet event loop on the card --------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_kernel", [None, True])
+def test_cuda_event_loop_matches_cpu(cuda, use_kernel):
+    """fleet_event_batched_rebalance (E = 6, k = 4, N = 64, 6 windows) on
+    the card and on the CPU with the same kernel setting: every integer
+    counter and the budget history bitwise, and the fleet kernels launched
+    once a window each for values and ranks (Spearman), plus polyfit once
+    a window with the fused fit."""
+    import json
+    import pathlib
+    import numpy as np
+    from repro_torch.api.experiment import Experiment
+    from repro_torch.api.scenario import ScenarioConfig
+    path = (pathlib.Path(__file__).parent / "goldens" / "scenarios"
+            / "fleet_event_batched_rebalance.json")
+    sc = ScenarioConfig.from_dict(json.loads(path.read_text())["scenario"])
+    cpu = Experiment.from_scenario(sc, use_kernel=use_kernel, device="cpu")
+    windows = cpu.make_windows()
+    r_cpu = cpu.run(windows)
+    before = (ss_ops.LAUNCHES, poly_ops.LAUNCHES)
+    r_card = Experiment.from_scenario(sc, use_kernel=use_kernel,
+                                      device=cuda).run(windows)
+    t = len(windows)
+    assert (ss_ops.LAUNCHES - before[0], poly_ops.LAUNCHES - before[1]) == (
+        2 * t, t if use_kernel else 0)
+    for f in ("wan_bytes", "full_bytes", "gaps", "revisions", "late_drops",
+              "duplicates", "retransmits", "plan_windows"):
+        assert r_card.raw[f] == r_cpu.raw[f], f
+    assert r_card.raw["wan_bytes"] == 10816
+    assert np.array_equal(r_card.raw["budget_history"],
+                          r_cpu.raw["budget_history"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_kernel", [False, None, True])
+def test_cuda_sweep_over_the_event_goldens(cuda, use_kernel):
+    """The four fleet event goldens on the card against
+    tests/torch_goldens: no drift (on the fused fit's path held to the
+    runner's recorded classes and kernel-path reports)."""
+    from repro_torch.sweep import runner
+    logged = []
+    code = runner.run_sweep(pattern="fleet_event", device="cuda",
+                            use_kernel=use_kernel, log=logged.append)
+    assert code == 0, "\n".join(logged)
+    assert "4 scenario(s) checked" in logged[-1]

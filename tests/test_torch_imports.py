@@ -57,7 +57,9 @@ def test_importing_the_port_leaves_jax_and_repro_out():
             "repro_torch.adaptive.policy", "repro_torch.chaos",
             "repro_torch.chaos.spec", "repro_torch.chaos.carry",
             "repro_torch.chaos.metrics", "repro_torch.ckpt",
-            "repro_torch.ckpt.checkpoint"} <= set(res["mods"])
+            "repro_torch.ckpt.checkpoint", "repro_torch.streaming",
+            "repro_torch.streaming.events", "repro_torch.streaming.runtime",
+            "repro_torch.fleet.controller"} <= set(res["mods"])
     assert res["bad"] == []
     assert res["libs"] == [] and res["built"] == []
 

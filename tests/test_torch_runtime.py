@@ -138,10 +138,13 @@ def test_resume_from_reference_carry(windows, reference):
 
 
 @pytest.mark.parametrize("change,item", [
-    ({"runtime": "event"}, "Event path"),
+    ({"runtime": "event", "planner": dict(SCENARIO["planner"],
+                                          engine="host")}, "Event path"),
     ({"runtime": "scan_sharded"}, "Sharding"),
-    ({"runtime": "event", "adaptive": {"detector": "always"}}, "Event path"),
-    ({"runtime": "event", "chaos": {"joins": [[2, 0]]}}, "Event path"),
+    ({"runtime": "event", "adaptive": {"detector": "always"},
+      "planner": dict(SCENARIO["planner"], solver="slsqp")}, "Event path"),
+    ({"runtime": "event", "chaos": {"joins": [[2, 0]]}, "method": "srs"},
+     "Event path"),
     ({"method": "srs"}, "Event path"),
     ({"planner": dict(SCENARIO["planner"], solver="ipm")}, "Event path"),
     ({"planner": dict(SCENARIO["planner"], engine="sharded")}, "Sharding"),
