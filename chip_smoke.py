@@ -88,11 +88,23 @@ Phases, one JSON line each; any failed check exits non-zero:
      bitwise the scan's;
  18. phase 16's scenario with the plain versions on the card, held
      against the kernels (WAN bytes within 0.1%, AVG NRMSE within 1%);
- 19. the kernels line, then ``{"ok": true, "device": {...}}`` last.
+ 19. slice 11's single-edge event path: one edge gateway (``turbine``,
+     k = 8 streams, windows of N = 4096 tuples, ``SINGLE_EVENT["T"]``
+     generated windows) planned by the host planner with
+     ``single_event_cubic``'s planner (cubic, Spearman, k-SE, the f64
+     IPM, budget 0.3) on ``single_event_retransmit``'s WAN (drops 0.5,
+     3 retries at 150 ms) with a fixed straggler rule: windows/sec, the
+     plan's seconds a window split into the card's part (statistics,
+     fit, epsilon, permutations, one read) and the host's (the IPM and
+     rounding), Newton steps a window, the WAN counters, NRMSE and peak
+     memory; the window statistics on the card, rows 1 and 2 launched 0
+     times, and the same run on the CPU bitwise in every window's
+     allocation, every counter and every NRMSE;
+ 20. the kernels line, then ``{"ok": true, "device": {...}}`` last.
 
-Phase 12's sweep also runs the four fleet event goldens (eleven goldens
-in all), their counters held also against the live reference's
-(``EVENT_REF``).
+Phase 12's sweep also runs the four fleet event goldens and the five
+single-edge event goldens (sixteen goldens in all), their counters held
+also against the live reference's (``EVENT_REF``).
 
 Detailed profiles go to ``chiprun_out/``.
 """
@@ -163,7 +175,23 @@ EVENT_REF = {"fleet_event_batched_rebalance": {"wan_bytes": 10816,
                                             "retransmits": 0},
              "fleet_event_adaptive_threshold": {"wan_bytes": 21264,
                                                 "planner_invocations": 6},
-             "fleet_event_chaos_flap": {"wan_bytes": 10412, "gaps": 3}}
+             "fleet_event_chaos_flap": {"wan_bytes": 10412, "gaps": 3},
+             # slice 11: the five single-edge event goldens (the reference's
+             # IPM run with the x64 workaround of the port's tests)
+             **{name: dict(zip(("wan_bytes", "gaps", "revisions",
+                                "late_drops", "duplicates", "retransmits"),
+                               counters))
+                for name, counters in (
+                    ("single_event_cubic", (4662, 0, 0, 0, 0, 0)),
+                    ("single_event_retransmit", (10878, 1, 0, 0, 0, 4)),
+                    ("single_event_drop_gaps", (1554, 4, 0, 1, 0, 0)),
+                    ("single_event_jitter_bandwidth", (2496, 0, 0, 0, 0, 0)),
+                    ("single_event_latency_revise", (3736, 0, 4, 0, 0, 0)))}}
+# slice 11: one edge gateway on the host planner (turbine, k = 8, N = 4096,
+# T generated windows) with single_event_cubic's planner and
+# single_event_retransmit's WAN; a fixed rule zeroes ~8% of the counts
+SINGLE_EVENT = {"k": 8, "window": 4096, "T": 50, "seed": 21,
+                "straggle_mod": 13}
 # the fleet event path: the main path's fleet, planner and windows on the
 # WAN of fleet_event_cost_aware_wan (heterogeneous links, latency_scale 1,
 # 30 ms jitter, 10% drops, a 100 ms period, link-cost-aware controller),
@@ -654,12 +682,17 @@ def main() -> int:
         k, N, MAIN["n_regions"], MAIN["sites_per_region"],
         MAIN["pool"] * N), card_line)
 
-    # ---- 19. the kernels line and the result -----------------------------
-    # launches: rows 1 and 2 on the four runtime paths driven with the
-    # counts at 0 (main_path, adaptive_path, chaos_path, event_path), rows
-    # 3 and 4 on the kernel entry points
+    # ---- 19. slice 11: the single-edge event path on the host planner -----
+    single_event = single_event_path(torch, card_line)
+
+    # ---- 20. the kernels line and the result -----------------------------
+    # launches: rows 1 and 2 on the five runtime paths driven with the
+    # counts at 0 (main_path, adaptive_path, chaos_path, event_path, and
+    # single_event_path, which launches neither), rows 3 and 4 on the
+    # kernel entry points
     by_path = {n: ({"main_path": launches[n], "adaptive_path": adaptive[n],
-                    "chaos_path": chaos[n], "event_path": event[n]}
+                    "chaos_path": chaos[n], "event_path": event[n],
+                    "single_event_path": single_event[n]}
                    if n in adaptive else {"kernel_entry_points": launches[n]})
                for n in KERNELS}
     emit({"kernels": [dict(name=n, route="cuda", source=KERNELS[n][0],
@@ -1060,8 +1093,9 @@ def single_edge_phases(torch, dev) -> None:
 
 
 def golden_sweep_phase(torch) -> None:
-    """Phase 12: the port's sweep on the card over the eleven goldens it
-    runs (seven scan, four fleet event), with the kernels (each golden of
+    """Phase 12: the port's sweep on the card over the sixteen goldens it
+    runs (seven scan, four fleet event, five single-edge event), with the
+    kernels (each golden of
     the runner's ``KERNEL_CLASS_GAPS`` held to its recorded f32 class) and
     with the plain versions (every golden in its own class), against the
     committed port-owned reports.  Any drift raises."""
@@ -1119,7 +1153,7 @@ def golden_sweep_phase(torch) -> None:
     emit({"phase": "golden_sweep_seconds",
           "seconds": time.perf_counter() - t0, "checked": len(scen),
           "not_ported": skipped})
-    if len(scen) != 11 or bad:
+    if len(scen) != 16 or bad:
         raise AssertionError(f"golden sweep on the card: {len(scen)} "
                              f"scenarios checked, drifts in {bad}")
 
@@ -1508,6 +1542,134 @@ def event_phases(torch, windows, scenario: dict, card_line: str) -> dict:
                              f"NRMSE rel {d_avg}, WAN bytes rel {d_wan}")
     emit({"phase": "event_phases_seconds", "card": card_line,
           "seconds": time.perf_counter() - t_all})
+    return launches
+
+
+def _single_straggler(wid: int, stream: int) -> bool:
+    """The single-edge event path's fixed straggler rule (~8% of counts)."""
+    return (wid * 5 + stream) % SINGLE_EVENT["straggle_mod"] == 0
+
+
+def single_event_path(torch, card_line: str) -> dict:
+    """Phase 19: one edge gateway on the host planner, on the card and
+    then on the CPU.  Returns the launches of rows 1 and 2 in the card's
+    run (both 0: the host planner's statistics and fit are the plain
+    versions).  Every check raises."""
+    import numpy as np
+    from repro_torch.api.experiment import Experiment
+    from repro_torch.api.scenario import ScenarioConfig
+    from repro_torch.core import stats as stats_mod
+    from repro_torch.kernels.polyfit import ops as poly_ops
+    from repro_torch.kernels.stream_stats import ops as ss_ops
+    t_all = time.perf_counter()
+    T, N = SINGLE_EVENT["T"], SINGLE_EVENT["window"]
+    d = dict(scenario_dict("single_event_cubic"),
+             data={"dataset": "turbine", "n_points": T * N, "window": N,
+                   "seed": SINGLE_EVENT["seed"],
+                   "options": {"k": SINGLE_EVENT["k"]}},
+             transport=scenario_dict("single_event_retransmit")["transport"])
+    sc = ScenarioConfig.from_dict(d)
+
+    def experiment(device):
+        return Experiment.from_scenario(sc, straggler_drop=_single_straggler,
+                                        device=device)
+
+    t0 = time.perf_counter()
+    windows = experiment("cpu").make_windows()
+    data_s = time.perf_counter() - t0
+    experiment("cuda").run(windows[:1])          # warm-up
+
+    def run(device):
+        """One run; its per-window allocations and where its statistics
+        lay."""
+        ex = experiment(device)
+        allocs, where = [], set()
+        plan = ex.runtime.edge.process_window
+
+        def spy(batch):
+            payload = plan(batch)
+            allocs.append((payload.n_real.copy(), payload.n_imputed.copy()))
+            return payload
+
+        window_stats = stats_mod.window_stats
+
+        def stats_spy(values, counts, dependence="pearson"):
+            out = window_stats(values, counts, dependence)
+            where.add(out.mean.device.type)
+            return out
+
+        ex.runtime.edge.process_window = spy
+        stats_mod.window_stats = stats_spy
+        try:
+            rep = ex.run(windows)
+        finally:
+            stats_mod.window_stats = window_stats
+        return rep, allocs, where
+
+    ss_ops.LAUNCHES = 0
+    poly_ops.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    rep, allocs, where = run("cuda")
+    torch.cuda.synchronize()
+    launches = {"stream_stats_fleet": ss_ops.LAUNCHES,
+                "polyfit": poly_ops.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    raw = rep.raw
+    k = SINGLE_EVENT["k"]
+    straggled = sum(_single_straggler(w, i) for w in range(T)
+                    for i in range(k))
+    emit({"phase": "single_event_path", "card": card_line, "k": k, "N": N,
+          "T": T, "data_seconds": data_s,
+          "windows_per_sec": raw["windows_per_sec"],
+          "run_seconds": raw["run_seconds"],
+          "plan_s_per_window": raw["plan_seconds"] / T,
+          "card_s_per_window": raw["device_seconds"] / T,
+          "host_solve_s_per_window": raw["solve_seconds"] / T,
+          "newton_steps_per_window": raw["newton_steps"] / T,
+          "statistics_on": sorted(where), "launches": launches,
+          "straggled_counts_share": straggled / (T * k),
+          "wan_bytes": rep.wan_bytes, "full_bytes": rep.full_bytes,
+          "wan_fraction": rep.wan_fraction, "gaps": rep.gaps,
+          "revisions": rep.revisions, "late_drops": rep.late_drops,
+          "duplicates": rep.duplicates, "retransmits": rep.retransmits,
+          "freshness_ms": rep.freshness_ms, "nrmse": rep.nrmse,
+          "nrmse_at_query": rep.nrmse_at_query, "peak_mem_bytes": peak})
+    if launches != {"stream_stats_fleet": 0, "polyfit": 0}:
+        raise AssertionError(f"single-edge event path launched {launches}; "
+                             f"the host planner runs no kernel")
+    if where != {"cuda"}:
+        raise AssertionError(f"window statistics on {where}, want cuda")
+    finite = (all(np.isfinite(v) for v in rep.nrmse.values())
+              and all(np.isfinite(t).all()
+                      for t in rep.nrmse_per_stream.values()))
+    if not finite or not 0 < rep.wan_bytes < rep.full_bytes \
+            or len(allocs) != T:
+        raise AssertionError(f"single-edge event path output out of range: "
+                             f"nrmse {rep.nrmse}, wan {rep.wan_bytes} of "
+                             f"{rep.full_bytes}, {len(allocs)} plans")
+
+    # the same run on the CPU: every allocation, counter and NRMSE
+    rep_c, allocs_c, where_c = run("cpu")
+    counters = ("wan_bytes", "full_bytes", "gaps", "revisions",
+                "late_drops", "duplicates", "retransmits")
+    same = {"allocations": len(allocs) == len(allocs_c) and all(
+                np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                for a, b in zip(allocs, allocs_c)),
+            "newton_steps": rep.raw["newton_steps"]
+            == rep_c.raw["newton_steps"],
+            **{c: rep.raw[c] == rep_c.raw[c] for c in counters},
+            **{f"nrmse_per_stream/{q}": bool(np.array_equal(
+                rep.nrmse_per_stream[q], rep_c.nrmse_per_stream[q],
+                equal_nan=True)) for q in rep.nrmse_per_stream}}
+    emit({"phase": "single_event_cpu_parity", "card": card_line, "T": T,
+          "bitwise": same, "statistics_on_cpu_run": sorted(where_c),
+          "cpu_windows_per_sec": rep_c.raw["windows_per_sec"],
+          "cpu_plan_s_per_window": rep_c.raw["plan_seconds"] / T,
+          "cpu_host_solve_s_per_window": rep_c.raw["solve_seconds"] / T,
+          "seconds": time.perf_counter() - t_all})
+    if not all(same.values()):
+        raise AssertionError(f"single-edge event path: card and CPU differ: "
+                             f"{same}")
     return launches
 
 

@@ -18,10 +18,17 @@ never into the reports, so a report changes only when a number does.
 The port's sweep (``python -m repro_torch.sweep``) diffs against these
 files and never writes them.  This script imports the JAX package, so it
 lives outside the port.
+
+The reference's IPM solver (every ``single_event_*`` golden) calls
+``jax.experimental.enable_x64``, which JAX 0.9 no longer has; each
+reference run is made with that name pointed at ``jax.enable_x64`` and
+the name removed again afterwards (:func:`x64_workaround`).  Nothing in
+the reference is edited.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import datetime
 import json
 import subprocess
@@ -38,6 +45,22 @@ def ported_goldens() -> list:
     return [s for s in load_scenarios() if not_ported(s) is None]
 
 
+@contextlib.contextmanager
+def x64_workaround():
+    """``jax.experimental.enable_x64`` for the reference's IPM, where the
+    installed JAX lacks it, for the body of the ``with`` only."""
+    import jax
+    import jax.experimental
+    missing = not hasattr(jax.experimental, "enable_x64")
+    if missing:
+        jax.experimental.enable_x64 = jax.enable_x64
+    try:
+        yield
+    finally:
+        if missing:
+            del jax.experimental.enable_x64
+
+
 def reference_report(name: str, kernels: bool = False) -> dict:
     """The live reference's serialized report of golden ``name``; with
     ``kernels``, of its kernel path (Pallas in interpret mode)."""
@@ -46,7 +69,8 @@ def reference_report(name: str, kernels: bool = False) -> dict:
     from repro.sweep.runner import SCENARIO_DIR, load_scenario_file
     s = load_scenario_file(SCENARIO_DIR / f"{name}.json")
     opts = {"use_kernel": True, "interpret": True} if kernels else {}
-    report = Experiment.from_scenario(s.config, **opts).run()
+    with x64_workaround():
+        report = Experiment.from_scenario(s.config, **opts).run()
     return serialize_report(report, name=s.name, tolerance=s.tolerance)
 
 

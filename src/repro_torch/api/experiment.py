@@ -7,10 +7,12 @@ scenario's windows and returns a :class:`RunReport`:
   * ``runtime="scan"`` / ``"scan_steps"`` — the scan runtime
     (:class:`~repro_torch.runtime.scan.ScanRuntime`), a fleet or one edge,
     on a zero-latency WAN;
-  * ``runtime="event"`` — :class:`FleetRuntime`, a fleet (E > 1) on the
-    WAN event clock: per-link latency, jitter, drops, bandwidth and
-    retransmits, late payloads that revise served answers, stragglers,
-    the host budget controller, adaptive re-planning and chaos.
+  * ``runtime="event"`` on the WAN event clock (per-link latency, jitter,
+    drops, bandwidth and retransmits, late payloads that revise served
+    answers, stragglers): :class:`SingleEdgeRuntime` for one edge (no
+    topology, or a one-site one whose link gives the WAN), planned by the
+    host planner; :class:`FleetRuntime` for a fleet (E > 1), with the host
+    budget controller, adaptive re-planning and chaos.
 
 ``device=None`` means the GPU; with no CUDA device it raises rather than
 running on the CPU.  Scenarios the port cannot run yet raise
@@ -25,13 +27,131 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+import repro_torch.core.planner  # noqa: F401  — fills MODELS, SOLVERS, ...
 from repro_torch import resolve_device
-from repro_torch.api.registry import (DATASETS, ENGINES, MODELS, QUERIES,
-                                      RUNTIMES)
+from repro_torch.api.registry import (DATASETS, DEPENDENCE, ENGINES,
+                                      EPSILON_POLICIES, MODELS, QUERIES,
+                                      RUNTIMES, SOLVERS, not_ported)
 from repro_torch.api.scenario import ControllerSpec, ScenarioConfig
 from repro_torch.core import queries as Q
 from repro_torch.core.reconstruct import reconstruct_window
 from repro_torch.core.types import EdgePayload, PlannerConfig
+
+
+# ==========================================================================
+# single-edge runtime (one edge, one uplink, one cloud)
+# ==========================================================================
+
+@dataclasses.dataclass
+class SingleEdgeRuntime:
+    """Event-driven edge -> WAN -> cloud run on a virtual clock.
+
+    Window ``wid`` closes at the edge at ``wid * window_period_ms``; its
+    query is answered one period later from whatever has arrived.  A
+    payload landing after its due time but within
+    ``staleness_deadline_ms`` revises the emitted answer (``revisions``;
+    ``nrmse`` scores the revised table, ``nrmse_at_query`` what was
+    served on time); past the deadline the cloud keeps serving stale and
+    counts a gap.  A plain ``Transport`` or ``CloudNode`` is upgraded to
+    the event clock's, and the cloud's counters are mirrored back after
+    ``run``.  The edge plans on its device; the link, the cloud, the
+    reconstruction and the queries are host numpy.
+    """
+
+    edge: "EdgeNode"
+    cloud: "CloudNode"
+    transport: "Transport"
+    window_period_ms: float = 1000.0
+    staleness_deadline_ms: Optional[float] = None
+
+    def __post_init__(self):
+        from repro_torch.streaming import AsyncTransport, ReorderCloudNode
+        if not isinstance(self.transport, AsyncTransport):
+            self.transport = AsyncTransport.from_transport(self.transport)
+        self._user_cloud = None
+        if not isinstance(self.cloud, ReorderCloudNode):
+            self._user_cloud = self.cloud
+            self.cloud = ReorderCloudNode(query_names=self.cloud.query_names)
+        self.cloud.window_period_ms = self.window_period_ms
+        if self.staleness_deadline_ms is not None:
+            self.cloud.deadline_ms = self.staleness_deadline_ms
+
+    def run(self, windows: list) -> dict:
+        from repro_torch.runtime.report import freshness_percentiles
+        k = windows[0].k
+        T = len(windows)
+        qnames = self.cloud.query_names
+        period = self.window_period_ms
+        est = {q: np.full((T, k), np.nan) for q in qnames}       # revised
+        est_q = {q: np.full((T, k), np.nan) for q in qnames}     # at query
+        tru = {q: np.full((T, k), np.nan) for q in qnames}
+        ages = np.full(T, np.nan)
+        revised = np.zeros(T, bool)
+
+        def _record(wid, rec, tables):
+            res = self.cloud.query(rec)
+            for q in qnames:
+                row = res.get(q, [])
+                vals = np.asarray(row) if len(row) == k else np.full(k, np.nan)
+                for tbl in tables:
+                    tbl[q][wid] = vals
+
+        def _apply(outcome):
+            if outcome.kind == "revised":
+                _record(outcome.window_id, outcome.reconstruction, (est,))
+                revised[outcome.window_id] = True
+
+        t_run = time.perf_counter()
+        for wid, w in enumerate(windows):
+            now = wid * period
+            q_time = now + period
+            payload = self.edge.process_window(w)
+            payload = dataclasses.replace(payload, sent_at_ms=now)
+            self.transport.send(payload, now_ms=now)
+            for ev in self.transport.drain(q_time):
+                _apply(self.cloud.ingest_event(ev.payload, now_ms=ev.at_ms))
+            rec, age, _ = self.cloud.serve(wid, q_time)
+            _record(wid, rec, (est, est_q))
+            ages[wid] = age
+            full = [np.asarray(w.values[i, : int(w.counts[i])])
+                    for i in range(k)]
+            _record(wid, full, (tru,))
+
+        # in-flight payloads may still land within the deadline and revise
+        for ev in self.transport.drain(float("inf")):
+            _apply(self.cloud.ingest_event(ev.payload, now_ms=ev.at_ms))
+        self.cloud.finalize(T)
+        run_seconds = time.perf_counter() - t_run
+        if self._user_cloud is not None:
+            self._user_cloud.gaps = self.cloud.gaps
+            self._user_cloud.windows_seen = self.cloud.windows_seen
+            self._user_cloud.last_reconstruction = \
+                self.cloud.last_reconstruction
+
+        nrmse = {q: Q.nrmse_table(est[q].T, tru[q].T) for q in qnames}
+        nrmse_q = {q: Q.nrmse_table(est_q[q].T, tru[q].T) for q in qnames}
+        total_tuples = int(sum(int(np.sum(w.counts)) for w in windows))
+        return {
+            "nrmse": nrmse,
+            "nrmse_at_query": nrmse_q,
+            "wan_bytes": self.transport.bytes_sent,
+            "wan_cost": float(self.transport.bytes_cost),
+            "full_bytes": total_tuples * 4,
+            "plan_seconds": self.edge.plan_seconds,
+            "gaps": self.cloud.gaps,
+            "revisions": self.cloud.revisions,
+            "late_drops": self.cloud.late_drops,
+            "duplicates": self.cloud.duplicates,
+            "retransmits": getattr(self.transport, "retransmits", 0),
+            "window_age_ms": ages,
+            "revised_windows": revised,
+            "freshness_ms": freshness_percentiles(ages),
+            "device_seconds": self.edge.device_seconds,
+            "solve_seconds": self.edge.solve_seconds,
+            "newton_steps": self.edge.newton_steps,
+            "run_seconds": run_seconds,
+            "windows_per_sec": T / max(run_seconds, 1e-9),
+        }
 
 
 # ==========================================================================
@@ -440,11 +560,6 @@ def _report_fleet(scenario, r: dict, n_sites: int) -> RunReport:
         raw=r)
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to repro_torch yet "
-                               f"(ROADMAP.md: queue 1, {item!r})")
-
-
 def check_scan_scenario(scenario: ScenarioConfig) -> None:
     """Reject what the port cannot run yet, and what the scan runtime can
     never honor (WAN timing it does not model)."""
@@ -452,7 +567,7 @@ def check_scan_scenario(scenario: ScenarioConfig) -> None:
     RUNTIMES.get(scenario.runtime)
     if scenario.method != "model":
         if scenario.method not in MODELS:
-            raise _not_ported(f"baseline method {scenario.method!r}",
+            raise not_ported(f"baseline method {scenario.method!r}",
                               "Event path")
         if scenario.is_fleet:
             raise ValueError("the fleet scan plans with planner.model; set "
@@ -483,19 +598,32 @@ def check_scan_scenario(scenario: ScenarioConfig) -> None:
 
 
 def check_event_scenario(scenario: ScenarioConfig) -> None:
-    """Reject what the port's event loop cannot run yet: one edge (the
-    single-edge half of the event path), baseline methods, the host and
-    sharded engines, host-only solvers and queries."""
+    """Reject what the port's event loops cannot run yet: baseline
+    methods, MEDIAN, thinning and m-dependence, the fleet host engines,
+    sharding.  One edge plans as the reference's ``plan_window`` routes
+    it: the host planner for ``engine`` None, "host" or "host_loop",
+    else that engine's E = 1 pass."""
     RUNTIMES.get(scenario.runtime)
     if scenario.method != "model" and scenario.method not in MODELS:
-        raise _not_ported(f"baseline method {scenario.method!r}",
-                          "Event path")
-    if not scenario.is_fleet:
-        raise _not_ported("the single-edge event loop", "Event path")
+        raise not_ported(f"baseline method {scenario.method!r}",
+                         "Event path")
     DATASETS.get(scenario.data.dataset)
     for q in scenario.queries:
         QUERIES.get(q)
-    ENGINES.get(scenario.planner.engine or "batched").check(scenario.planner)
+    planner = scenario.planner
+    if scenario.is_fleet:
+        ENGINES.get(planner.engine or "batched").check(planner)
+        return
+    if planner.engine not in (None, "host", "host_loop"):
+        import repro_torch.planning  # noqa: F401  — fills ENGINES
+        ENGINES.get(planner.engine).check(planner)
+        return
+    if planner.iid_mode in ("thinning", "m_dependence"):
+        raise not_ported(f"iid_mode {planner.iid_mode!r}", "Event path")
+    SOLVERS.get(planner.solver)
+    MODELS.get(planner.model)
+    EPSILON_POLICIES.get(planner.epsilon_policy)
+    DEPENDENCE.get(planner.dependence)
 
 
 def check_scenario(scenario: ScenarioConfig) -> None:
@@ -511,12 +639,13 @@ class Experiment:
     """One runnable experiment, built declaratively from a scenario.
 
     ``straggler_drop`` is the one knob that is not serializable: a
-    callable ``(wid, site, stream) -> bool`` that zeroes a stream's count
-    in a window (the event loop only).
+    callable ``(wid, stream) -> bool`` (one edge) or ``(wid, site,
+    stream) -> bool`` (a fleet) that zeroes a stream's count in a window
+    (the event loops only).
     """
 
     scenario: ScenarioConfig
-    runtime: object                    # ScanRuntime | FleetRuntime
+    runtime: object          # ScanRuntime | SingleEdgeRuntime | FleetRuntime
 
     @classmethod
     def from_scenario(cls, scenario: ScenarioConfig, *,
@@ -532,6 +661,10 @@ class Experiment:
             raise ValueError("runtime='scan' plans full windows only; "
                              "straggler_drop needs runtime='event'")
         check_scenario(scenario)
+        if scenario.runtime == "event" and not scenario.is_fleet:
+            return cls(scenario=scenario,
+                       runtime=cls._single_edge(scenario, straggler_drop,
+                                                dev))
         if scenario.runtime == "event":
             tspec = scenario.transport
             topo = scenario.topology.build(cls._fleet_k(scenario))
@@ -554,6 +687,37 @@ class Experiment:
         runtime = ScanRuntime.from_scenario(scenario, use_kernel=use_kernel,
                                             collect=collect, device=dev)
         return cls(scenario=scenario, runtime=runtime)
+
+    @staticmethod
+    def _single_edge(scenario: ScenarioConfig, straggler_drop,
+                     device) -> SingleEdgeRuntime:
+        """One edge, one uplink, one cloud: the E = 1 degenerate fleet.  A
+        one-site topology contributes its link's WAN character; otherwise
+        the transport spec describes the uplink."""
+        from repro_torch.streaming import AsyncTransport, CloudNode, EdgeNode
+        tspec = scenario.transport
+        drop, cost, lat, jit = (tspec.drop_prob, 1.0, tspec.latency_ms,
+                                tspec.jitter_ms)
+        bandwidth = tspec.bandwidth_bytes_per_ms
+        if scenario.topology is not None:
+            link = scenario.topology.build(1).sites[0].link
+            drop, cost, lat, jit = (link.drop_prob, link.cost_per_byte,
+                                    link.latency_ms, link.jitter_ms)
+            bandwidth = link.bandwidth_bytes_per_ms
+        return SingleEdgeRuntime(
+            edge=EdgeNode(cfg=scenario.planner,
+                          budget_fraction=scenario.budget_fraction,
+                          method=scenario.method,
+                          straggler_drop=straggler_drop, device=device),
+            cloud=CloudNode(query_names=tuple(scenario.queries)),
+            transport=AsyncTransport(
+                drop_prob=drop, seed=scenario.planner.seed,
+                cost_per_byte=cost, latency_ms=lat, jitter_ms=jit,
+                bandwidth_bytes_per_ms=bandwidth,
+                retransmit_timeout_ms=tspec.retransmit_timeout_ms,
+                max_retries=tspec.max_retries),
+            window_period_ms=tspec.window_period_ms,
+            staleness_deadline_ms=tspec.staleness_deadline_ms)
 
     @staticmethod
     def _fleet_k(scenario: ScenarioConfig) -> int:
@@ -600,6 +764,16 @@ class Experiment:
         carry (the event loop keeps none)."""
         if windows is None:
             windows = self.make_windows()
+        if isinstance(self.runtime, SingleEdgeRuntime):
+            if state is not None:
+                raise ValueError("the event loop keeps no carry to resume; "
+                                 "state= resumes runtime='scan'")
+            if n_windows is not None:
+                # a cycled pool: each window keeps its place on the clock
+                windows = [dataclasses.replace(windows[t % len(windows)],
+                                               window_id=t)
+                           for t in range(int(n_windows))]
+            return _report_single(self.scenario, self.runtime.run(windows))
         if isinstance(self.runtime, FleetRuntime):
             if state is not None:
                 raise ValueError("the event loop keeps no carry to resume; "

@@ -31,6 +31,13 @@ class UnknownComponentError(KeyError):
         return self.args[0]
 
 
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error for a reference feature the port has not ported: it names
+    the ROADMAP item (queue 1) that ports it."""
+    return NotImplementedError(f"{what} is not ported to repro_torch yet "
+                               f"(ROADMAP.md: queue 1, {item!r})")
+
+
 class Registry:
     """Name -> component mapping with decorator registration."""
 
@@ -94,6 +101,7 @@ class Registry:
 #                                                 | mvn | fleet)
 #   DEMAND_SIGNALS    repro_torch.fleet.controller (obs_err | pred_err
 #                                                 | max_err)
+#   SOLVERS           repro_torch.core.solver    (ipm | slsqp | closed_form)
 #   ENGINES           repro_torch.planning       (batched)
 #   RUNTIMES          repro_torch.runtime        (event | scan | scan_steps)
 #   DRIFT_DETECTORS   repro_torch.adaptive.drift (threshold | page_hinkley
@@ -106,6 +114,7 @@ DEPENDENCE = Registry("dependence measure")
 QUERIES = Registry("query")
 DATASETS = Registry("dataset")
 DEMAND_SIGNALS = Registry("controller demand signal")
+SOLVERS = Registry("solver")
 ENGINES = Registry("plan engine")
 RUNTIMES = Registry("runtime")
 DRIFT_DETECTORS = Registry("drift detector")

@@ -37,6 +37,39 @@ def _unbiased(total: Tensor, n: Tensor) -> Tensor:
     return total / torch.clamp(n - 1.0, min=1.0)
 
 
+# the longest contraction the compiled X^T X of a window (or a fleet)
+# sums as one chain; a longer one is split in halves until every part is
+# at most this long, each part one chain, the parts added left to right
+# (checked at N = 400, 448, 500, 512, 800 and 1024; not reproduced at
+# 1000, 2000 or 4096)
+XTX_CHAIN = 384
+
+
+def _normal_equations(ft: Tensor, yw: Tensor, one: bool):
+    """X^T X + ridge and X^T y of (..., 4, N) features in the order the
+    reference's compiled dots sum them: one site's (the site axis
+    squeezed away) in four chains and eight; otherwise one chain each,
+    X^T X split as :data:`XTX_CHAIN` says."""
+    eye = torch.eye(4, dtype=ft.dtype, device=ft.device)
+    n = ft.shape[-1]
+    if one:
+        xtx = lane_sum(ft[..., :, None, :], ft[..., None, :, :], 4)
+    else:
+        parts = 1
+        while -(-n // parts) > XTX_CHAIN:
+            parts *= 2
+        step = -(-n // parts)
+        # the parts' chains run side by side; zeros padded to the end of
+        # the last one leave its sum as it is
+        fp = torch.nn.functional.pad(ft, (0, parts * step - n))
+        fp = fp.reshape(*ft.shape[:-1], parts, step).movedim(-2, 0)
+        sums = lane_sum(fp[..., :, None, :], fp[..., None, :, :], 1)
+        xtx = sums[0]
+        for part in sums[1:]:
+            xtx = xtx + part
+    return xtx + _RIDGE * eye, lane_sum(ft, yw[..., None, :], 8 if one else 1)
+
+
 def _fit_one(y: Tensor, x_pred: Tensor, pair_mask: Tensor, degree: int):
     """LSQ fit of y ~ poly(x_pred) over co-valid positions, batched over
     leading dims.  Returns (coeffs (..., 4), loc, scale, explained_var).
@@ -58,12 +91,8 @@ def _fit_one(y: Tensor, x_pred: Tensor, pair_mask: Tensor, degree: int):
     scale = sqrt(torch.clamp(var_p, min=1e-12))
     u = (x_pred - loc[..., None]) / scale[..., None]
     f = _features(u, degree) * w[..., None]
-    ft = f.transpose(-1, -2)
-    eye = torch.eye(4, dtype=f.dtype, device=f.device)
     one = y.dim() == 3 and y.shape[0] == 1
-    xtx = lane_sum(ft[..., :, None, :], ft[..., None, :, :],
-                    4 if one else 1) + _RIDGE * eye
-    xty = lane_sum(ft, (y * w)[..., None, :], 8 if one else 1)
+    xtx, xty = _normal_equations(f.transpose(-1, -2), y * w, one)
     coeffs = lu_solve4(xtx, xty)
     fitted = fma_chain(f, coeffs[..., None, :])
     mean_fit = blocked_sum(fitted * w) / n
@@ -182,11 +211,10 @@ def _fit_one_multi(y: Tensor, xp: Tensor, xq: Tensor, pair_mask: Tensor):
     u, loc_u, sc_u = std(xp)
     v, loc_v, sc_v = std(xq)
     f = torch.stack([torch.ones_like(u), u, v, u * v], dim=-1) * w[..., None]
-    ft = f.transpose(-1, -2)
-    eye = torch.eye(4, dtype=f.dtype, device=f.device)
-    coeffs = torch.linalg.solve(ft @ f + _RIDGE * eye,
-                                (ft @ (y * w)[..., None])[..., 0])
-    fitted = (f @ coeffs[..., None])[..., 0]
+    one = y.dim() == 3 and y.shape[0] == 1
+    xtx, xty = _normal_equations(f.transpose(-1, -2), y * w, one)
+    coeffs = lu_solve4(xtx, xty)
+    fitted = fma_chain(f, coeffs[..., None, :])
     mean_fit = blocked_sum(fitted * w) / n
     ev = _unbiased(blocked_sum(ipow(fitted - mean_fit[..., None], 2) * w), n)
     return (coeffs, torch.stack([loc_u, loc_v], dim=-1),

@@ -44,15 +44,20 @@ def fma(a, b, c) -> Tensor:
             return v.double()
         return torch.tensor(float(v), dtype=torch.float64, device=ref.device)
 
-    p = f64(a) * f64(b)
-    c64 = f64(c)
-    s = p + c64
+    return _round_sum(f64(a) * f64(b), f64(c))
+
+
+def _round_sum(p: Tensor, c: Tensor) -> Tensor:
+    """p + c rounded once to f32, for f64 tensors holding an exact product
+    of two f32 values and an f32 value (:func:`fma`'s second half)."""
+    s = p + c
     bb = s - p
-    err = (p - (s - bb)) + (c64 - bb)
-    inf = torch.full_like(s, float("inf"))
+    err = (p - (s - bb)) + (c - bb)
     to_odd = ((err != 0) & torch.isfinite(err)
               & ((s.view(torch.int64) & 1) == 0))
-    s = torch.where(to_odd, torch.nextafter(s, torch.copysign(inf, err)), s)
+    # err * inf is +-inf toward the error (NaN only where err is 0,
+    # which to_odd leaves out)
+    s = torch.where(to_odd, torch.nextafter(s, err * float("inf")), s)
     return s.float()
 
 
@@ -95,10 +100,11 @@ def lane_sum(a: Tensor, b: Tensor, lanes: int) -> Tensor:
     m = n - n % lanes
     acc = torch.zeros((*a.shape[:-1], lanes), dtype=a.dtype,
                       device=a.device)
-    pa = a[..., :m].reshape(*a.shape[:-1], m // lanes, lanes)
-    pb = b[..., :m].reshape(*b.shape[:-1], m // lanes, lanes)
-    for s in range(m // lanes):
-        acc = fma(pa[..., s, :], pb[..., s, :], acc)
+    # every product is exact in f64: take them all at once
+    prods = (a[..., :m].double() * b[..., :m].double()).reshape(
+        *a.shape[:-1], m // lanes, lanes)
+    for p in prods.unbind(-2):
+        acc = _round_sum(p, acc.double())
     if lanes == 4:
         out = (acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3])
     else:
@@ -122,8 +128,8 @@ def fma_chain(a: Tensor, b: Tensor) -> Tensor:
     from zero, left to right."""
     a, b = torch.broadcast_tensors(a, b)
     acc = torch.zeros(a.shape[:-1], dtype=a.dtype, device=a.device)
-    for p in range(a.shape[-1]):
-        acc = fma(a[..., p], b[..., p], acc)
+    for p in (a.double() * b.double()).unbind(-1):
+        acc = _round_sum(p, acc.double())
     return acc
 
 
@@ -188,7 +194,11 @@ def lu_solve4(a: Tensor, b: Tensor) -> Tensor:
         swap.scatter_(-1, jp, j)
         lu = torch.gather(lu, -2, swap[..., None].expand(lu.shape))
         perm = torch.gather(perm, -1, swap)
-        lu[..., j + 1:, j] = lu[..., j + 1:, j] * (1.0 / lu[..., j, j:j + 1])
+        # an exact zero pivot leaves the column unscaled (getf2 skips it)
+        piv = lu[..., j, j:j + 1]
+        lu[..., j + 1:, j] = torch.where(piv != 0,
+                                         lu[..., j + 1:, j] * (1.0 / piv),
+                                         lu[..., j + 1:, j])
     x = torch.gather(b, -1, perm)
     for j in range(n - 1):                   # unit lower, forward
         x[..., j + 1:] = fma(-lu[..., j + 1:, j], x[..., j:j + 1],
@@ -390,7 +400,115 @@ def stats_from_sums(mom: Tensor, xxt: Tensor, counts: Tensor,
                        var_of_var=vov, cov=cov, corr=corr)
 
 
+# ---------------------------------------------------------------------------
+# One window of one edge, the host planner's statistics (reference lines
+# 21-141).  The reference compiles ``window_stats`` on a single (k, N)
+# window with its counts as data: central moments by two passes of
+# blocked sums, the pairwise covariance by three dots a pair (masks,
+# masked values, both), and every ``a - b*c`` of the covariance
+# contracted into one fused multiply-add.  These follow that compilation.
+# ---------------------------------------------------------------------------
+
+def gram_lanes(k: int) -> int:
+    """The chains of the reference's compiled (k, N) x (N, k) dot: one
+    below four streams, four from four on.  Checked bitwise for k in 2..8
+    at N from 17 to 4096 (k >= 9 takes another order at large N)."""
+    return 1 if k < 4 else 4
+
+
+def _gram(a: Tensor, b: Tensor) -> Tensor:
+    """a @ b^T of two (..., k, N) windows in the compiled dot's order."""
+    return lane_sum(a[..., :, None, :], b[..., None, :, :],
+                    gram_lanes(a.shape[-2]))
+
+
+def masked_mean(values: Tensor, counts: Tensor) -> Tensor:
+    m = _mask(values, counts)
+    n = torch.clamp(counts.to(values.dtype), min=1.0)
+    xm = torch.where(m > 0, values, torch.zeros_like(values))
+    return blocked_sum(xm) / n
+
+
+def masked_central_moments(values: Tensor, counts: Tensor):
+    """Returns (mean, var_unbiased, m2_biased, m4) per stream: the mean,
+    then the second and fourth powers of the masked deviations, each
+    summed in :func:`blocked_sum`'s order."""
+    m = _mask(values, counts)
+    n = torch.clamp(counts.to(values.dtype), min=1.0)
+    mean = masked_mean(values, counts)
+    d = torch.where(m > 0, values - mean[..., None], torch.zeros_like(values))
+    d2 = d * d
+    m2 = blocked_sum(d2) / n
+    m4 = blocked_sum(d2 * d2) / n
+    var = m2 * n / torch.clamp(n - 1.0, min=1.0)
+    return mean, var, m2, m4
+
+
+def _pairwise(values: Tensor, counts: Tensor):
+    """(E[xy] - mean_i mean_j over co-valid positions, max(n_pair, 1)).
+
+    ``values`` may carry leading stacking dimensions beside the window's
+    (k, N): all their dots go through one :func:`lane_sum` (the same
+    chains, fewer launches)."""
+    m = _mask(values, counts)
+    xm = torch.where(m > 0, values, torch.zeros_like(values))
+    # the mask's own dot counts min(N_i, N_j), exactly
+    c = counts.to(values.dtype)
+    n_pair_c = torch.clamp(torch.minimum(c[..., :, None], c[..., None, :]),
+                           min=1.0)
+    sums = _gram(torch.stack([xm, xm]), torch.stack([m.expand_as(xm), xm]))
+    mean_i = sums[0] / n_pair_c
+    return fma(-mean_i, mean_i.transpose(-1, -2),
+               sums[1] / n_pair_c), n_pair_c
+
+
+def _cov(a: Tensor, n_pair_c: Tensor) -> Tensor:
+    return a * n_pair_c / torch.clamp(n_pair_c - 1.0, min=1.0)
+
+
+def _corr(a: Tensor, n_pair_c: Tensor) -> Tensor:
+    den = torch.clamp(n_pair_c - 1.0, min=1.0)
+    d = sqrt(torch.clamp(torch.diagonal(a * n_pair_c / den, dim1=-2,
+                                        dim2=-1), min=_EPS))
+    # the unbiasing division merges into the normalization, as compiled
+    corr = (a * n_pair_c) / (den * (d[..., :, None] * d[..., None, :]))
+    return torch.clamp(corr, -1.0, 1.0)
+
+
+def masked_cov(values: Tensor, counts: Tensor) -> Tensor:
+    """Pairwise (k, k) covariance over positions valid in both streams,
+    unbiased (n_pair - 1)."""
+    return _cov(*_pairwise(values, counts))
+
+
+def pearson_corr(values: Tensor, counts: Tensor) -> Tensor:
+    return _corr(*_pairwise(values, counts))
+
+
+def spearman_corr(values: Tensor, counts: Tensor) -> Tensor:
+    return pearson_corr(rank_transform(values, counts), counts)
+
+
+def window_stats(values: Tensor, counts: Tensor,
+                 dependence: str = "pearson") -> StreamStats:
+    """One (k, N) window -> :class:`StreamStats`, on the tensors' device
+    (the host planner's statistics).  Bitwise the reference's jitted
+    ``window_stats`` on the CPU for k in 2..8 (:func:`gram_lanes`).  The
+    covariance's dots and the dependence's (of the values, or of their
+    ranks under Spearman) are taken together."""
+    DEPENDENCE.get(dependence)
+    mean, var, _m2, m4 = masked_central_moments(values, counts)
+    vov = var_of_var_estimator(var, m4, counts)
+    dep = (rank_transform(values, counts) if dependence == "spearman"
+           else values)
+    a, n_pair_c = _pairwise(torch.stack([values, dep]), counts)
+    return StreamStats(count=counts, mean=mean, var=var, m4=m4,
+                       var_of_var=vov, cov=_cov(a[0], n_pair_c),
+                       corr=_corr(a[1], n_pair_c))
+
+
 # The fleet engine computes dependence from kernel sums (corr_from_sums on
-# values or ranks); these entries name the two measures it understands.
-DEPENDENCE.register("pearson", "pearson")
-DEPENDENCE.register("spearman", "spearman")
+# values or ranks) and reads only these names; the host planner calls the
+# functions.
+DEPENDENCE.register("pearson", pearson_corr)
+DEPENDENCE.register("spearman", spearman_corr)

@@ -15,6 +15,25 @@ import torch
 
 Tensor = torch.Tensor
 
+_NP_DTYPES = {torch.int32: np.dtype(np.int32), torch.int64: np.dtype(np.int64),
+              torch.float32: np.dtype(np.float32)}
+
+
+def host_arrays(tensors: dict) -> dict:
+    """Tensors (int32, int64 or f32, on one device) -> host numpy arrays
+    of the same names, through one device-to-host copy of all their
+    bytes."""
+    ts = {name: t.contiguous() for name, t in tensors.items()}
+    flat = torch.cat([t.reshape(-1).view(torch.uint8)
+                      for t in ts.values()]).cpu().numpy()
+    out, off = {}, 0
+    for name, t in ts.items():
+        dt = _NP_DTYPES[t.dtype]
+        out[name] = np.frombuffer(flat, dt, t.numel(), off) \
+            .reshape(tuple(t.shape)).copy()
+        off += t.numel() * dt.itemsize
+    return out
+
 
 @dataclasses.dataclass(frozen=True)
 class WindowBatch:
@@ -118,6 +137,24 @@ class EdgePayload:
             per = self.model.param_bytes()
         model_bytes = per * int(np.sum(self.n_imputed > 0))
         return data + header + model_bytes
+
+
+@dataclasses.dataclass(frozen=True)
+class Allocation:
+    """Solution of the eq.-1 program after rounding (host values).
+
+    n_real / n_imputed: (k,) int32.  objective: the relaxed eq.-2 value
+    (f32).  feasible: whether the solver certified feasibility.  eps_used:
+    (k,) f32, epsilon as possibly restored by the solver.  newton_steps:
+    the IPM's Newton steps (0 for the other solvers).
+    """
+
+    n_real: np.ndarray
+    n_imputed: np.ndarray
+    objective: Any
+    feasible: bool
+    eps_used: np.ndarray
+    newton_steps: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

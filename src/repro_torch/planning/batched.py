@@ -26,13 +26,11 @@ from repro_torch.core import epsilon as eps_mod
 from repro_torch.core import solver as solver_mod
 from repro_torch.core import stats as stats_mod
 from repro_torch.core.stats import ipow
-from repro_torch.core.types import PlannerConfig, Tensor
+from repro_torch.core.types import PlannerConfig, Tensor, host_arrays
 from repro_torch.kernels.stream_stats.ops import fleet_window_moments_xxt
 from repro_torch.planning.engine import PlanEngine, UnsupportedPlanConfig
 
 _INT_FIELDS = ("n_real", "n_imputed")
-_NP_DTYPES = {torch.int32: np.dtype(np.int32), torch.int64: np.dtype(np.int64),
-              torch.float32: np.dtype(np.float32)}
 
 
 @dataclasses.dataclass
@@ -78,17 +76,8 @@ class FleetPlan:
     def to_numpy(self) -> dict:
         """Every field as a host numpy array, through one device-to-host
         copy of all fields' bytes."""
-        fields = dataclasses.fields(self)
-        ts = [getattr(self, f.name).contiguous() for f in fields]
-        flat = torch.cat([t.reshape(-1).view(torch.uint8)
-                          for t in ts]).cpu().numpy()
-        out, off = {}, 0
-        for f, t in zip(fields, ts):
-            dt = _NP_DTYPES[t.dtype]
-            out[f.name] = np.frombuffer(flat, dt, t.numel(), off) \
-                .reshape(tuple(t.shape)).copy()
-            off += t.numel() * dt.itemsize
-        return out
+        return host_arrays({f.name: getattr(self, f.name)
+                            for f in dataclasses.fields(self)})
 
 
 def fleet_plan(values: Tensor, counts: Tensor, budgets: Tensor,
@@ -184,10 +173,12 @@ class BatchedEngine(PlanEngine):
         EPSILON_POLICIES.get(cfg.epsilon_policy)
         DEPENDENCE.get(cfg.dependence)
         if cfg.solver != "closed_form":
+            # one edge plans host-only solvers with engine=None; a fleet
+            # would need the fleet host engine
             raise NotImplementedError(
                 f"solver {cfg.solver!r} is host-only; the batched pass "
-                f"implements 'closed_form', and the host engine is not "
-                f"ported to repro_torch yet (ROADMAP.md: queue 1, "
+                f"implements 'closed_form', and the fleet host engine is "
+                f"not ported to repro_torch yet (ROADMAP.md: queue 1, "
                 f"'Event path')")
         if cfg.iid_mode not in ("none", "iid"):
             raise UnsupportedPlanConfig(

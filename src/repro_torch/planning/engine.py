@@ -1,11 +1,23 @@
 """The PlanEngine interface and payload assembly — port of
-``repro.planning.engine`` (the host engine comes with the event path)."""
+``repro.planning.engine``.
+
+An engine plans a fleet's (E, k, N) stack (:meth:`PlanEngine.plan_fleet`)
+and one window as its E = 1 case (:meth:`PlanEngine.plan_one`, which
+``plan_window`` routes to for ``engine="batched"``).  The fleet host
+engine (``"host"``, ``"host_loop"``) comes with ROADMAP.md queue 1,
+'Event path'; one edge's host planner is ``core.planner.plan_window``.
+"""
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 
-from repro_torch.core.planner import ModelSpec
-from repro_torch.core.types import CompactModel, EdgePayload, PlannerConfig
+from repro_torch.api.registry import MODELS
+from repro_torch.core import samplers
+from repro_torch.core.planner import ModelSpec, PlanDiagnostics
+from repro_torch.core.types import (Allocation, CompactModel, EdgePayload,
+                                    PlannerConfig, WindowBatch)
 
 
 class UnsupportedPlanConfig(ValueError):
@@ -73,3 +85,38 @@ class PlanEngine:
                    window_id: int = 0, use_kernel=None, device=None) -> dict:
         """(E, k, N) windows + per-site budgets -> host numpy plan arrays."""
         raise NotImplementedError
+
+    def plan_one(self, batch: WindowBatch, budget: float, cfg: PlannerConfig,
+                 key: Optional[tuple] = None, device=None
+                 ) -> tuple[EdgePayload, PlanDiagnostics]:
+        """One window through the engine — the degenerate E = 1 fleet;
+        the samples are drawn as the host planner draws them."""
+        self.check(cfg)
+        if key is None:
+            from repro_torch.runtime.threefry import prng_key
+            key = prng_key(cfg.seed ^ int(batch.window_id))
+        values = np.asarray(batch.values)
+        counts = np.asarray(batch.counts)
+        plan = self.plan_fleet(values[None], counts[None],
+                               np.asarray([budget], np.float32), cfg,
+                               window_id=int(batch.window_id), device=device)
+        spec = MODELS.get(cfg.model)
+        real_values = samplers.draw_samples(key, values, counts,
+                                            plan["n_real"][0], device=device)
+        payload = assemble_payload(spec, plan, 0, int(batch.window_id),
+                                   real_values)
+        # feasibility as the host closed form reports it: spend within the
+        # model-upload-net budget (the >=1-sample floor can overshoot it)
+        spent = float(np.sum(plan["n_real"][0]))
+        budget_net = spec.budget_net(float(budget), len(counts))
+        alloc = Allocation(
+            n_real=np.asarray(plan["n_real"][0], np.int32),
+            n_imputed=np.asarray(plan["n_imputed"][0], np.int32),
+            objective=np.float32(plan["objective"][0]),
+            feasible=bool(spent <= budget_net + 1e-6),
+            eps_used=np.asarray(plan["eps"][0], np.float32))
+        diag = PlanDiagnostics(stats=None, allocation=alloc,
+                               eps=np.asarray(plan["eps"][0]), strides=None,
+                               predictor=payload.predictor,
+                               solver_feasible=alloc.feasible)
+        return payload, diag

@@ -25,6 +25,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.adaptive import AdaptiveCarry, gate_update
 from repro_torch.chaos.carry import ChaosCarry
+from repro_torch.core.samplers import stream_subkeys
 from repro_torch.core.stats import blocked_sum, fma, ipow, recip
 from repro_torch.planning.batched import FleetPlan
 from repro_torch.runtime import threefry
@@ -79,21 +80,11 @@ def _fy_sample(key: tuple, values, n_real):
     return torch.where(keep, shuffled, torch.zeros_like(shuffled))
 
 
-def _stream_keys(base: tuple, k: int) -> list:
-    """The sequential split chain of the host sampler: one subkey a stream."""
-    subs = []
-    key = base
-    for _ in range(k):
-        key, sub = threefry.split(key)
-        subs.append(sub)
-    return subs
-
-
 def _permutation_sample(base: tuple, values, n_real):
     """E = 1: stream i's tuples in the order of ``permutation(sub_i, N)``,
     masked past ``n_real[0, i]``."""
     _, k, n = values.shape
-    perm = threefry.permutations(_stream_keys(base, k), n,
+    perm = threefry.permutations(stream_subkeys(base, k), n,
                                  device=values.device)
     shuffled = torch.gather(values, -1, perm[None])
     keep = torch.arange(n, device=values.device) < n_real[..., None]

@@ -1,16 +1,14 @@
-"""Edge-cloud streaming building blocks — port of ``repro.streaming`` for
-the fleet event loop: the WAN links (``Transport``, ``AsyncTransport`` on
-a virtual clock) and the clouds (``CloudNode``, ``ReorderCloudNode``).
-
-The single-edge ``EdgeNode`` plans through the host planner, which is not
-ported yet (ROADMAP.md: queue 1, 'Event path').
-"""
+"""Edge-cloud streaming building blocks — port of ``repro.streaming``:
+one edge's planner (``EdgeNode``), the WAN links (``Transport``,
+``AsyncTransport`` on a virtual clock) and the clouds (``CloudNode``,
+``ReorderCloudNode``)."""
 from repro_torch.runtime.report import freshness_percentiles
 from repro_torch.streaming.events import (AsyncTransport, DeliveryEvent,
                                           EventQueue, IngestOutcome,
                                           ReorderCloudNode)
-from repro_torch.streaming.runtime import CloudNode, Transport
+from repro_torch.streaming.runtime import CloudNode, EdgeNode, Transport
 
-__all__ = ["AsyncTransport", "CloudNode", "DeliveryEvent", "EventQueue",
+__all__ = ["AsyncTransport", "CloudNode", "DeliveryEvent", "EdgeNode",
+           "EventQueue",
            "IngestOutcome", "ReorderCloudNode", "Transport",
            "freshness_percentiles"]

@@ -95,6 +95,15 @@ class AsyncTransport(Transport):
         self._queue = EventQueue()
         self._seq = 0
 
+    @classmethod
+    def from_transport(cls, t: Transport) -> "AsyncTransport":
+        """A plain link upgraded to the event clock (its drop probability,
+        seed, cost and latency); an ``AsyncTransport`` is returned as is."""
+        if isinstance(t, AsyncTransport):
+            return t
+        return cls(drop_prob=t.drop_prob, seed=t.seed,
+                   cost_per_byte=t.cost_per_byte, latency_ms=t.latency_ms)
+
     @property
     def in_flight(self) -> int:
         return len(self._queue)

@@ -1,25 +1,32 @@
-"""WAN link and cloud of the event loop — port of
-``repro.streaming.runtime`` (host numpy, bitwise the reference's).
+"""Edge, WAN link and cloud of the event loops — port of
+``repro.streaming.runtime``.
 
+* :class:`EdgeNode` — caches one tumbling window of one edge and plans it
+  (Algorithm 1, ``core.planner.plan_window``) on its device.
 * :class:`Transport` — byte and cost accounting and an injectable drop
   probability, drawn from its own ``default_rng(seed)``.
 * :class:`CloudNode` — reconstructs windows, counts sequence gaps and
   serves the previous reconstruction for a dropped window.
 
-The reference's ``EdgeNode`` plans one edge through the host planner and
-comes with the single-edge half of the event path (ROADMAP.md: queue 1,
-'Event path'); the fleet event loop plans through the batched engine.
+The link and the cloud are host numpy, bitwise the reference's.
+
+Fault tolerance: a straggling stream contributes N_i = 0 tuples and the
+planner's imputation covers it from its predictor; a lost payload is a
+sequence gap the cloud serves from the previous reconstruction.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import time
+from typing import Callable, Optional
 
 import numpy as np
 
+from repro_torch import resolve_device
+from repro_torch.api.registry import MODELS, not_ported
 from repro_torch.core import queries as Q
 from repro_torch.core.reconstruct import reconstruct_window
-from repro_torch.core.types import EdgePayload
+from repro_torch.core.types import EdgePayload, PlannerConfig, WindowBatch
 
 
 @dataclasses.dataclass
@@ -53,6 +60,58 @@ class Transport:
         self.bytes_sent += nbytes
         self.bytes_cost += nbytes * self.cost_per_byte
         self.latency_total_ms += self.latency_ms
+        return payload
+
+
+@dataclasses.dataclass
+class EdgeNode:
+    """Caches one tumbling window then plans it (Algorithm 1).
+
+    ``method`` ``"model"`` plans with ``cfg.model``; a registered model
+    family ("linear" | "cubic" | "mean" | "multi") pins that family; the
+    baselines come with ROADMAP.md queue 1, 'Event path'.  The budget is
+    ``budget_fraction`` of the window's tuples after stragglers, at least
+    2.  ``plan_seconds`` sums the planner's time, split into
+    ``device_seconds`` (upload, statistics, fit, permutations, read) and
+    ``solve_seconds`` (the host program); ``newton_steps`` sums the IPM's
+    steps.  ``device=None`` is the GPU.
+    """
+
+    cfg: PlannerConfig
+    budget_fraction: float
+    method: str = "model"          # "model" | model names
+    straggler_drop: Optional[Callable[[int, int], bool]] = None
+    plan_seconds: float = 0.0
+    device: object = None
+    device_seconds: float = 0.0
+    solve_seconds: float = 0.0
+    newton_steps: int = 0
+
+    def __post_init__(self):
+        if self.method != "model" and self.method not in MODELS:
+            raise not_ported(f"baseline method {self.method!r}",
+                             "Event path")
+        self.device = resolve_device(self.device)
+
+    def process_window(self, batch: WindowBatch) -> EdgePayload:
+        from repro_torch.core.planner import plan_window
+        values = np.asarray(batch.values)
+        counts = np.asarray(batch.counts).copy()
+        wid = int(batch.window_id)
+        if self.straggler_drop is not None:
+            for i in range(len(counts)):
+                if self.straggler_drop(wid, i):
+                    counts[i] = 0            # missed the deadline entirely
+        batch = WindowBatch.from_numpy(values, counts, wid)
+        budget = max(int(self.budget_fraction * int(np.sum(counts))), 2)
+        cfg = (self.cfg if self.method == "model"
+               else dataclasses.replace(self.cfg, model=self.method))
+        t0 = time.perf_counter()
+        payload, diag = plan_window(batch, budget, cfg, device=self.device)
+        self.plan_seconds += time.perf_counter() - t0
+        self.device_seconds += diag.device_seconds
+        self.solve_seconds += diag.solve_seconds
+        self.newton_steps += diag.allocation.newton_steps
         return payload
 
 

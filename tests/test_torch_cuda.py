@@ -559,3 +559,94 @@ def test_cuda_sweep_over_the_event_goldens(cuda, use_kernel):
                             use_kernel=use_kernel, log=logged.append)
     assert code == 0, "\n".join(logged)
     assert "4 scenario(s) checked" in logged[-1]
+
+
+# ---- the host planner and the single-edge event loop on the card -----------
+
+def _single_windows(dataset: str, k_n: tuple, seed: int = 3) -> list:
+    """Two windows of a single-edge dataset: full, then with stream 1
+    straggled and stream 0 short."""
+    import numpy as np
+    from repro_torch.api.registry import DATASETS
+    import repro_torch.data.streams  # noqa: F401  — fills DATASETS
+    k, n = k_n
+    kw = {"k": k} if dataset == "turbine" else {}
+    vals = np.asarray(DATASETS.get(dataset)(n_points=2 * n, seed=seed,
+                                            **kw)[0], np.float32)
+    full = np.full(k, n, np.int32)
+    short = full.copy()
+    short[1], short[0] = 0, n - 37
+    return [(vals[:, i * n:(i + 1) * n], c, i)
+            for i, c in enumerate((full, short))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dataset,k_n", [("smartcity", (5, 256)),
+                                         ("home", (3, 256)),
+                                         ("turbine", (8, 4096))],
+                         ids=lambda v: str(v))
+def test_cuda_window_stats_equal_cpu(cuda, dataset, k_n):
+    """The host planner's statistics (both dependences) on the card are
+    bitwise the CPU's, stragglers and short streams included."""
+    from repro_torch.core import stats
+    for values, counts, _ in _single_windows(dataset, k_n):
+        for dep in ("spearman", "pearson"):
+            v, c = torch.as_tensor(values), torch.as_tensor(counts)
+            want = stats.window_stats(v, c, dep)
+            got = stats.window_stats(v.to(cuda), c.to(cuda), dep)
+            for f in ("mean", "var", "m4", "var_of_var", "cov", "corr"):
+                t = getattr(got, f)
+                assert t.device.type == cuda.type
+                assert torch.equal(t.cpu(), getattr(want, f)), (dep, f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["cubic", "linear", "mean", "multi"])
+@pytest.mark.parametrize("dataset,k_n", [("smartcity", (5, 256)),
+                                         ("turbine", (8, 4096))],
+                         ids=lambda v: str(v))
+def test_cuda_host_planner_equals_cpu(cuda, dataset, k_n, family):
+    """``plan_window`` with the host planner (the f64 IPM) on the card and
+    on the CPU: the payload bitwise (allocations, samples, model, stats
+    digest), and no fleet kernel launched."""
+    import numpy as np
+    from repro_torch.core.planner import plan_window
+    from repro_torch.core.types import PlannerConfig, WindowBatch
+    cfg = PlannerConfig(model=family, seed=5)
+    for values, counts, wid in _single_windows(dataset, k_n):
+        batch = WindowBatch.from_numpy(values, counts, wid)
+        budget = max(int(0.3 * counts.sum()), 2)
+        want, _ = plan_window(batch, budget, cfg, device="cpu")
+        before = (ss_ops.LAUNCHES, poly_ops.LAUNCHES)
+        got, diag = plan_window(batch, budget, cfg, device=cuda)
+        assert (ss_ops.LAUNCHES, poly_ops.LAUNCHES) == before
+        assert diag.device_seconds > 0
+        for f in ("n_real", "n_imputed", "predictor"):
+            assert np.array_equal(getattr(got, f), getattr(want, f)), f
+        for g, w in zip(got.real_values, want.real_values):
+            assert np.array_equal(g, w)
+        for f in ("mean", "var"):
+            assert np.array_equal(got.stats_digest[f], want.stats_digest[f])
+        if want.model is not None:
+            for f in ("coeffs", "loc", "scale", "explained_var"):
+                g = got.model[f] if family == "multi" else \
+                    getattr(got.model, f)
+                w = want.model[f] if family == "multi" else \
+                    getattr(want.model, f)
+                assert np.array_equal(np.asarray(g), np.asarray(w)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_kernel", [None, True])
+def test_cuda_sweep_over_the_single_event_goldens(cuda, use_kernel):
+    """The five single-edge event goldens on the card against
+    tests/torch_goldens: no drift in their ``exact`` class (the host
+    planner runs no kernel, so the setting changes nothing)."""
+    from repro_torch.sweep import runner
+    logged = []
+    before = (ss_ops.LAUNCHES, poly_ops.LAUNCHES)
+    code = runner.run_sweep(pattern="single_event", device="cuda",
+                            use_kernel=use_kernel, log=logged.append)
+    assert code == 0, "\n".join(logged)
+    assert "5 scenario(s) checked" in logged[-1]
+    assert (ss_ops.LAUNCHES, poly_ops.LAUNCHES) == before

@@ -528,7 +528,8 @@ def test_event_loop_reproduces_the_port_scan_given_its_plans():
 
 @pytest.mark.parametrize("change,item", [
     ({"topology": None, "data": {"dataset": "turbine", "n_points": 256,
-                                 "window": 64, "seed": 1, "options": {}}},
+                                 "window": 64, "seed": 1, "options": {}},
+      "planner": {"iid_mode": "thinning"}},
      "Event path"),
     ({"planner": {"engine": "host"}}, "Event path"),
     ({"planner": {"solver": "ipm"}}, "Event path"),

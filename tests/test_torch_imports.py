@@ -59,7 +59,9 @@ def test_importing_the_port_leaves_jax_and_repro_out():
             "repro_torch.chaos.metrics", "repro_torch.ckpt",
             "repro_torch.ckpt.checkpoint", "repro_torch.streaming",
             "repro_torch.streaming.events", "repro_torch.streaming.runtime",
-            "repro_torch.fleet.controller"} <= set(res["mods"])
+            "repro_torch.fleet.controller", "repro_torch.core.samplers",
+            "repro_torch.core.solver", "repro_torch.core.planner",
+            "repro_torch.planning.engine"} <= set(res["mods"])
     assert res["bad"] == []
     assert res["libs"] == [] and res["built"] == []
 
@@ -72,6 +74,14 @@ def test_importing_the_port_leaves_jax_and_repro_out():
                        "main_path"))]))
 def test_no_jax_or_repro_import_lines(path):
     assert not FORBIDDEN.search((ROOT / path).read_text()), path
+
+
+def test_the_x64_workaround_stays_out_of_the_port():
+    """The reference's IPM needs ``jax.experimental.enable_x64`` on JAX
+    0.9; only the tests and the reference-report script supply it."""
+    paths = [*PORT.rglob("*.py"), ROOT / "chip_smoke.py",
+             ROOT / "tests" / "conftest.py"]
+    assert not [p for p in paths if "enable_x64" in p.read_text()]
 
 
 def test_entry_points_default_to_the_gpu():
@@ -91,6 +101,17 @@ def test_entry_points_default_to_the_gpu():
             resolve_device(None)
     assert Experiment.from_scenario(sc, device="cpu").runtime.device.type \
         == "cpu"
+    one = ScenarioConfig.from_dict(json.loads(
+        (ROOT / "tests" / "goldens" / "scenarios"
+         / "single_event_cubic.json").read_text())["scenario"])
+    if torch.cuda.is_available():
+        assert Experiment.from_scenario(one).runtime.edge.device.type \
+            == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Experiment.from_scenario(one)
+    assert Experiment.from_scenario(one, device="cpu").runtime.edge \
+        .device.type == "cpu"
 
 
 def test_tf32_is_off():

@@ -7,9 +7,12 @@
   ``scripts/torch_reference_reports.py``.
 * ``python -m repro_torch.sweep --check --filter scan --device cpu``
   checks the seven scan goldens the port runs, each in its own class, and
-  names the one it cannot run yet; with no filter it checks those and
-  the four fleet event goldens, and names the ten it cannot run yet,
-  each with its ROADMAP item.
+  names the one it cannot run yet; with no filter it checks those, the
+  four fleet event goldens and the five single-edge event goldens, and
+  names the five it cannot run yet, each with its ROADMAP item
+  (``test_torch_sweep_scan_cli.py`` and ``test_torch_sweep_all_cli.py``
+  run the two, each in a file of its own so that they can run on
+  separate workers).
 * The single-edge goldens meet their ``ulp`` class because the port sums
   and solves the cubic fit's normal equations in the reference's order;
   the pieces of that order are held bitwise here.  With the kernels on,
@@ -22,10 +25,7 @@
 import dataclasses
 import importlib.util
 import json
-import os
 import pathlib
-import subprocess
-import sys
 import types
 
 import jax
@@ -47,15 +47,25 @@ SCAN_GOLDENS = ["fleet_scan", "fleet_scan_adaptive_ph",
 EVENT_GOLDENS = ["fleet_event_adaptive_threshold",
                  "fleet_event_batched_rebalance", "fleet_event_chaos_flap",
                  "fleet_event_cost_aware_wan"]
-PORTED = sorted(SCAN_GOLDENS + EVENT_GOLDENS)
+# one edge on the event clock, the host planner and its f64 IPM
+SINGLE_EVENT_GOLDENS = [f"single_event_{n}" for n in (
+    "cubic", "drop_gaps", "jitter_bandwidth", "latency_revise",
+    "retransmit")]
+PORTED = sorted(SCAN_GOLDENS + EVENT_GOLDENS + SINGLE_EVENT_GOLDENS)
 NOT_PORTED = {"fleet_scan_sharded": "Sharding"}
 # every golden the port cannot run yet, with its item
 ALL_NOT_PORTED = {
     **NOT_PORTED, "fleet_event_sharded_static": "Sharding",
     "fleet_event_host_engine": "Event path",
-    **{f"single_event_{n}": "Event path" for n in (
-        "baseline_srs", "cubic", "drop_gaps", "jitter_bandwidth",
-        "latency_revise", "linear_alpha", "retransmit")}}
+    "single_event_baseline_srs": "Event path",
+    "single_event_linear_alpha": "Event path"}
+
+
+def golden_class(name: str) -> str:
+    """The tolerance class the CPU sweep holds golden ``name`` to."""
+    if name.startswith("fleet_scan"):
+        return "f32"
+    return "exact" if name.startswith("single_event") else "ulp"
 CLASSES = sorted(ref_diff.TOLERANCE_CLASSES)
 
 
@@ -160,46 +170,6 @@ def test_committed_reports_are_the_live_reference(tmp_path):
     assert prov["jax"] == jax.__version__
     assert prov["scenarios"] == PORTED
     assert prov["kernel_path_scenarios"] == sorted(runner.KERNEL_PATH_REPORTS)
-
-
-def test_sweep_checks_the_scan_goldens_on_the_cpu():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.sweep", "--check", "--filter",
-         "scan", "--device", "cpu"], capture_output=True, text=True,
-        env=env, timeout=600, cwd=ROOT)
-    assert out.returncode == 0, out.stdout + out.stderr
-    lines = out.stdout.splitlines()
-    for name in SCAN_GOLDENS:
-        tol = "ulp" if name.startswith("single") else "f32"
-        assert any(ln.split() == [name, "ok", f"[{tol}]"] for ln in lines), \
-            (name, out.stdout)
-    for name, item in NOT_PORTED.items():
-        assert any(ln.split()[:3] == [name, "not", "ported"]
-                   and f"'{item}'" in ln for ln in lines), name
-    assert "7 scenario(s) checked" in lines[-1]
-    assert "1 not ported" in lines[-1]
-
-
-def test_sweep_checks_every_ported_golden_on_the_cpu():
-    """No filter: the seven scan and four fleet event goldens are checked,
-    each in its own class, and the ten others are named with their item."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.sweep", "--check", "--device",
-         "cpu"], capture_output=True, text=True, env=env, timeout=600,
-        cwd=ROOT)
-    assert out.returncode == 0, out.stdout + out.stderr
-    lines = out.stdout.splitlines()
-    for name in PORTED:
-        tol = "f32" if name.startswith("fleet_scan") else "ulp"
-        assert any(ln.split() == [name, "ok", f"[{tol}]"] for ln in lines), \
-            (name, out.stdout)
-    for name, item in ALL_NOT_PORTED.items():
-        assert any(ln.split()[:3] == [name, "not", "ported"]
-                   and f"'{item}'" in ln for ln in lines), name
-    assert "11 scenario(s) checked" in lines[-1]
-    assert "10 not ported" in lines[-1]
 
 
 def test_sweep_list_lint_and_usage():

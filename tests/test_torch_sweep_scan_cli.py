@@ -1,0 +1,32 @@
+"""The port's golden sweep from the command line, on the CPU: the seven
+scan goldens.
+
+A file of its own: under ``--dist loadfile`` a file runs on one
+worker, and the sweeps are the longest tests of the port.
+"""
+import os
+import subprocess
+import sys
+
+from test_torch_sweep import NOT_PORTED, ROOT, SCAN_GOLDENS
+
+
+def test_sweep_checks_the_scan_goldens_on_the_cpu():
+    # one intra-op thread: the sweep's tensors are small, and beside the
+    # run's other workers more threads only contend for the cores
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.sweep", "--check", "--filter",
+         "scan", "--device", "cpu"], capture_output=True, text=True,
+        env=env, timeout=600, cwd=ROOT)
+    assert out.returncode == 0, out.stdout + out.stderr
+    lines = out.stdout.splitlines()
+    for name in SCAN_GOLDENS:
+        tol = "ulp" if name.startswith("single") else "f32"
+        assert any(ln.split() == [name, "ok", f"[{tol}]"] for ln in lines), \
+            (name, out.stdout)
+    for name, item in NOT_PORTED.items():
+        assert any(ln.split()[:3] == [name, "not", "ported"]
+                   and f"'{item}'" in ln for ln in lines), name
+    assert "7 scenario(s) checked" in lines[-1]
+    assert "1 not ported" in lines[-1]
