@@ -40,7 +40,7 @@ Phases, one JSON line each; any failed check exits non-zero:
      card held bitwise against the same code on the CPU;
  10. slice 7's path: one edge gateway (``turbine``, k = 8 streams,
      windows of N = 4096 tuples, 4 generated windows cycled to T = 200)
-     through both kernels, profiled over 3 windows, then at T = 20 with
+     through both kernels, profiled over 3 windows, then at T = 10 with
      the plain versions on the card, held against the kernel path; both
      kernels held against their plain versions and timed at this path's
      shapes and at ``single_scan``'s;
@@ -90,7 +90,7 @@ Phases, one JSON line each; any failed check exits non-zero:
      against the kernels (WAN bytes within 0.1%, AVG NRMSE within 1%);
  19. slice 11's single-edge event path: one edge gateway (``turbine``,
      k = 8 streams, windows of N = 4096 tuples, ``SINGLE_EVENT["T"]``
-     generated windows) planned by the host planner with
+     generated windows; 25 since slice 12, 50 before) planned by the host planner with
      ``single_event_cubic``'s planner (cubic, Spearman, k-SE, the f64
      IPM, budget 0.3) on ``single_event_retransmit``'s WAN (drops 0.5,
      3 retries at 150 ms) with a fixed straggler rule: windows/sec, the
@@ -100,10 +100,23 @@ Phases, one JSON line each; any failed check exits non-zero:
      memory; the window statistics on the card, rows 1 and 2 launched 0
      times, and the same run on the CPU bitwise in every window's
      allocation, every counter and every NRMSE;
- 20. the kernels line, then ``{"ok": true, "device": {...}}`` last.
+ 20. slice 12's baseline path: Fig. 5's comparison on one edge
+     (``BASELINE``: smartcity, windows of 256, budget 0.26) planned by the
+     host planner (model, mean) and by the ApproxIoT, S-VOILA and SRS
+     baselines; per method the WAN fraction, NRMSE per query, windows/sec
+     and plan seconds a window;
+ 21. slice 12's iid path: Fig. 9's settings (``IID``) under iid,
+     thinning and m-dependence: the strides, AVG NRMSE and windows/sec;
+ 22. slice 12's host engine path: ``fleet_event_host_engine``'s planner
+     and controller on fleet_bench's fleet (``HOST_ENGINE``: 16 sites,
+     k = 6, N = 128, T = 8): plan seconds a site, windows/sec, the WAN
+     fraction; in 20-22 rows 1 and 2 launched 0 times, and each run
+     repeated on the CPU, every allocation (and stride, and r2), counter
+     and NRMSE bitwise;
+ 23. the kernels line, then ``{"ok": true, "device": {...}}`` last.
 
-Phase 12's sweep also runs the four fleet event goldens and the five
-single-edge event goldens (sixteen goldens in all), their counters held
+Phase 12's sweep also runs the five fleet event goldens and the seven
+single-edge event goldens (nineteen goldens in all), their counters held
 also against the live reference's (``EVENT_REF``).
 
 Detailed profiles go to ``chiprun_out/``.
@@ -137,7 +150,7 @@ SINGLE_REF_WAN_BYTES = {"single_scan": 4662, "single_scan_steps": 3544}
 FAMILY_REF_WAN_BYTES = {"mean": 11540, "multi": 9436}
 # one edge gateway: the turbine sensor suite at k = 8, windows of 4096
 # tuples (the permutation sampler's two-round branch)
-SINGLE = {"k": 8, "window": 4096, "pool": 4, "T": 200, "T_plain": 20}
+SINGLE = {"k": 8, "window": 4096, "pool": 4, "T": 200, "T_plain": 10}
 # slice 8: the adaptive golden's live reference (CPU, jax 0.9), and the
 # adaptive path: the main path's fleet, T generated windows (not cycled)
 # whose four regions' correlation strengths reverse at window T // 2
@@ -176,8 +189,10 @@ EVENT_REF = {"fleet_event_batched_rebalance": {"wan_bytes": 10816,
              "fleet_event_adaptive_threshold": {"wan_bytes": 21264,
                                                 "planner_invocations": 6},
              "fleet_event_chaos_flap": {"wan_bytes": 10412, "gaps": 3},
+             "fleet_event_host_engine": {"wan_bytes": 4796, "gaps": 0},
              # slice 11: the five single-edge event goldens (the reference's
-             # IPM run with the x64 workaround of the port's tests)
+             # IPM run with the x64 workaround of the port's tests), and
+             # slice 12's two
              **{name: dict(zip(("wan_bytes", "gaps", "revisions",
                                 "late_drops", "duplicates", "retransmits"),
                                counters))
@@ -186,12 +201,39 @@ EVENT_REF = {"fleet_event_batched_rebalance": {"wan_bytes": 10816,
                     ("single_event_retransmit", (10878, 1, 0, 0, 0, 4)),
                     ("single_event_drop_gaps", (1554, 4, 0, 1, 0, 0)),
                     ("single_event_jitter_bandwidth", (2496, 0, 0, 0, 0, 0)),
-                    ("single_event_latency_revise", (3736, 0, 4, 0, 0, 0)))}}
+                    ("single_event_latency_revise", (3736, 0, 4, 0, 0, 0)),
+                    ("single_event_baseline_srs", (3894, 0, 0, 0, 0, 0)),
+                    ("single_event_linear_alpha", (5372, 0, 0, 0, 0, 0)))}}
 # slice 11: one edge gateway on the host planner (turbine, k = 8, N = 4096,
 # T generated windows) with single_event_cubic's planner and
 # single_event_retransmit's WAN; a fixed rule zeroes ~8% of the counts
-SINGLE_EVENT = {"k": 8, "window": 4096, "T": 50, "seed": 21,
+SINGLE_EVENT = {"k": 8, "window": 4096, "T": 15, "seed": 21,
                 "straggle_mod": 13}
+# slice 12: the paper's comparison on one edge (benchmarks/fig5_smartcity.py:
+# smartcity, windows of 256 tuples, 16 windows, seed 9; the planner's
+# defaults, the f64 IPM) at one of its budgets, model and mean imputation
+# beside three baselines; the iid relaxations of benchmarks/fig9_iid.py
+# (smartcity, 12 windows of 256, seed 13, budget 0.3, m = 1); and the host
+# engine: fleet_event_host_engine's planner and controller on
+# benchmarks/fleet_bench.py's heterogeneous fleet (4 regions x 4 sites,
+# k = 6, windows of 128 tuples) over T windows
+BASELINE = {"data": {"dataset": "smartcity", "n_points": 4096,
+                     "window": 256, "seed": 9, "options": {}},
+            "budget_fraction": 0.26,
+            "methods": ["model", "mean", "approx_iot", "s_voila", "srs"],
+            "queries": ["AVG", "VAR", "MIN", "MAX"]}
+IID = {"data": {"dataset": "smartcity", "n_points": 3072, "window": 256,
+                "seed": 13, "options": {}},
+       "budget_fraction": 0.3, "m_lags": 1,
+       "modes": ["iid", "thinning", "m_dependence"]}
+HOST_ENGINE = {"T": 8,
+               "data": {"dataset": "fleet", "window": 128, "seed": 2,
+                        "options": {"k": 6,
+                                    "region_strength": [0.9, 0.7, 0.4, 0.15],
+                                    "region_volatility": [0.4, 1.0, 1.8,
+                                                          3.0]}},
+               "topology": {"n_regions": 4, "sites_per_region": 4, "seed": 2,
+                            "hetero_links": True, "latency_scale": 1.0}}
 # the fleet event path: the main path's fleet, planner and windows on the
 # WAN of fleet_event_cost_aware_wan (heterogeneous links, latency_scale 1,
 # 30 ms jitter, 10% drops, a 100 ms period, link-cost-aware controller),
@@ -201,7 +243,7 @@ SINGLE_EVENT = {"k": 8, "window": 4096, "T": 50, "seed": 21,
 # main-width payload takes ~490 ms, every retry timer fires before its
 # first copy lands, and each window ships four copies, more than the raw
 # tuples.  A fixed rule zeroes ~1% of the (site, stream) counts a window.
-EVENT = {"T": 16, "T_parity": 8, "T_plain": 4, "n_prof": 3,
+EVENT = {"T": 8, "T_parity": 8, "T_plain": 4, "n_prof": 3,
          "wan": {"latency_scale": 1.0, "jitter_ms": 30.0, "drop_prob": 0.1,
                  "bandwidth_bytes_per_ms": 40.0, "hetero_links": True},
          "transport": {"window_period_ms": 100.0,
@@ -685,14 +727,21 @@ def main() -> int:
     # ---- 19. slice 11: the single-edge event path on the host planner -----
     single_event = single_event_path(torch, card_line)
 
-    # ---- 20. the kernels line and the result -----------------------------
-    # launches: rows 1 and 2 on the five runtime paths driven with the
+    # ---- 20.-22. slice 12: baselines, the iid relaxations, the host engine
+    baseline = baseline_path(torch, card_line)
+    iid = iid_path(torch, card_line)
+    host_engine = host_engine_path(torch, card_line)
+
+    # ---- 23. the kernels line and the result -----------------------------
+    # launches: rows 1 and 2 on the eight runtime paths driven with the
     # counts at 0 (main_path, adaptive_path, chaos_path, event_path, and
-    # single_event_path, which launches neither), rows 3 and 4 on the
-    # kernel entry points
+    # single_event_path, baseline_path, iid_path and host_engine_path,
+    # which launch neither), rows 3 and 4 on the kernel entry points
     by_path = {n: ({"main_path": launches[n], "adaptive_path": adaptive[n],
                     "chaos_path": chaos[n], "event_path": event[n],
-                    "single_event_path": single_event[n]}
+                    "single_event_path": single_event[n],
+                    "baseline_path": baseline[n], "iid_path": iid[n],
+                    "host_engine_path": host_engine[n]}
                    if n in adaptive else {"kernel_entry_points": launches[n]})
                for n in KERNELS}
     emit({"kernels": [dict(name=n, route="cuda", source=KERNELS[n][0],
@@ -1093,8 +1142,8 @@ def single_edge_phases(torch, dev) -> None:
 
 
 def golden_sweep_phase(torch) -> None:
-    """Phase 12: the port's sweep on the card over the sixteen goldens it
-    runs (seven scan, four fleet event, five single-edge event), with the
+    """Phase 12: the port's sweep on the card over the nineteen goldens it
+    runs (seven scan, five fleet event, seven single-edge event), with the
     kernels (each golden of
     the runner's ``KERNEL_CLASS_GAPS`` held to its recorded f32 class) and
     with the plain versions (every golden in its own class), against the
@@ -1153,7 +1202,7 @@ def golden_sweep_phase(torch) -> None:
     emit({"phase": "golden_sweep_seconds",
           "seconds": time.perf_counter() - t0, "checked": len(scen),
           "not_ported": skipped})
-    if len(scen) != 16 or bad:
+    if len(scen) != 19 or bad:
         raise AssertionError(f"golden sweep on the card: {len(scen)} "
                              f"scenarios checked, drifts in {bad}")
 
@@ -1671,6 +1720,248 @@ def single_event_path(torch, card_line: str) -> dict:
         raise AssertionError(f"single-edge event path: card and CPU differ: "
                              f"{same}")
     return launches
+
+
+def _row_launches() -> dict:
+    from repro_torch.kernels.polyfit import ops as poly_ops
+    from repro_torch.kernels.stream_stats import ops as ss_ops
+    return {"stream_stats_fleet": ss_ops.LAUNCHES,
+            "polyfit": poly_ops.LAUNCHES}
+
+
+def _zero_row_launches() -> None:
+    from repro_torch.kernels.polyfit import ops as poly_ops
+    from repro_torch.kernels.stream_stats import ops as ss_ops
+    ss_ops.LAUNCHES = 0
+    poly_ops.LAUNCHES = 0
+
+
+def _same_runs(runs: dict) -> dict:
+    """Which parts of the card's run equal the CPU's bit for bit: the
+    per-plan records, every counter and every NRMSE table."""
+    import numpy as np
+    (rep, seen, _), (rep_c, seen_c, _) = runs["cuda"], runs["cpu"]
+    counters = ("wan_bytes", "full_bytes", "gaps", "revisions",
+                "late_drops", "duplicates", "retransmits")
+    same = {"plans": len(seen) == len(seen_c) > 0 and all(
+                all(np.array_equal(x, y) for x, y in zip(a, b))
+                for a, b in zip(seen, seen_c)),
+            "wan_cost": rep.wan_cost == rep_c.wan_cost,
+            **{c: getattr(rep, c) == getattr(rep_c, c) for c in counters},
+            **{f"nrmse_per_stream/{q}": bool(np.array_equal(
+                rep.nrmse_per_stream[q], rep_c.nrmse_per_stream[q],
+                equal_nan=True)) for q in rep.nrmse_per_stream}}
+    return same
+
+
+def _check_run(label: str, rep, launches: dict, same: dict) -> None:
+    import numpy as np
+    if launches != {"stream_stats_fleet": 0, "polyfit": 0}:
+        raise AssertionError(f"{label} launched {launches}; the host "
+                             f"planner and the baselines run no kernel")
+    finite = (all(np.isfinite(v) for v in rep.nrmse.values())
+              and all(np.isfinite(t).all()
+                      for t in rep.nrmse_per_stream.values()))
+    if not finite or not 0 < rep.wan_bytes < rep.full_bytes:
+        raise AssertionError(f"{label} output out of range: nrmse "
+                             f"{rep.nrmse}, wan {rep.wan_bytes} of "
+                             f"{rep.full_bytes}")
+    if not all(same.values()):
+        raise AssertionError(f"{label}: card and CPU differ: {same}")
+
+
+def _payload_record(payload):
+    return (payload.n_real.copy(), payload.n_imputed.copy())
+
+
+def baseline_path(torch, card_line: str) -> dict:
+    """Phase 20: Fig. 5's comparison on one edge, on the card and then on
+    the CPU: the planner (model, mean imputation) and three baselines at
+    budget fraction ``BASELINE["budget_fraction"]``.  Per method: the WAN
+    fraction, NRMSE per query, windows/sec and plan seconds a window; every
+    allocation, counter and NRMSE bitwise between the two runs.  Returns
+    the card's launches of rows 1 and 2 over all methods (0)."""
+    from repro_torch.api.scenario import ScenarioConfig
+    t_all = time.perf_counter()
+    total = {"stream_stats_fleet": 0, "polyfit": 0}
+    for method in BASELINE["methods"]:
+        d = dict(scenario_dict("single_event_baseline_srs"),
+                 data=BASELINE["data"], method=method,
+                 budget_fraction=BASELINE["budget_fraction"],
+                 queries=BASELINE["queries"], planner={})
+        runs = _edge_runs(torch, ScenarioConfig.from_dict(d))
+        rep, seen, launches = runs["cuda"]
+        same = _same_runs(runs)
+        T = len(seen)
+        raw = rep.raw
+        emit({"phase": "baseline_path", "card": card_line, "method": method,
+              "budget_fraction": BASELINE["budget_fraction"], "T": T,
+              "wan_fraction": rep.wan_fraction, "wan_bytes": rep.wan_bytes,
+              "nrmse": rep.nrmse,
+              "windows_per_sec": raw["windows_per_sec"],
+              "plan_s_per_window": raw["plan_seconds"] / T,
+              "cpu_windows_per_sec": runs["cpu"][0].raw["windows_per_sec"],
+              "cpu_plan_s_per_window": runs["cpu"][0].raw["plan_seconds"]
+              / T, "launches": launches, "bitwise": same})
+        _check_run(f"baseline_path {method}", rep, launches, same)
+        for n in total:
+            total[n] += launches[n]
+    emit({"phase": "baseline_path_seconds",
+          "seconds": time.perf_counter() - t_all})
+    return total
+
+
+def _edge_runs(torch, sc, record=_payload_record) -> dict:
+    """A single-edge scenario on the card and on the CPU, each window's
+    payload recorded at the edge (``EdgeNode.process_window``)."""
+    from repro_torch.api.experiment import Experiment
+    out = {}
+    for device in ("cuda", "cpu"):
+        ex = Experiment.from_scenario(sc, device=device)
+        seen = []
+        plan = ex.runtime.edge.process_window
+
+        def spy(batch, _plan=plan, _seen=seen):
+            payload = _plan(batch)
+            _seen.append(record(payload))
+            return payload
+
+        ex.runtime.edge.process_window = spy
+        _zero_row_launches()
+        rep = ex.run()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out[device] = (rep, seen, _row_launches())
+    return out
+
+
+def iid_path(torch, card_line: str) -> dict:
+    """Phase 21: Fig. 9's iid relaxations on one edge, on the card and
+    then on the CPU: per mode the strides of every window (thinning), the
+    AVG NRMSE and windows/sec; every allocation and stride, counter and
+    NRMSE bitwise between the two runs.  Returns the card's launches of
+    rows 1 and 2 over the three modes (0)."""
+    import numpy as np
+    from repro_torch.api.scenario import ScenarioConfig
+    from repro_torch.core import planner as planner_mod
+    t_all = time.perf_counter()
+    total = {"stream_stats_fleet": 0, "polyfit": 0}
+    real = planner_mod.plan_window
+    for mode in IID["modes"]:
+        d = {"data": IID["data"], "budget_fraction": IID["budget_fraction"],
+             "queries": ["AVG"], "runtime": "event",
+             "planner": {"iid_mode": mode, "m_lags": IID["m_lags"]}}
+        strides = []
+
+        def spy(*a, _strides=strides, **kw):
+            payload, diag = real(*a, **kw)
+            _strides.append(None if diag.strides is None
+                            else diag.strides.copy())
+            return payload, diag
+
+        planner_mod.plan_window = spy
+        try:
+            runs = _edge_runs(torch, ScenarioConfig.from_dict(d))
+        finally:
+            planner_mod.plan_window = real
+        rep, seen, launches = runs["cuda"]
+        T = len(seen)
+        card_s, cpu_s = strides[:T], strides[T:]
+        same = dict(_same_runs(runs), strides=len(card_s) == len(cpu_s)
+                    and all((a is None and b is None) or
+                            np.array_equal(a, b)
+                            for a, b in zip(card_s, cpu_s)))
+        emit({"phase": "iid_path", "card": card_line, "mode": mode, "T": T,
+              "strides": [None if x is None else x.tolist()
+                          for x in card_s],
+              "nrmse_avg": rep.nrmse["AVG"], "wan_fraction": rep.wan_fraction,
+              "windows_per_sec": rep.raw["windows_per_sec"],
+              "plan_s_per_window": rep.raw["plan_seconds"] / T,
+              "cpu_windows_per_sec": runs["cpu"][0].raw["windows_per_sec"],
+              "launches": launches, "bitwise": same})
+        _check_run(f"iid_path {mode}", rep, launches, same)
+        if (mode == "thinning") != all(x is not None for x in card_s):
+            raise AssertionError(f"iid_path {mode}: strides {card_s}")
+        for n in total:
+            total[n] += launches[n]
+    emit({"phase": "iid_path_seconds", "seconds": time.perf_counter() - t_all})
+    return total
+
+
+def host_engine_path(torch, card_line: str) -> dict:
+    """Phase 22: the fleet host engine (the host planner at every site:
+    fleet_event_host_engine's IPM, cubic, Spearman, k-SE planner and its
+    rebalancing controller with the query split) on fleet_bench's fleet
+    over ``HOST_ENGINE["T"]`` windows, on the card and then on the CPU:
+    plan seconds a site, windows/sec and the WAN fraction; every site's
+    allocation, each window's r2, every counter and NRMSE bitwise between
+    the two runs.  Returns the card's launches of rows 1 and 2 (0)."""
+    from repro_torch.api.scenario import ScenarioConfig
+    t_all = time.perf_counter()
+    T = HOST_ENGINE["T"]
+    d = dict(scenario_dict("fleet_event_host_engine"),
+             data=dict(HOST_ENGINE["data"],
+                       n_points=T * HOST_ENGINE["data"]["window"]),
+             topology=dict(scenario_dict("fleet_event_host_engine")
+                           ["topology"], **HOST_ENGINE["topology"]))
+    sc = ScenarioConfig.from_dict(d)
+    E = sc.topology.n_sites
+
+    def record(plan):
+        return ([p.n_real.copy() for p in plan["payloads"]]
+                + [p.n_imputed.copy() for p in plan["payloads"]]
+                + [plan["r2"].copy()])
+
+    runs = _fleet_runs(torch, sc, record)
+    rep, seen, launches = runs["cuda"]
+    same = _same_runs(runs)
+    raw = rep.raw
+    emit({"phase": "host_engine_path", "card": card_line, "E": E,
+          "k": HOST_ENGINE["data"]["options"]["k"],
+          "N": HOST_ENGINE["data"]["window"], "T": T,
+          "engine": sc.planner.engine,
+          "windows_per_sec": raw["windows_per_sec"],
+          "plan_s_per_site": raw["plan_seconds"] / (T * E),
+          "plan_s_per_window": raw["plan_seconds"] / T,
+          "cpu_windows_per_sec": runs["cpu"][0].raw["windows_per_sec"],
+          "cpu_plan_s_per_site": runs["cpu"][0].raw["plan_seconds"]
+          / (T * E),
+          "wan_fraction": rep.wan_fraction, "wan_bytes": rep.wan_bytes,
+          "nrmse": rep.nrmse, "launches": launches, "bitwise": same,
+          "seconds": time.perf_counter() - t_all})
+    _check_run("host_engine_path", rep, launches, same)
+    return launches
+
+
+class _PlanSpy:
+    """An engine that records each plan of the engine it wraps (the
+    engines are shared objects, so the spy wraps, never patches)."""
+
+    def __init__(self, engine, record, seen: list):
+        self.engine, self.record, self.seen = engine, record, seen
+        self.name = engine.name
+
+    def plan_fleet(self, *a, **kw):
+        plan = self.engine.plan_fleet(*a, **kw)
+        self.seen.append(self.record(plan))
+        return plan
+
+
+def _fleet_runs(torch, sc, record) -> dict:
+    """A fleet scenario on the card and on the CPU, each window's plan
+    recorded at the engine (``plan_fleet``)."""
+    from repro_torch.api.experiment import Experiment
+    out = {}
+    for device in ("cuda", "cpu"):
+        ex = Experiment.from_scenario(sc, device=device)
+        seen = []
+        ex.runtime.engine = _PlanSpy(ex.runtime.engine, record, seen)
+        _zero_row_launches()
+        rep = ex.run()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out[device] = (rep, seen, _row_launches())
+    return out
 
 
 def profile_event_path(ex, windows, torch, card_line: str) -> None:

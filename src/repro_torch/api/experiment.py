@@ -31,7 +31,7 @@ import repro_torch.core.planner  # noqa: F401  — fills MODELS, SOLVERS, ...
 from repro_torch import resolve_device
 from repro_torch.api.registry import (DATASETS, DEPENDENCE, ENGINES,
                                       EPSILON_POLICIES, MODELS, QUERIES,
-                                      RUNTIMES, SOLVERS, not_ported)
+                                      RUNTIMES, SOLVERS)
 from repro_torch.api.scenario import ControllerSpec, ScenarioConfig
 from repro_torch.core import queries as Q
 from repro_torch.core.reconstruct import reconstruct_window
@@ -209,16 +209,18 @@ class FleetRuntime:
         self.device = resolve_device(self.device)
         sites = self.topology.sites
         engine_name = self.planning or self.cfg.engine or "batched"
-        if self.adaptive is not None and engine_name in ("host",
-                                                         "host_loop"):
-            raise ValueError(
-                "adaptive re-planning cannot reuse host-engine plans "
-                "(plan_window draws samples inside the plan); use the "
-                "batched or sharded engine")
         self.engine = ENGINES.get(engine_name)
         self.engine.check(self.cfg)      # fail at construction, not mid-run
+        from repro_torch.planning import HostEngine
+        # the host engine uploads each site's window itself
+        self._host_windows = isinstance(self.engine, HostEngine)
         self._adaptive_policy = None
         if self.adaptive is not None:
+            if engine_name in ("host", "host_loop"):
+                raise ValueError(
+                    "adaptive re-planning cannot reuse host-engine plans "
+                    "(plan_window draws samples inside the plan); use the "
+                    "batched or sharded engine")
             from repro_torch.adaptive import AdaptivePolicy
             self._adaptive_policy = AdaptivePolicy(
                 self.adaptive, use_kernel=self.use_kernel,
@@ -269,6 +271,8 @@ class FleetRuntime:
     def _payload(self, plan: dict, s: int, wid: int, values: np.ndarray,
                  counts: np.ndarray,
                  samples: Optional[np.ndarray] = None) -> EdgePayload:
+        if "payloads" in plan:           # the host engine drew them already
+            return plan["payloads"][s]
         from repro_torch.planning import assemble_payload
         if samples is not None:          # device sampling (scan-parity RNG)
             real = [samples[i, :int(min(int(plan["n_real"][s][i]),
@@ -321,7 +325,8 @@ class FleetRuntime:
             now = wid * period
             q_time = now + period
             w = np.asarray(w, np.float32)
-            w_dev = torch.as_tensor(w, device=self.device)  # one upload
+            w_dev = (w if self._host_windows
+                     else torch.as_tensor(w, device=self.device))
             counts = np.full((E, k), n, np.int64)
             if self.straggler_drop is not None:
                 for s in range(E):
@@ -349,7 +354,7 @@ class FleetRuntime:
                     lambda: self._plan(wid, w_dev, counts, budgets))
             else:
                 plan = self._plan(wid, w_dev, counts, budgets)
-            if live is not None:
+            if live is not None and "n_real" in plan:
                 # the planner floors every stream at 1 sample even on a
                 # zero budget; dead sites must ship nothing (and the
                 # masked n_real keeps device sampling bitwise with scan)
@@ -357,7 +362,7 @@ class FleetRuntime:
                 plan["n_real"] = np.asarray(plan["n_real"]) * live[:, None]
 
             fleet_samples = None
-            if self.sampling == "device":
+            if self.sampling == "device" and "payloads" not in plan:
                 # one draw for the whole fleet, from the exact RNG streams
                 # the scan runtime consumes
                 from repro_torch.runtime.step import draw_fleet_samples
@@ -567,8 +572,9 @@ def check_scan_scenario(scenario: ScenarioConfig) -> None:
     RUNTIMES.get(scenario.runtime)
     if scenario.method != "model":
         if scenario.method not in MODELS:
-            raise not_ported(f"baseline method {scenario.method!r}",
-                              "Event path")
+            raise ValueError(
+                f"runtime='scan' plans through the model families; baseline "
+                f"method {scenario.method!r} needs runtime='event'")
         if scenario.is_fleet:
             raise ValueError("the fleet scan plans with planner.model; set "
                              "method='model'")
@@ -594,19 +600,21 @@ def check_scan_scenario(scenario: ScenarioConfig) -> None:
     if spec is not None and spec.query_split is not None:
         raise ValueError("runtime='scan' does not implement the per-query "
                          "controller split; use runtime='event'")
-    ENGINES.get(scenario.planner.engine or "batched").check(scenario.planner)
+    from repro_torch.planning.batched import BatchedEngine
+    engine = ENGINES.get(scenario.planner.engine or "batched")
+    if not isinstance(engine, BatchedEngine):
+        raise ValueError(
+            f"runtime='scan' needs the 'batched' or 'sharded' plan engine, "
+            f"not {engine.name!r}")
+    engine.check(scenario.planner)
 
 
 def check_event_scenario(scenario: ScenarioConfig) -> None:
-    """Reject what the port's event loops cannot run yet: baseline
-    methods, MEDIAN, thinning and m-dependence, the fleet host engines,
-    sharding.  One edge plans as the reference's ``plan_window`` routes
-    it: the host planner for ``engine`` None, "host" or "host_loop",
-    else that engine's E = 1 pass."""
+    """Reject what the port's event loops cannot run yet (sharding).  One
+    edge plans as the reference's ``EdgeNode`` routes it: a baseline
+    through ``plan_with_baseline``; else the host planner for ``engine``
+    None, "host" or "host_loop", else that engine's E = 1 pass."""
     RUNTIMES.get(scenario.runtime)
-    if scenario.method != "model" and scenario.method not in MODELS:
-        raise not_ported(f"baseline method {scenario.method!r}",
-                         "Event path")
     DATASETS.get(scenario.data.dataset)
     for q in scenario.queries:
         QUERIES.get(q)
@@ -615,11 +623,8 @@ def check_event_scenario(scenario: ScenarioConfig) -> None:
         ENGINES.get(planner.engine or "batched").check(planner)
         return
     if planner.engine not in (None, "host", "host_loop"):
-        import repro_torch.planning  # noqa: F401  — fills ENGINES
         ENGINES.get(planner.engine).check(planner)
         return
-    if planner.iid_mode in ("thinning", "m_dependence"):
-        raise not_ported(f"iid_mode {planner.iid_mode!r}", "Event path")
     SOLVERS.get(planner.solver)
     MODELS.get(planner.model)
     EPSILON_POLICIES.get(planner.epsilon_policy)

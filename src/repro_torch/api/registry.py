@@ -31,13 +31,6 @@ class UnknownComponentError(KeyError):
         return self.args[0]
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error for a reference feature the port has not ported: it names
-    the ROADMAP item (queue 1) that ports it."""
-    return NotImplementedError(f"{what} is not ported to repro_torch yet "
-                               f"(ROADMAP.md: queue 1, {item!r})")
-
-
 class Registry:
     """Name -> component mapping with decorator registration."""
 
@@ -96,13 +89,20 @@ class Registry:
 #   MODELS            repro_torch.core.planner   (linear | cubic | mean | multi)
 #   EPSILON_POLICIES  repro_torch.core.epsilon   (k_se | alpha | exact_mse)
 #   DEPENDENCE        repro_torch.core.stats     (pearson | spearman)
-#   QUERIES           repro_torch.core.queries   (AVG | VAR | MIN | MAX)
+#   SAMPLERS          repro_torch.core.samplers  (srs | stratified | svoila
+#                                                 | neyman_cost)
+#   BASELINES         repro_torch.core.planner   (srs | approx_iot | s_voila
+#                                                 | neyman_cost)
+#   QUERIES           repro_torch.core.queries   (AVG | VAR | MIN | MAX
+#                                                 | MEDIAN)
 #   DATASETS          repro_torch.data.streams   (home | turbine | smartcity
 #                                                 | mvn | fleet)
 #   DEMAND_SIGNALS    repro_torch.fleet.controller (obs_err | pred_err
 #                                                 | max_err)
+#   IID_MODES         repro_torch.core.thinning  (none/iid | thinning
+#                                                 | m_dependence)
 #   SOLVERS           repro_torch.core.solver    (ipm | slsqp | closed_form)
-#   ENGINES           repro_torch.planning       (batched)
+#   ENGINES           repro_torch.planning       (host/host_loop | batched)
 #   RUNTIMES          repro_torch.runtime        (event | scan | scan_steps)
 #   DRIFT_DETECTORS   repro_torch.adaptive.drift (threshold | page_hinkley
 #                                                 | always | never)
@@ -111,7 +111,10 @@ class Registry:
 MODELS = Registry("imputation model")
 EPSILON_POLICIES = Registry("epsilon policy")
 DEPENDENCE = Registry("dependence measure")
+SAMPLERS = Registry("allocation sampler")
+BASELINES = Registry("baseline planner")
 QUERIES = Registry("query")
+IID_MODES = Registry("iid mode")
 DATASETS = Registry("dataset")
 DEMAND_SIGNALS = Registry("controller demand signal")
 SOLVERS = Registry("solver")
@@ -120,10 +123,29 @@ RUNTIMES = Registry("runtime")
 DRIFT_DETECTORS = Registry("drift detector")
 FAULTS = Registry("fault family")
 
+# the reference's keys (``repro.api.registry.ALL_REGISTRIES``)
+ALL_REGISTRIES: dict[str, Registry] = {
+    "solvers": SOLVERS,
+    "models": MODELS,
+    "epsilon_policies": EPSILON_POLICIES,
+    "dependence": DEPENDENCE,
+    "samplers": SAMPLERS,
+    "baselines": BASELINES,
+    "queries": QUERIES,
+    "datasets": DATASETS,
+    "iid_modes": IID_MODES,
+    "demand_signals": DEMAND_SIGNALS,
+    "engines": ENGINES,
+    "runtimes": RUNTIMES,
+    "drift_detectors": DRIFT_DETECTORS,
+    "faults": FAULTS,
+}
 
-def populate() -> None:
-    """Import every registering module of the port."""
-    import repro_torch.core.planner     # noqa: F401  (models, epsilon, ...)
+
+def populate() -> dict[str, Registry]:
+    """Import every registering module of the port, then return
+    ``ALL_REGISTRIES``."""
+    import repro_torch.core.planner     # noqa: F401  (models, baselines, ...)
     import repro_torch.core.queries     # noqa: F401
     import repro_torch.data.streams     # noqa: F401
     import repro_torch.fleet.controller  # noqa: F401  (demand signals)
@@ -131,3 +153,4 @@ def populate() -> None:
     import repro_torch.runtime          # noqa: F401
     import repro_torch.adaptive.drift   # noqa: F401
     import repro_torch.chaos.spec       # noqa: F401
+    return ALL_REGISTRIES

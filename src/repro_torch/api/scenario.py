@@ -29,9 +29,6 @@ from repro_torch.adaptive import AdaptiveSpec  # noqa: E402  (needs populate())
 from repro_torch.chaos import ChaosSpec  # noqa: E402
 
 SOLVERS = ("ipm", "slsqp", "closed_form")
-IID_MODES = ("none", "iid", "thinning", "m_dependence")
-# baseline planners of the event path (not ported yet)
-BASELINES = ("approx_iot", "neyman_cost", "s_voila", "srs")
 
 
 def _freeze(v):
@@ -52,6 +49,17 @@ def _freeze(v):
 def _one_of(kind: str, name: str, names: tuple) -> None:
     if name not in names:
         raise _reg.UnknownComponentError(kind, name, names)
+
+
+def _valid_method(method: str) -> None:
+    # "model" = run the Algorithm-1 planner with the scenario's
+    # planner.model; a registered model name pins that family; a
+    # registered baseline name bypasses the planner entirely
+    if method == "model" or method in _reg.MODELS or method in _reg.BASELINES:
+        return
+    raise _reg.UnknownComponentError(
+        "method", method,
+        ("model", *_reg.MODELS.names(), *_reg.BASELINES.names()))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,10 +182,9 @@ class ScenarioConfig:
             object.__setattr__(self, "adaptive",
                                AdaptiveSpec.from_dict(self.adaptive))
 
-        if self.method != "model" and self.method not in BASELINES:
-            _reg.MODELS.check(self.method)
+        _valid_method(self.method)
         _one_of("solver", planner.solver, SOLVERS)
-        _one_of("iid mode", planner.iid_mode, IID_MODES)
+        _reg.IID_MODES.get(planner.iid_mode)
         _reg.MODELS.check(planner.model)
         _reg.EPSILON_POLICIES.check(planner.epsilon_policy)
         _reg.DEPENDENCE.check(planner.dependence)

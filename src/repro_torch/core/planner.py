@@ -9,7 +9,9 @@
 :func:`plan_window` plans one window of one edge and returns the
 :class:`EdgePayload` that crosses the WAN plus :class:`PlanDiagnostics`.
 The imputation-model registry (:class:`ModelSpec`, ``MODELS``) is shared
-with the batched engine.
+with the batched engine.  :func:`plan_with_baseline` plans a window with
+one of the paper's baseline samplers (``BASELINES``): sampling only, no
+imputation, behind the same payload.
 
 Placement of the host planner (``engine`` None, ``"host"`` or
 ``"host_loop"``): the window is uploaded to ``device`` once; its
@@ -19,7 +21,11 @@ built, solved (f64), rounded and, under ``exact_mse``, capped on the host
 (:mod:`repro_torch.core.solver` says why), and the samples are taken from
 the host window by the permutations.  The statistics and the fit are the
 plain versions on every device, as in the reference's host path: no CUDA
-kernel runs here.
+kernel runs here.  Under ``iid_mode="thinning"`` the strides come
+first, from the window's autocovariances on ``device`` (one more upload
+and read), and the thinned window is planned; under ``"m_dependence"``
+the objective's variance (eq. 9) is computed with the statistics and
+read with them.
 """
 from __future__ import annotations
 
@@ -33,13 +39,14 @@ import torch
 import repro_torch.core.epsilon  # noqa: F401  — fills EPSILON_POLICIES
 import repro_torch.core.stats  # noqa: F401  — fills DEPENDENCE
 from repro_torch import resolve_device
-from repro_torch.api.registry import MODELS, not_ported
+from repro_torch.api.registry import BASELINES, MODELS
 from repro_torch.core import epsilon as eps_mod
 from repro_torch.core import models as models_mod
 from repro_torch.core import predictor as pred_mod
 from repro_torch.core import samplers
 from repro_torch.core import solver as solver_mod
 from repro_torch.core import stats as stats_mod
+from repro_torch.core import thinning
 from repro_torch.core.types import (Allocation, CompactModel, EdgePayload,
                                     PlannerConfig, StreamStats, WindowBatch,
                                     host_arrays)
@@ -144,8 +151,6 @@ def _plan_window_host(batch: WindowBatch, budget: float, cfg: PlannerConfig,
                       ) -> tuple[EdgePayload, PlanDiagnostics]:
     """The host Algorithm-1 body (the ``"host"`` engine's), one upload and
     one read of the window."""
-    if cfg.iid_mode in ("thinning", "m_dependence"):
-        raise not_ported(f"iid_mode {cfg.iid_mode!r}", "Event path")
     dev = resolve_device(device)
     if key is None:
         from repro_torch.runtime.threefry import prng_key
@@ -155,6 +160,10 @@ def _plan_window_host(batch: WindowBatch, budget: float, cfg: PlannerConfig,
     spec = MODELS.get(cfg.model)
 
     t0 = time.perf_counter()
+    strides = None
+    if cfg.iid_mode == "thinning":
+        values, counts, strides = thinning.thin_window(values, counts,
+                                                       device=dev)
     v = torch.as_tensor(values, device=dev)
     c = torch.as_tensor(counts.astype(np.int32), device=dev)
     stats = stats_mod.window_stats(v, c, dependence=cfg.dependence)
@@ -170,10 +179,14 @@ def _plan_window_host(batch: WindowBatch, budget: float, cfg: PlannerConfig,
                for f in dataclasses.fields(model)})
     fields["predictor"] = predictor.to(torch.int64)
     eps = eps_mod.make_epsilon(cfg.epsilon_policy, stats, cfg.epsilon_scale)
+    md = {}                 # the objective's variance under m-dependence
+    if cfg.iid_mode == "m_dependence":
+        md["md_var"], md["md_gamma"] = thinning.m_dependence_terms(
+            v, c, cfg.m_lags)
     perms = samplers.stream_permutations(key, counts, device=dev)
     host = host_arrays({**{f"stats_{f.name}": getattr(stats, f.name)
                            for f in dataclasses.fields(stats)},
-                        **fields, "eps": eps, "perms": perms})
+                        **fields, **md, "eps": eps, "perms": perms})
     t1 = time.perf_counter()
 
     stats_h = StreamStats(**{f.name: host[f"stats_{f.name}"]
@@ -184,9 +197,13 @@ def _plan_window_host(batch: WindowBatch, budget: float, cfg: PlannerConfig,
     predictor = host["predictor"]
     # the model upload comes out of the budget (constraint 1f)
     budget_net = spec.budget_net(budget, len(counts))
+    sigma2_obj = (thinning.m_dependence_from_terms(host["md_var"],
+                                                   host["md_gamma"])
+                  if md else None)
     problem = solver_mod.build_problem(stats_h, model_h, host["eps"],
                                        budget_net,
-                                       cost_real=cfg.cost_per_sample)
+                                       cost_real=cfg.cost_per_sample,
+                                       sigma2_obj=sigma2_obj)
     alloc = solver_mod.solve(problem, method=cfg.solver)
     nr = np.asarray(alloc.n_real, np.int64)
     ns = np.asarray(alloc.n_imputed, np.int64)
@@ -213,8 +230,75 @@ def _plan_window_host(batch: WindowBatch, budget: float, cfg: PlannerConfig,
         predictor=predictor,
         stats_digest={"mean": stats_h.mean, "var": stats_h.var})
     diag = PlanDiagnostics(stats=stats_h, allocation=alloc,
-                           eps=np.asarray(alloc.eps_used), strides=None,
+                           eps=np.asarray(alloc.eps_used), strides=strides,
                            predictor=predictor,
                            solver_feasible=bool(alloc.feasible),
                            device_seconds=t1 - t0, solve_seconds=t2 - t1)
     return payload, diag
+
+
+# --------------------------------------------------------------------------
+# baseline planners (§V-A3, appendix C): sampling only, no imputation,
+# behind the same EdgePayload.  Each entry maps (counts, sigma, budget,
+# cost) -> integer allocation.
+# --------------------------------------------------------------------------
+
+BASELINES.register("srs",
+                   lambda counts, sigma, budget, cost: samplers.srs_allocation(
+                       counts, int(budget)))
+BASELINES.register("approx_iot",
+                   lambda counts, sigma, budget, cost:
+                   samplers.stratified_allocation(counts, int(budget)))
+BASELINES.register("s_voila",
+                   lambda counts, sigma, budget, cost:
+                   samplers.svoila_allocation(counts.astype(np.float64),
+                                              sigma, int(budget)))
+BASELINES.register("neyman_cost",
+                   lambda counts, sigma, budget, cost:
+                   samplers.neyman_cost_allocation(
+                       counts.astype(np.float64), sigma,
+                       np.ones(len(counts)) if cost is None
+                       else np.asarray(cost, np.float64), float(budget)))
+
+
+def plan_with_baseline(batch: WindowBatch, budget: float, method: str,
+                       key: Optional[tuple] = None, seed: int = 0,
+                       cost: Optional[np.ndarray] = None,
+                       device=None) -> EdgePayload:
+    """Plan one window with a baseline sampler (``BASELINES``: 'srs' |
+    'approx_iot' | 's_voila' | 'neyman_cost'): sampling only, no
+    imputation.  ``budget`` is in sample units (the allocators round);
+    ``cost`` is the optional (k,) per-stream sampling cost of the
+    cost-aware baseline.  ``key`` is a threefry key, by default
+    ``prng_key(seed ^ (window_id * 9176))``.
+
+    The window is uploaded to ``device`` once; its means and variances
+    and the sampler's permutations come back in one read; the allocation
+    is host numpy."""
+    allocate = BASELINES.get(method)
+    dev = resolve_device(device)
+    if key is None:
+        from repro_torch.runtime.threefry import prng_key
+        key = prng_key(seed ^ (int(batch.window_id) * 9176))
+    values = np.asarray(batch.values, np.float32)
+    counts = np.asarray(batch.counts)
+    v = torch.as_tensor(values, device=dev)
+    c = torch.as_tensor(counts.astype(np.int32), device=dev)
+    mean, var, _, _ = stats_mod.masked_central_moments(v, c)
+    host = host_arrays({"mean": mean, "var": var,
+                        "perms": samplers.stream_permutations(key, counts,
+                                                              device=dev)})
+    sigma = np.sqrt(np.maximum(host["var"], 0.0))
+    alloc = allocate(counts, sigma, budget, cost)
+    real_values = samplers.take_samples(values, counts, alloc,
+                                        host["perms"])
+    k = len(counts)
+    return EdgePayload(
+        window_id=int(batch.window_id),
+        n_real=np.asarray([len(r) for r in real_values], np.int64),
+        n_imputed=np.zeros(k, np.int64),
+        real_values=real_values,
+        model=None,
+        mean_imputation=True,
+        predictor=np.zeros(k, np.int64),
+        stats_digest={"mean": host["mean"], "var": host["var"]})

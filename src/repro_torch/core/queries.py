@@ -27,7 +27,13 @@ def vmax(x: np.ndarray) -> float:
     return float(np.max(x)) if len(x) else float("nan")
 
 
-QUERIES.defer("MEDIAN", "queue 1, 'Event path'")
+@QUERIES.register("MEDIAN")
+def median(x: np.ndarray) -> float:
+    return float(np.median(x)) if len(x) else float("nan")
+
+
+def quantile(x: np.ndarray, q: float) -> float:
+    return float(np.quantile(x, q)) if len(x) else float("nan")
 
 
 def nrmse(estimates: np.ndarray, truth: np.ndarray) -> float:

@@ -214,7 +214,7 @@ REDUCE_BLOCK = 32
 
 
 def _sequential_sum(x: Tensor) -> Tensor:
-    acc = torch.zeros_like(x[..., 0])
+    acc = x.new_zeros(x.shape[:-1])
     for j in range(x.shape[-1]):
         acc = acc + x[..., j]
     return acc
@@ -231,7 +231,7 @@ def blocked_sum(x: Tensor) -> Tensor:
     loses most of its digits in f32), so the reference's allocations
     depend on this order; summing in it keeps the port's allocations
     bitwise the reference's on the CPU.  Rows of 32 or fewer are summed
-    left to right.
+    left to right (an empty row sums to 0).
     """
     n = x.shape[-1]
     if n <= REDUCE_BLOCK:
@@ -505,6 +505,61 @@ def window_stats(values: Tensor, counts: Tensor,
     return StreamStats(count=counts, mean=mean, var=var, m4=m4,
                        var_of_var=vov, cov=_cov(a[0], n_pair_c),
                        corr=_corr(a[1], n_pair_c))
+
+
+# ---------------------------------------------------------------------------
+# Serial dependence within a stream (thinning and m-dependence, §IV-D).  The
+# reference calls these op by op, outside any compilation: each sum is a
+# standalone reduction (:func:`blocked_sum`'s order) and each product is
+# rounded on its own, so nothing here is contracted.
+# ---------------------------------------------------------------------------
+
+def _centred(x: Tensor, n_valid: Tensor):
+    """(mask, max(N, 1), masked deviations from the masked mean)."""
+    m = _mask(x, torch.as_tensor(n_valid, device=x.device))
+    n = torch.clamp(blocked_sum(m), min=1.0)
+    mean = blocked_sum(x * m) / n
+    return m, n, (x - mean[..., None]) * m
+
+
+def autocovariance(x: Tensor, n_valid, max_lag: int) -> Tensor:
+    """Autocovariances gamma_1..gamma_max_lag of the masked stream(s) ``x``
+    (..., N) with ``n_valid`` (...) valid tuples: (..., max_lag).  Used for
+    the m-dependence penalty (eq. 9) and thinning's stride (§V-F)."""
+    m, n, d = _centred(x, n_valid)
+    return torch.stack([_gamma(d, m, n, lag)
+                        for lag in range(1, max_lag + 1)], -1)
+
+
+def _gamma(d: Tensor, m: Tensor, n: Tensor, lag: int) -> Tensor:
+    n_max = d.shape[-1]
+    pair = m[..., :n_max - lag] * m[..., lag:]
+    return blocked_sum(d[..., :n_max - lag] * d[..., lag:] * pair) / n
+
+
+def pacf(x: Tensor, n_valid, max_lag: int) -> Tensor:
+    """Partial autocorrelations by Durbin–Levinson on the sample
+    autocovariances: (..., max_lag), in the reference's op order."""
+    m, n, d = _centred(x, n_valid)
+    gamma0 = blocked_sum(d * d) / n
+    gammas = [gamma0, *(_gamma(d, m, n, lag)
+                        for lag in range(1, max_lag + 1))]
+    phi_prev = [torch.zeros_like(gamma0) for _ in range(max_lag)]
+    pacfs = []
+    v = gamma0
+    for kk in range(1, max_lag + 1):
+        # phi_prev[:kk-1] . gammas[kk-1:0:-1], summed left to right
+        dot = torch.zeros_like(gamma0)
+        for j in range(kk - 1):
+            dot = dot + phi_prev[j] * gammas[kk - 1 - j]
+        phi_kk = (gammas[kk] - dot) / torch.clamp(v, min=_EPS)
+        pacfs.append(phi_kk)
+        if kk > 1:
+            phi_prev[:kk - 1] = [phi_prev[j] - phi_kk * phi_prev[kk - 2 - j]
+                                 for j in range(kk - 1)]
+        phi_prev[kk - 1] = phi_kk
+        v = v * (1.0 - phi_kk * phi_kk)
+    return torch.stack(pacfs, -1)
 
 
 # The fleet engine computes dependence from kernel sums (corr_from_sums on

@@ -1,8 +1,10 @@
-"""Algorithm-1 plan engines of the port (``batched``; the host and
-sharded engines are not ported yet)."""
+"""Algorithm-1 plan engines of the port (``host``/``host_loop`` and
+``batched``; the sharded engine is not ported yet)."""
 from repro_torch.planning.batched import BatchedEngine, FleetPlan, fleet_plan
-from repro_torch.planning.engine import (PlanEngine, UnsupportedPlanConfig,
-                                         assemble_payload)
+from repro_torch.planning.engine import (HOST_ENGINE, HostEngine, PlanEngine,
+                                         UnsupportedPlanConfig,
+                                         assemble_payload, host_loop_plan)
 
-__all__ = ["BatchedEngine", "FleetPlan", "PlanEngine",
-           "UnsupportedPlanConfig", "assemble_payload", "fleet_plan"]
+__all__ = ["BatchedEngine", "FleetPlan", "HOST_ENGINE", "HostEngine",
+           "PlanEngine", "UnsupportedPlanConfig", "assemble_payload",
+           "fleet_plan", "host_loop_plan"]

@@ -173,13 +173,10 @@ class BatchedEngine(PlanEngine):
         EPSILON_POLICIES.get(cfg.epsilon_policy)
         DEPENDENCE.get(cfg.dependence)
         if cfg.solver != "closed_form":
-            # one edge plans host-only solvers with engine=None; a fleet
-            # would need the fleet host engine
-            raise NotImplementedError(
-                f"solver {cfg.solver!r} is host-only; the batched pass "
-                f"implements 'closed_form', and the fleet host engine is "
-                f"not ported to repro_torch yet (ROADMAP.md: queue 1, "
-                f"'Event path')")
+            raise UnsupportedPlanConfig(
+                self.name, f"solver {cfg.solver!r} is host-only; the batched "
+                f"pass implements 'closed_form' (set PlannerConfig.solver="
+                f"'closed_form' or engine='host')")
         if cfg.iid_mode not in ("none", "iid"):
             raise UnsupportedPlanConfig(
                 self.name, f"iid_mode {cfg.iid_mode!r} is host-only "
@@ -215,6 +212,4 @@ class BatchedEngine(PlanEngine):
 
 
 ENGINES.register("batched", BatchedEngine())
-ENGINES.defer("host", "queue 1, 'Event path'")
-ENGINES.defer("host_loop", "queue 1, 'Event path'")
 ENGINES.defer("sharded", "queue 1, 'Sharding'")

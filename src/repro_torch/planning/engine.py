@@ -3,9 +3,11 @@
 
 An engine plans a fleet's (E, k, N) stack (:meth:`PlanEngine.plan_fleet`)
 and one window as its E = 1 case (:meth:`PlanEngine.plan_one`, which
-``plan_window`` routes to for ``engine="batched"``).  The fleet host
-engine (``"host"``, ``"host_loop"``) comes with ROADMAP.md queue 1,
-'Event path'; one edge's host planner is ``core.planner.plan_window``.
+``plan_window`` routes to for ``engine="batched"``).  The host engine
+(``"host"``, alias ``"host_loop"``) plans a fleet as E independent runs
+of the host planner (``core.planner._plan_window_host``) and returns the
+sites' payloads, samples drawn; it is the oracle the batched engine
+replaces.
 """
 from __future__ import annotations
 
@@ -13,9 +15,10 @@ from typing import Optional
 
 import numpy as np
 
-from repro_torch.api.registry import MODELS
+from repro_torch.api.registry import ENGINES, MODELS
 from repro_torch.core import samplers
-from repro_torch.core.planner import ModelSpec, PlanDiagnostics
+from repro_torch.core.planner import (ModelSpec, PlanDiagnostics,
+                                      _plan_window_host)
 from repro_torch.core.types import (Allocation, CompactModel, EdgePayload,
                                     PlannerConfig, WindowBatch)
 
@@ -120,3 +123,52 @@ class PlanEngine:
                                predictor=payload.predictor,
                                solver_feasible=alloc.feasible)
         return payload, diag
+
+
+class HostEngine(PlanEngine):
+    """E independent host-planner round trips — the oracle and baseline.
+
+    Every site of a window draws with the planner's default key,
+    ``prng_key(cfg.seed ^ window_id)``, as the reference's does.  Each
+    site's window is uploaded to ``device`` and read back once."""
+
+    name = "host"
+
+    def plan_fleet(self, values, counts, budgets, cfg, *, window_id=0,
+                   use_kernel=None, device=None) -> dict:
+        """``{"payloads": [E payloads], "r2": (E,)}``: each site's mean
+        explained-variance share (0 under mean imputation)."""
+        values = np.asarray(values, np.float32)
+        e = values.shape[0]
+        payloads, r2 = [], np.zeros(e)
+        for s in range(e):
+            batch = WindowBatch.from_numpy(values[s], counts[s], window_id)
+            payload, _ = _plan_window_host(batch, float(budgets[s]), cfg,
+                                           device=device)
+            payloads.append(payload)
+            if payload.model is not None:
+                ev = np.asarray(payload.model["explained_var"]
+                                if isinstance(payload.model, dict)
+                                else payload.model.explained_var)
+                var = np.maximum(payload.stats_digest["var"], 1e-12)
+                r2[s] = float(np.mean(np.clip(ev / var, 0.0, 1.0)))
+        return {"payloads": payloads, "r2": r2}
+
+    def plan_one(self, batch, budget, cfg, key=None, device=None):
+        return _plan_window_host(batch, budget, cfg, key, device)
+
+
+HOST_ENGINE = HostEngine()
+ENGINES.register("host", HOST_ENGINE, aliases=("host_loop",))
+
+
+def host_loop_plan(values: np.ndarray, counts: np.ndarray,
+                   budgets: np.ndarray, cfg: PlannerConfig, device=None):
+    """The path the batched engine replaces, as stacked (E, k) arrays:
+    (n_real, n_imputed, predictor)."""
+    out = HOST_ENGINE.plan_fleet(values, counts, budgets, cfg,
+                                 device=device)
+    payloads = out["payloads"]
+    return (np.stack([p.n_real for p in payloads]),
+            np.stack([p.n_imputed for p in payloads]),
+            np.stack([p.predictor for p in payloads]))

@@ -67,15 +67,19 @@ class ScanRuntime:
         cfg = self.cfg
         if self.method != "model":
             if self.method not in MODELS:
-                raise NotImplementedError(
+                raise ValueError(
                     f"method {self.method!r}: the scan runtime plans through "
-                    f"the model families ('model' or {MODELS.names()}); the "
-                    f"baselines run on the event path, which is not ported "
-                    f"to repro_torch yet (ROADMAP.md: queue 1, 'Event path')")
+                    f"the model families ('model' or {MODELS.names()}); "
+                    f"baselines need runtime='event'")
             cfg = dataclasses.replace(cfg, model=self.method)
         self.cfg_eff = cfg
         self.device = resolve_device(self.device)
+        from repro_torch.planning.batched import BatchedEngine
         self.engine = ENGINES.get(cfg.engine or "batched")
+        if not isinstance(self.engine, BatchedEngine):
+            raise ValueError(
+                f"engine {self.engine.name!r} cannot run inside the scan; "
+                f"the scan runtime needs the 'batched' or 'sharded' engine")
         self.engine.check(cfg)
         if self.adaptive is not None and self.topology is None:
             raise ValueError("adaptive re-planning requires a fleet "

@@ -23,7 +23,7 @@ from typing import Callable, Optional
 import numpy as np
 
 from repro_torch import resolve_device
-from repro_torch.api.registry import MODELS, not_ported
+from repro_torch.api.registry import BASELINES, MODELS, UnknownComponentError
 from repro_torch.core import queries as Q
 from repro_torch.core.reconstruct import reconstruct_window
 from repro_torch.core.types import EdgePayload, PlannerConfig, WindowBatch
@@ -68,18 +68,20 @@ class EdgeNode:
     """Caches one tumbling window then plans it (Algorithm 1).
 
     ``method`` ``"model"`` plans with ``cfg.model``; a registered model
-    family ("linear" | "cubic" | "mean" | "multi") pins that family; the
-    baselines come with ROADMAP.md queue 1, 'Event path'.  The budget is
+    family ("linear" | "cubic" | "mean" | "multi") pins that family; a
+    registered baseline ("srs" | "approx_iot" | "s_voila" |
+    "neyman_cost") bypasses the planner (``plan_with_baseline`` with
+    ``cfg.seed`` and ``cfg.cost_per_sample``).  The budget is
     ``budget_fraction`` of the window's tuples after stragglers, at least
-    2.  ``plan_seconds`` sums the planner's time, split into
-    ``device_seconds`` (upload, statistics, fit, permutations, read) and
-    ``solve_seconds`` (the host program); ``newton_steps`` sums the IPM's
-    steps.  ``device=None`` is the GPU.
+    2.  ``plan_seconds`` sums the planner's time, split for the planner
+    into ``device_seconds`` (upload, statistics, fit, permutations, read)
+    and ``solve_seconds`` (the host program); ``newton_steps`` sums the
+    IPM's steps.  ``device=None`` is the GPU.
     """
 
     cfg: PlannerConfig
     budget_fraction: float
-    method: str = "model"          # "model" | model names
+    method: str = "model"          # "model" | model names | baselines
     straggler_drop: Optional[Callable[[int, int], bool]] = None
     plan_seconds: float = 0.0
     device: object = None
@@ -88,13 +90,15 @@ class EdgeNode:
     newton_steps: int = 0
 
     def __post_init__(self):
-        if self.method != "model" and self.method not in MODELS:
-            raise not_ported(f"baseline method {self.method!r}",
-                             "Event path")
+        if not (self.method == "model" or self.method in MODELS
+                or self.method in BASELINES):
+            raise UnknownComponentError(
+                "method", self.method,
+                ("model", *MODELS.names(), *BASELINES.names()))
         self.device = resolve_device(self.device)
 
     def process_window(self, batch: WindowBatch) -> EdgePayload:
-        from repro_torch.core.planner import plan_window
+        from repro_torch.core.planner import plan_window, plan_with_baseline
         values = np.asarray(batch.values)
         counts = np.asarray(batch.counts).copy()
         wid = int(batch.window_id)
@@ -104,9 +108,16 @@ class EdgeNode:
                     counts[i] = 0            # missed the deadline entirely
         batch = WindowBatch.from_numpy(values, counts, wid)
         budget = max(int(self.budget_fraction * int(np.sum(counts))), 2)
+        t0 = time.perf_counter()
+        if self.method in BASELINES:
+            payload = plan_with_baseline(batch, budget, self.method,
+                                         seed=self.cfg.seed,
+                                         cost=self.cfg.cost_per_sample,
+                                         device=self.device)
+            self.plan_seconds += time.perf_counter() - t0
+            return payload
         cfg = (self.cfg if self.method == "model"
                else dataclasses.replace(self.cfg, model=self.method))
-        t0 = time.perf_counter()
         payload, diag = plan_window(batch, budget, cfg, device=self.device)
         self.plan_seconds += time.perf_counter() - t0
         self.device_seconds += diag.device_seconds

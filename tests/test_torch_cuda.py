@@ -550,15 +550,16 @@ def test_cuda_event_loop_matches_cpu(cuda, use_kernel):
 @pytest.mark.cuda
 @pytest.mark.parametrize("use_kernel", [False, None, True])
 def test_cuda_sweep_over_the_event_goldens(cuda, use_kernel):
-    """The four fleet event goldens on the card against
+    """The five fleet event goldens on the card against
     tests/torch_goldens: no drift (on the fused fit's path held to the
-    runner's recorded classes and kernel-path reports)."""
+    runner's recorded classes and kernel-path reports; the host engine's
+    golden runs no kernel, so it is held to its own class on both)."""
     from repro_torch.sweep import runner
     logged = []
     code = runner.run_sweep(pattern="fleet_event", device="cuda",
                             use_kernel=use_kernel, log=logged.append)
     assert code == 0, "\n".join(logged)
-    assert "4 scenario(s) checked" in logged[-1]
+    assert "5 scenario(s) checked" in logged[-1]
 
 
 # ---- the host planner and the single-edge event loop on the card -----------
@@ -639,14 +640,102 @@ def test_cuda_host_planner_equals_cpu(cuda, dataset, k_n, family):
 @pytest.mark.cuda
 @pytest.mark.parametrize("use_kernel", [None, True])
 def test_cuda_sweep_over_the_single_event_goldens(cuda, use_kernel):
-    """The five single-edge event goldens on the card against
+    """The seven single-edge event goldens on the card against
     tests/torch_goldens: no drift in their ``exact`` class (the host
-    planner runs no kernel, so the setting changes nothing)."""
+    planner and the baselines run no kernel, so the setting changes
+    nothing)."""
     from repro_torch.sweep import runner
     logged = []
     before = (ss_ops.LAUNCHES, poly_ops.LAUNCHES)
     code = runner.run_sweep(pattern="single_event", device="cuda",
                             use_kernel=use_kernel, log=logged.append)
     assert code == 0, "\n".join(logged)
-    assert "5 scenario(s) checked" in logged[-1]
+    assert "7 scenario(s) checked" in logged[-1]
     assert (ss_ops.LAUNCHES, poly_ops.LAUNCHES) == before
+
+
+def _same_payloads(got, want):
+    import numpy as np
+    for f in ("n_real", "n_imputed", "predictor"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+    assert len(got.real_values) == len(want.real_values)
+    for g, w in zip(got.real_values, want.real_values):
+        assert np.array_equal(g, w)
+    for f in ("mean", "var"):
+        assert np.array_equal(got.stats_digest[f], want.stats_digest[f])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["approx_iot", "neyman_cost", "s_voila",
+                                    "srs"])
+@pytest.mark.parametrize("dataset,k_n", [("smartcity", (5, 256)),
+                                         ("turbine", (8, 4096))],
+                         ids=lambda v: str(v))
+def test_cuda_baseline_planner_equals_cpu(cuda, dataset, k_n, method):
+    """``plan_with_baseline`` on the card and on the CPU: the payload
+    bitwise (allocations, samples, stats digest), no fleet kernel."""
+    from repro_torch.core.planner import plan_with_baseline
+    from repro_torch.core.types import WindowBatch
+    k = k_n[0]
+    cost = tuple(1.0 + 0.5 * (i % 3) for i in range(k))
+    for values, counts, wid in _single_windows(dataset, k_n):
+        batch = WindowBatch.from_numpy(values, counts, wid)
+        budget = max(int(0.26 * counts.sum()), 2)
+        want = plan_with_baseline(batch, budget, method, seed=9, cost=cost,
+                                  device="cpu")
+        before = (ss_ops.LAUNCHES, poly_ops.LAUNCHES)
+        got = plan_with_baseline(batch, budget, method, seed=9, cost=cost,
+                                 device=cuda)
+        assert (ss_ops.LAUNCHES, poly_ops.LAUNCHES) == before
+        _same_payloads(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["thinning", "m_dependence"])
+@pytest.mark.parametrize("dataset,k_n", [("smartcity", (5, 256)),
+                                         ("turbine", (8, 4096))],
+                         ids=lambda v: str(v))
+def test_cuda_iid_modes_equal_cpu(cuda, dataset, k_n, mode):
+    """The host planner under thinning and m-dependence on the card and on
+    the CPU: strides and payload bitwise, no fleet kernel."""
+    import numpy as np
+    from repro_torch.core.planner import plan_window
+    from repro_torch.core.types import PlannerConfig, WindowBatch
+    cfg = PlannerConfig(iid_mode=mode, m_lags=2, seed=13)
+    for values, counts, wid in _single_windows(dataset, k_n):
+        batch = WindowBatch.from_numpy(values, counts, wid)
+        budget = max(int(0.3 * counts.sum()), 2)
+        want, wdiag = plan_window(batch, budget, cfg, device="cpu")
+        before = (ss_ops.LAUNCHES, poly_ops.LAUNCHES)
+        got, gdiag = plan_window(batch, budget, cfg, device=cuda)
+        assert (ss_ops.LAUNCHES, poly_ops.LAUNCHES) == before
+        _same_payloads(got, want)
+        assert (gdiag.strides is None) == (mode == "m_dependence")
+        if gdiag.strides is not None:
+            assert np.array_equal(gdiag.strides, wdiag.strides)
+
+
+@pytest.mark.cuda
+def test_cuda_host_engine_equals_cpu(cuda):
+    """``fleet_event_host_engine`` on the card and on the CPU: every
+    counter, the WAN bytes (the live reference's 4796) and every NRMSE
+    table bitwise, no fleet kernel."""
+    import json
+    import pathlib
+    import numpy as np
+    from repro_torch.api.experiment import Experiment
+    from repro_torch.api.scenario import ScenarioConfig
+    path = (pathlib.Path(__file__).parent / "goldens" / "scenarios"
+            / "fleet_event_host_engine.json")
+    sc = ScenarioConfig.from_dict(json.loads(path.read_text())["scenario"])
+    want = Experiment.from_scenario(sc, device="cpu").run()
+    before = (ss_ops.LAUNCHES, poly_ops.LAUNCHES)
+    got = Experiment.from_scenario(sc, device=cuda).run()
+    assert (ss_ops.LAUNCHES, poly_ops.LAUNCHES) == before
+    assert got.wan_bytes == want.wan_bytes == 4796
+    for f in ("gaps", "revisions", "late_drops", "duplicates",
+              "retransmits"):
+        assert getattr(got, f) == getattr(want, f), f
+    for q in want.nrmse_per_stream:
+        assert np.array_equal(got.nrmse_per_stream[q],
+                              want.nrmse_per_stream[q], equal_nan=True), q

@@ -36,6 +36,7 @@ from repro.fleet.controller import water_fill as ref_water_fill
 from repro.runtime.step import draw_fleet_samples as ref_draw
 from repro.streaming.events import AsyncTransport as RefTransport
 from repro.streaming.events import ReorderCloudNode as RefCloud
+from repro.sweep.report import serialize_report as ref_serialize
 from repro_torch.adaptive import AdaptivePolicy, AdaptiveSpec
 from repro_torch.api.experiment import Experiment, FleetRuntime
 from repro_torch.api.scenario import ScenarioConfig
@@ -43,6 +44,8 @@ from repro_torch.core.types import CompactModel, EdgePayload
 from repro_torch.fleet.controller import BudgetController, water_fill
 from repro_torch.runtime.step import draw_fleet_samples
 from repro_torch.streaming import AsyncTransport, ReorderCloudNode
+from repro_torch.sweep.diff import diff_reports
+from repro_torch.sweep.report import serialize_report
 
 GOLDENS = pathlib.Path(__file__).parent / "goldens" / "scenarios"
 E, K, W = 8, 4, 64
@@ -527,19 +530,38 @@ def test_event_loop_reproduces_the_port_scan_given_its_plans():
 # -------------------------------------------------------------- refusals
 
 @pytest.mark.parametrize("change,item", [
-    ({"topology": None, "data": {"dataset": "turbine", "n_points": 256,
-                                 "window": 64, "seed": 1, "options": {}},
-      "planner": {"iid_mode": "thinning"}},
-     "Event path"),
-    ({"planner": {"engine": "host"}}, "Event path"),
-    ({"planner": {"solver": "ipm"}}, "Event path"),
-    ({"method": "srs"}, "Event path"),
     ({"planner": {"engine": "sharded"}}, "Sharding"),
 ])
 def test_what_the_event_loop_cannot_run_names_its_item(change, item):
     sc = ScenarioConfig.from_dict(_scenario(**change))
     with pytest.raises(NotImplementedError, match=item):
         Experiment.from_scenario(sc, device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    {"topology": None, "data": {"dataset": "turbine", "n_points": 256,
+                                "window": 64, "seed": 1, "options": {}},
+     "planner": {"iid_mode": "thinning"}},
+    {"planner": {"engine": "host"}},
+    {"method": "srs"},                   # a fleet plans with planner.model
+], ids=["thinning", "host_engine", "fleet_ignores_method"])
+def test_what_the_event_loop_runs_since_slice_12_is_the_reference_s(change):
+    d = _scenario(**change)
+    want = ref_serialize(RefExperiment.from_scenario(
+        RefScenario.from_dict(d)).run(), name="x", tolerance="exact")
+    got = serialize_report(Experiment.from_scenario(
+        ScenarioConfig.from_dict(d), device="cpu").run(), name="x",
+        tolerance="exact")
+    assert diff_reports(want, got) == []
+
+
+def test_a_fleet_needs_the_host_engine_for_a_host_only_solver():
+    d = _scenario(planner={"solver": "ipm"})
+    msg = "solver 'ipm' is host-only"
+    with pytest.raises(ValueError, match=msg):
+        RefExperiment.from_scenario(RefScenario.from_dict(d))
+    with pytest.raises(ValueError, match=msg):
+        Experiment.from_scenario(ScenarioConfig.from_dict(d), device="cpu")
 
 
 def test_the_scan_refuses_stragglers_and_the_query_split():

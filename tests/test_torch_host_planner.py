@@ -286,10 +286,6 @@ def test_plan_one_is_the_reference_s():
 
 def test_the_host_planner_refuses_what_is_not_ported():
     w = WindowBatch.from_numpy(np.ones((3, 8), np.float32))
-    for mode in ("thinning", "m_dependence"):
-        with pytest.raises(NotImplementedError, match="Event path"):
-            planner.plan_window(w, 4, PlannerConfig(iid_mode=mode),
-                                device="cpu")
     with pytest.raises(NotImplementedError, match="Sharding"):
         planner.plan_window(w, 4, PlannerConfig(engine="sharded"),
                             device="cpu")

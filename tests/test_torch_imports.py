@@ -26,6 +26,14 @@ def _port_modules() -> list:
     return mods
 
 
+def test_every_module_of_the_port_is_imported_here():
+    """The walk below covers the modules the port's later slices add."""
+    mods = _port_modules()
+    for m in ("repro_torch.core.thinning", "repro_torch.core.samplers",
+              "repro_torch.planning.engine"):
+        assert m in mods
+
+
 def test_importing_the_port_leaves_jax_and_repro_out():
     """Importing every module of the port imports no JAX, no ``repro``
     and no Triton, and builds or loads no kernel library."""

@@ -119,10 +119,9 @@ def test_fleet_plan_from_numpy_takes_a_reference_plan():
 def test_unported_configurations_name_their_roadmap_item():
     from repro_torch.api.registry import ENGINES
     engine = ENGINES.get("batched")
-    with pytest.raises(NotImplementedError, match="Event path"):
+    with pytest.raises(ValueError, match="or engine='host'"):
         engine.check(PlannerConfig())           # solver="ipm" by default
-    with pytest.raises(NotImplementedError, match="Event path"):
-        ENGINES.get("host")
+    ENGINES.get("host").check(PlannerConfig())  # the host engine plans it
     with pytest.raises(NotImplementedError, match="Sharding"):
         ENGINES.get("sharded")
     # every model family plans in the batched engine

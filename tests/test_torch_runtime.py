@@ -138,21 +138,31 @@ def test_resume_from_reference_carry(windows, reference):
 
 
 @pytest.mark.parametrize("change,item", [
-    ({"runtime": "event", "planner": dict(SCENARIO["planner"],
-                                          engine="host")}, "Event path"),
     ({"runtime": "scan_sharded"}, "Sharding"),
-    ({"runtime": "event", "adaptive": {"detector": "always"},
-      "planner": dict(SCENARIO["planner"], solver="slsqp")}, "Event path"),
-    ({"runtime": "event", "chaos": {"joins": [[2, 0]]}, "method": "srs"},
-     "Event path"),
-    ({"method": "srs"}, "Event path"),
-    ({"planner": dict(SCENARIO["planner"], solver="ipm")}, "Event path"),
     ({"planner": dict(SCENARIO["planner"], engine="sharded")}, "Sharding"),
 ])
 def test_unported_scenarios_name_their_roadmap_item(change, item):
     sc = ScenarioConfig.from_dict(dict(SCENARIO, **change))
     with pytest.raises(NotImplementedError, match=item):
         Experiment.from_scenario(sc, device="cpu")
+
+
+@pytest.mark.parametrize("change,match", [
+    ({"runtime": "event", "adaptive": {"detector": "always"},
+      "planner": dict(SCENARIO["planner"], solver="slsqp")},
+     "solver 'slsqp' is host-only"),
+    ({"method": "srs"}, "needs runtime='event'"),
+    ({"planner": dict(SCENARIO["planner"], solver="ipm")},
+     "solver 'ipm' is host-only"),
+    ({"planner": dict(SCENARIO["planner"], engine="host")},
+     "needs the 'batched' or 'sharded'"),
+], ids=["adaptive_slsqp", "scan_baseline", "scan_ipm", "scan_host_engine"])
+def test_scenarios_the_reference_refuses_are_refused(change, match):
+    d = dict(SCENARIO, **change)
+    with pytest.raises(ValueError, match=match):
+        RefExperiment.from_scenario(RefScenario.from_dict(d))
+    with pytest.raises(ValueError, match=match):
+        Experiment.from_scenario(ScenarioConfig.from_dict(d), device="cpu")
 
 
 def test_reference_scan_plan_differs_from_its_standalone_plan(windows):

@@ -347,7 +347,7 @@ def test_scan_runtime_refuses_ragged_windows_and_baselines():
     short = WindowBatch.from_numpy(np.ones((5, 8)), counts=[8, 8, 7, 8, 8])
     with pytest.raises(ValueError, match="full windows"):
         rt.run([short])
-    with pytest.raises(NotImplementedError, match="Event path"):
+    with pytest.raises(ValueError, match="baselines need runtime='event'"):
         ScanRuntime.from_scenario(
             ScenarioConfig.from_dict(_scenario("single_scan", "srs")),
             device="cpu")

@@ -126,9 +126,6 @@ def test_a_cycled_pool_keeps_the_clock():
 
 
 @pytest.mark.parametrize("name,item", [
-    ("single_event_baseline_srs", "Event path"),
-    ("single_event_linear_alpha", "Event path"),
-    ("fleet_event_host_engine", "Event path"),
     ("fleet_event_sharded_static", "Sharding"),
     ("fleet_scan_sharded", "Sharding"),
 ])

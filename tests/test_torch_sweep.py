@@ -8,8 +8,8 @@
 * ``python -m repro_torch.sweep --check --filter scan --device cpu``
   checks the seven scan goldens the port runs, each in its own class, and
   names the one it cannot run yet; with no filter it checks those, the
-  four fleet event goldens and the five single-edge event goldens, and
-  names the five it cannot run yet, each with its ROADMAP item
+  five fleet event goldens and the seven single-edge event goldens, and
+  names the two it cannot run yet, each with its ROADMAP item
   (``test_torch_sweep_scan_cli.py`` and ``test_torch_sweep_all_cli.py``
   run the two, each in a file of its own so that they can run on
   separate workers).
@@ -46,19 +46,18 @@ SCAN_GOLDENS = ["fleet_scan", "fleet_scan_adaptive_ph",
                 "fleet_scan_steps_static", "single_scan", "single_scan_steps"]
 EVENT_GOLDENS = ["fleet_event_adaptive_threshold",
                  "fleet_event_batched_rebalance", "fleet_event_chaos_flap",
-                 "fleet_event_cost_aware_wan"]
-# one edge on the event clock, the host planner and its f64 IPM
+                 "fleet_event_cost_aware_wan",
+                 # the host engine: the host planner at every site
+                 "fleet_event_host_engine"]
+# one edge on the event clock, the host planner and its f64 IPM (a
+# baseline sampler in place of the planner in baseline_srs)
 SINGLE_EVENT_GOLDENS = [f"single_event_{n}" for n in (
-    "cubic", "drop_gaps", "jitter_bandwidth", "latency_revise",
-    "retransmit")]
+    "baseline_srs", "cubic", "drop_gaps", "jitter_bandwidth",
+    "latency_revise", "linear_alpha", "retransmit")]
 PORTED = sorted(SCAN_GOLDENS + EVENT_GOLDENS + SINGLE_EVENT_GOLDENS)
 NOT_PORTED = {"fleet_scan_sharded": "Sharding"}
 # every golden the port cannot run yet, with its item
-ALL_NOT_PORTED = {
-    **NOT_PORTED, "fleet_event_sharded_static": "Sharding",
-    "fleet_event_host_engine": "Event path",
-    "single_event_baseline_srs": "Event path",
-    "single_event_linear_alpha": "Event path"}
+ALL_NOT_PORTED = {**NOT_PORTED, "fleet_event_sharded_static": "Sharding"}
 
 
 def golden_class(name: str) -> str:
@@ -182,10 +181,9 @@ def test_sweep_list_lint_and_usage():
     assert len(logged) == 21
     marked = [ln.split()[1] for ln in logged if ln.startswith(" *")]
     assert marked == sorted([*SCAN_GOLDENS, *NOT_PORTED])
-    for item in ("Event path", "Sharding"):
-        assert sum(f"not ported: queue 1, '{item}'" in ln
-                   for ln in logged) == sum(
-            v == item for v in ALL_NOT_PORTED.values())
+    assert sum("not ported: queue 1, 'Sharding'" in ln
+               for ln in logged) == len(ALL_NOT_PORTED) == 2
+    assert not any("'Event path'" in ln for ln in logged)
     from repro_torch.sweep.__main__ import main
     assert main(["--check", "--filter", "no_such_scenario",
                  "--device", "cpu"]) == 2
