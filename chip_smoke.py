@@ -109,14 +109,24 @@ Phases, one JSON line each; any failed check exits non-zero:
      thinning and m-dependence: the strides, AVG NRMSE and windows/sec;
  22. slice 12's host engine path: ``fleet_event_host_engine``'s planner
      and controller on fleet_bench's fleet (``HOST_ENGINE``: 16 sites,
-     k = 6, N = 128, T = 8): plan seconds a site, windows/sec, the WAN
-     fraction; in 20-22 rows 1 and 2 launched 0 times, and each run
-     repeated on the CPU, every allocation (and stride, and r2), counter
-     and NRMSE bitwise;
- 23. the kernels line, then ``{"ok": true, "device": {...}}`` last.
+     k = 6, N = 128, T = 4; 8 before slice 13): plan seconds a site,
+     windows/sec, the WAN fraction; in 20-22 rows 1 and 2 launched 0
+     times, and each run repeated on the CPU, every allocation (and
+     stride, and r2), counter and NRMSE bitwise;
+ 23. slice 13's site sharding at the main path's width (``SHARDED``):
+     ``runtime="scan_sharded"`` in this process (world size 1) for
+     ``SHARDED["T"]`` windows, bitwise ``runtime="scan"``'s run (every
+     per-window table, every NRMSE, the final state); then two ranks on a
+     gloo group, both on the one card, each over half the fleet for
+     ``SHARDED["T_ranks"]`` windows, bitwise this process's run of as many
+     windows, with rows 1 and 2 launched 2 and 1 times a window on each
+     rank; and ``engine="sharded"`` on the fleet event path in this
+     process and on the two ranks, bitwise ``engine="batched"``'s run;
+     windows/sec at world sizes 1 and 2;
+ 24. the kernels line, then ``{"ok": true, "device": {...}}`` last.
 
-Phase 12's sweep also runs the five fleet event goldens and the seven
-single-edge event goldens (nineteen goldens in all), their counters held
+Phase 12's sweep also runs the six fleet event goldens and the seven
+single-edge event goldens (all twenty-one goldens), their counters held
 also against the live reference's (``EVENT_REF``).
 
 Detailed profiles go to ``chiprun_out/``.
@@ -190,6 +200,9 @@ EVENT_REF = {"fleet_event_batched_rebalance": {"wan_bytes": 10816,
                                                 "planner_invocations": 6},
              "fleet_event_chaos_flap": {"wan_bytes": 10412, "gaps": 3},
              "fleet_event_host_engine": {"wan_bytes": 4796, "gaps": 0},
+             # slice 13: the two sharding goldens (one JAX device)
+             "fleet_scan_sharded": {"wan_bytes": 11080, "gaps": 0},
+             "fleet_event_sharded_static": {"wan_bytes": 3568, "gaps": 0},
              # slice 11: the five single-edge event goldens (the reference's
              # IPM run with the x64 workaround of the port's tests), and
              # slice 12's two
@@ -226,7 +239,7 @@ IID = {"data": {"dataset": "smartcity", "n_points": 3072, "window": 256,
                 "seed": 13, "options": {}},
        "budget_fraction": 0.3, "m_lags": 1,
        "modes": ["iid", "thinning", "m_dependence"]}
-HOST_ENGINE = {"T": 8,
+HOST_ENGINE = {"T": 4,
                "data": {"dataset": "fleet", "window": 128, "seed": 2,
                         "options": {"k": 6,
                                     "region_strength": [0.9, 0.7, 0.4, 0.15],
@@ -234,6 +247,12 @@ HOST_ENGINE = {"T": 8,
                                                           3.0]}},
                "topology": {"n_regions": 4, "sites_per_region": 4, "seed": 2,
                             "hetero_links": True, "latency_scale": 1.0}}
+# slice 13: site sharding on the main path's fleet, planner and windows:
+# T windows in this process, T_ranks on each of ``world`` gloo ranks
+# sharing the card, T_event windows of the fleet event loop on the sharded
+# engine; the ranks' run fails past ``timeout_s``
+SHARDED = {"T": 20, "T_ranks": 8, "T_event": 2, "world": 2,
+           "timeout_s": 420}
 # the fleet event path: the main path's fleet, planner and windows on the
 # WAN of fleet_event_cost_aware_wan (heterogeneous links, latency_scale 1,
 # 30 ms jitter, 10% drops, a 100 ms period, link-cost-aware controller),
@@ -732,16 +751,25 @@ def main() -> int:
     iid = iid_path(torch, card_line)
     host_engine = host_engine_path(torch, card_line)
 
-    # ---- 23. the kernels line and the result -----------------------------
-    # launches: rows 1 and 2 on the eight runtime paths driven with the
-    # counts at 0 (main_path, adaptive_path, chaos_path, event_path, and
+    # ---- 23. slice 13: site sharding --------------------------------------
+    sharded = sharded_path(torch, windows, main_scenario(
+        k, N, MAIN["n_regions"], MAIN["sites_per_region"],
+        MAIN["pool"] * N), card_line)
+
+    # ---- 24. the kernels line and the result -----------------------------
+    # launches: rows 1 and 2 on the runtime paths driven with the counts
+    # at 0 (main_path, adaptive_path, chaos_path, event_path, and
     # single_event_path, baseline_path, iid_path and host_engine_path,
-    # which launch neither), rows 3 and 4 on the kernel entry points
+    # which launch neither; sharded_path in this process and
+    # sharded_path_ranks summed over its two ranks), rows 3 and 4 on the
+    # kernel entry points
     by_path = {n: ({"main_path": launches[n], "adaptive_path": adaptive[n],
                     "chaos_path": chaos[n], "event_path": event[n],
                     "single_event_path": single_event[n],
                     "baseline_path": baseline[n], "iid_path": iid[n],
-                    "host_engine_path": host_engine[n]}
+                    "host_engine_path": host_engine[n],
+                    "sharded_path": sharded["in_process"][n],
+                    "sharded_path_ranks": sharded["ranks"][n]}
                    if n in adaptive else {"kernel_entry_points": launches[n]})
                for n in KERNELS}
     emit({"kernels": [dict(name=n, route="cuda", source=KERNELS[n][0],
@@ -1142,8 +1170,8 @@ def single_edge_phases(torch, dev) -> None:
 
 
 def golden_sweep_phase(torch) -> None:
-    """Phase 12: the port's sweep on the card over the nineteen goldens it
-    runs (seven scan, five fleet event, seven single-edge event), with the
+    """Phase 12: the port's sweep on the card over all twenty-one goldens
+    (eight scan, six fleet event, seven single-edge event), with the
     kernels (each golden of
     the runner's ``KERNEL_CLASS_GAPS`` held to its recorded f32 class) and
     with the plain versions (every golden in its own class), against the
@@ -1202,7 +1230,7 @@ def golden_sweep_phase(torch) -> None:
     emit({"phase": "golden_sweep_seconds",
           "seconds": time.perf_counter() - t0, "checked": len(scen),
           "not_ported": skipped})
-    if len(scen) != 19 or bad:
+    if len(scen) != 21 or skipped or bad:
         raise AssertionError(f"golden sweep on the card: {len(scen)} "
                              f"scenarios checked, drifts in {bad}")
 
@@ -1399,8 +1427,8 @@ def chaos_phases(torch, windows, scenario: dict) -> dict:
     sums, stacked = [], []
     budgets_fn, stack_fn = step_mod.controller_budgets, scan_mod._stack_outputs
 
-    def hooked(state, p, live=None):
-        out = budgets_fn(state, p, live=live)
+    def hooked(state, p, live=None, shard=None):
+        out = budgets_fn(state, p, live=live, shard=shard)
         host = ControllerState(**{f: getattr(state, f).cpu() for f in
                                   ControllerState.__dataclass_fields__})
         cpu = budgets_fn(host, p, live=None if live is None else live.cpu())
@@ -1962,6 +1990,204 @@ def _fleet_runs(torch, sc, record) -> dict:
             torch.cuda.synchronize()
         out[device] = (rep, seen, _row_launches())
     return out
+
+
+def _run_arrays(rep, prefix: str = "") -> dict:
+    """A fleet run's report as named host arrays: the counters, every
+    NRMSE table, the byte and budget histories, the plan's per-window
+    tables, the controller's demand and (a scan's) final state."""
+    import numpy as np
+    from repro_torch.ckpt import flatten
+    raw = rep.raw
+    out = {c: np.asarray(getattr(rep, c)) for c in (
+        "wan_bytes", "wan_cost", "full_bytes", "gaps", "revisions",
+        "late_drops", "duplicates", "retransmits")}
+    for q, v in rep.nrmse_per_stream.items():
+        out[f"nrmse_per_stream/{q}"] = np.asarray(v)
+    out["budget_history"] = np.asarray(raw["budget_history"])
+    for key in ("bytes_history", "controller_demand"):
+        if key in raw:
+            out[key] = np.asarray(raw[key])
+    for key, v in raw.get("plan_raw", {}).items():
+        out[f"plan_raw/{key}"] = np.asarray(v)
+    if "final_state" in raw:
+        out.update({f"final_state{path}": a
+                    for path, a in flatten(raw["final_state"]).items()})
+    return {prefix + key: v for key, v in out.items()}
+
+
+def _sharded_experiment(scenario: dict, **change):
+    from repro_torch.api.experiment import Experiment
+    from repro_torch.api.scenario import ScenarioConfig
+    return Experiment.from_scenario(
+        ScenarioConfig.from_dict(dict(scenario, **change)), use_kernel=True,
+        collect="estimates", device="cuda")
+
+
+def _event_change(scenario: dict, engine: str) -> dict:
+    return {"runtime": "event",
+            "planner": dict(scenario["planner"], engine=engine)}
+
+
+def _sharded_rank(rank: int, world: int, tmp: str, scenario: dict,
+                  plan: dict) -> None:
+    """One rank of phase 23 (spawned): its share of the fleet on the
+    shared card, the sharded scan over ``plan["T_ranks"]`` windows and the
+    event loop on the sharded engine over ``plan["T_event"]``; its report
+    arrays to ``rank<r>.npz``, its launches and pace to ``rank<r>.json``.
+    ``plan`` is the caller's ``SHARDED``."""
+    import datetime
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{tmp}/rendezvous", rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=plan["timeout_s"]))
+    try:
+        windows = list(np.load(os.path.join(tmp, "windows.npy")))
+        _sharded_experiment(scenario).run(windows, n_windows=2)  # warm-up
+        ex = _sharded_experiment(scenario)
+        _zero_row_launches()
+        rep = ex.run(windows, n_windows=plan["T_ranks"])
+        torch.cuda.synchronize()
+        launches = _row_launches()
+        ev_ex = _sharded_experiment(scenario,
+                                    **_event_change(scenario, "sharded"))
+        _zero_row_launches()
+        ev = ev_ex.run(windows, n_windows=plan["T_event"])
+        torch.cuda.synchronize()
+        ev_launches = _row_launches()
+        np.savez(os.path.join(tmp, f"rank{rank}.npz"),
+                 **_run_arrays(rep, "scan/"), **_run_arrays(ev, "event/"))
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump({"rows": ex.runtime.shard.rows,
+                       "offset": ex.runtime.shard.offset,
+                       "launches": launches, "event_launches": ev_launches,
+                       "windows_per_sec": rep.raw["windows_per_sec"],
+                       "event_windows_per_sec": ev.raw["windows_per_sec"]},
+                      f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _same_arrays(a: dict, b: dict) -> dict:
+    """Per key, whether two runs' arrays are equal bit for bit (NaN where
+    NaN); a key one run lacks is unequal."""
+    import numpy as np
+    return {key: (key in a and key in b and a[key].dtype == b[key].dtype
+                  and np.array_equal(a[key], b[key],
+                                     equal_nan=a[key].dtype.kind == "f"))
+            for key in sorted(set(a) | set(b))}
+
+
+def sharded_path(torch, windows, scenario: dict, card_line: str) -> dict:
+    """Phase 23: site sharding at the main path's width.  In this process
+    (world size 1), ``runtime="scan_sharded"`` against ``runtime="scan"``
+    over ``SHARDED["T"]`` windows and ``engine="sharded"`` against
+    ``"batched"`` on the fleet event loop; then ``SHARDED["world"]`` gloo
+    ranks spawned on the one card, each over its half of the fleet, held
+    bitwise against this process's runs of as many windows, with rows 1
+    and 2 launched 2 and 1 times a planned window on every rank.  Returns
+    the launches of rows 1 and 2: this process's sharded scan
+    (``in_process``) and the ranks' scans summed (``ranks``)."""
+    import tempfile
+    import numpy as np
+    import torch.multiprocessing as mp
+    t_all = time.perf_counter()
+    T, T_r, T_e, world = (SHARDED["T"], SHARDED["T_ranks"],
+                          SHARDED["T_event"], SHARDED["world"])
+    scenario = dict(scenario, runtime="scan_sharded")
+    _sharded_experiment(scenario).run(windows, n_windows=2)      # warm-up
+    ex = _sharded_experiment(scenario)
+    _zero_row_launches()
+    rep_s = ex.run(windows, n_windows=T)
+    torch.cuda.synchronize()
+    launches = _row_launches()
+    rep_b = _sharded_experiment(scenario, runtime="scan").run(
+        windows, n_windows=T)
+    same_w1 = _same_arrays(_run_arrays(rep_s), _run_arrays(rep_b))
+    want = {**_run_arrays(_sharded_experiment(scenario).run(
+                windows, n_windows=T_r), "scan/"),
+            **_run_arrays(_sharded_experiment(
+                scenario, **_event_change(scenario, "batched")).run(
+                windows, n_windows=T_e), "event/")}
+    ev_s = _run_arrays(_sharded_experiment(
+        scenario, **_event_change(scenario, "sharded")).run(
+        windows, n_windows=T_e), "event/")
+    same_event_w1 = _same_arrays(ev_s, {key: v for key, v in want.items()
+                                        if key.startswith("event/")})
+    emit({"phase": "sharded_path", "card": card_line, "world": 1,
+          "E": ex.runtime.n_sites, "k": windows[0].shape[1],
+          "N": windows[0].shape[-1], "T": T,
+          "windows_per_sec": rep_s.raw["windows_per_sec"],
+          "windows_per_sec_scan": rep_b.raw["windows_per_sec"],
+          "wan_bytes": rep_s.wan_bytes, "nrmse": rep_s.nrmse,
+          "launches": launches,
+          "bitwise_scan": all(same_w1.values()),
+          "bitwise_event_engine": all(same_event_w1.values()),
+          "compared": len(same_w1) + len(same_event_w1)})
+    if launches != {"stream_stats_fleet": 2 * T, "polyfit": T}:
+        raise AssertionError(f"sharded path launches {launches}, want "
+                             f"stream_stats_fleet {2 * T}, polyfit {T}")
+    if not (all(same_w1.values()) and all(same_event_w1.values())):
+        raise AssertionError(
+            "sharded path at world size 1 differs: "
+            f"{[k for k, v in {**same_w1, **same_event_w1}.items() if not v]}")
+    if not all(np.isfinite(v) for v in rep_s.nrmse.values()):
+        raise AssertionError(f"sharded path NRMSE {rep_s.nrmse}")
+
+    # the ranks: the kernels are built already, so they only load them
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(os.path.join(tmp, "windows.npy"), np.stack(windows))
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_sharded_rank,
+                                 args=(world, tmp, scenario, dict(SHARDED)),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > SHARDED["timeout_s"]:
+                    raise AssertionError(
+                        f"the {world} sharded ranks did not finish in "
+                        f"{SHARDED['timeout_s']} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                p.join(timeout=30)
+        ranks_s = time.perf_counter() - t0
+        per_rank = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                info = json.load(f)
+            with np.load(os.path.join(tmp, f"rank{r}.npz")) as data:
+                same = _same_arrays(dict(data), want)
+            info["bitwise"] = all(same.values())
+            info["differs"] = [key for key, v in same.items() if not v][:20]
+            per_rank.append(info)
+    emit({"phase": "sharded_path", "card": card_line, "world": world,
+          "E": ex.runtime.n_sites, "T": T_r, "T_event": T_e,
+          "per_rank": per_rank, "ranks_seconds": ranks_s,
+          "windows_per_sec": min(r["windows_per_sec"] for r in per_rank),
+          "seconds": time.perf_counter() - t_all})
+    for r, info in enumerate(per_rank):
+        if info["launches"] != {"stream_stats_fleet": 2 * T_r,
+                                "polyfit": T_r}:
+            raise AssertionError(f"rank {r} launched {info['launches']}, "
+                                 f"want {2 * T_r} and {T_r}")
+        if info["event_launches"] != {"stream_stats_fleet": 2 * T_e,
+                                      "polyfit": T_e}:
+            raise AssertionError(f"rank {r}'s event loop launched "
+                                 f"{info['event_launches']}")
+        if not info["bitwise"]:
+            raise AssertionError(f"rank {r} of {world} differs from the "
+                                 f"unsharded run: {info['differs']}")
+    return {"in_process": launches,
+            "ranks": {n: sum(r["launches"][n] for r in per_rank)
+                      for n in launches}}
 
 
 def profile_event_path(ex, windows, torch, card_line: str) -> None:

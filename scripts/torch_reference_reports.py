@@ -19,6 +19,13 @@ The port's sweep (``python -m repro_torch.sweep``) diffs against these
 files and never writes them.  This script imports the JAX package, so it
 lives outside the port.
 
+The reports are made with one JAX device (no ``XLA_FLAGS`` forcing
+more), and the script refuses to run with more: on a mesh of several
+devices the reference's sharded engine moves
+``fleet_event_sharded_static``'s floats (4.7e-7 relative at four forced
+host devices), while the port's sharded runs are bitwise its unsharded
+ones at any world size.
+
 The reference's IPM solver (every ``single_event_*`` golden) calls
 ``jax.experimental.enable_x64``, which JAX 0.9 no longer has; each
 reference run is made with that name pointed at ``jax.enable_x64`` and
@@ -85,6 +92,10 @@ def generate(out_dir: Path = OUT_DIR, names=None, log=print) -> dict:
     for those of them the sweep holds to the reference's kernel path, and
     ``<out_dir>/PROVENANCE.json``; returns {name: report}."""
     import jax
+    if jax.device_count() != 1:
+        raise RuntimeError(
+            f"the reference reports are made with one JAX device, not "
+            f"{jax.device_count()}: unset XLA_FLAGS' forced device count")
     if names is None:
         names = [s.name for s in ported_goldens()]
     from repro_torch.sweep.runner import KERNEL_PATH_REPORTS
@@ -107,6 +118,7 @@ def generate(out_dir: Path = OUT_DIR, names=None, log=print) -> dict:
         commit = None
     write_json({"generator": "scripts/torch_reference_reports.py",
                 "jax": jax.__version__, "jax_backend": jax.default_backend(),
+                "jax_devices": jax.device_count(),
                 "commit": commit,
                 "date": datetime.date.today().isoformat(),
                 "scenarios": sorted(reports),

@@ -19,7 +19,9 @@ Decision rule per window (after folding the window into the EW sums)::
     cool   = windows_since_replan + 1 >= min_replan_interval
     replan = first_window  OR  (fire AND cool)
 
-The site-sharded gate belongs to sharding and is not ported yet.
+On a sharded scan the max closes over the site group
+(:meth:`~repro_torch.parallel.SiteShard.max_over_sites`); max is exact,
+so the decision is bitwise the unsharded gate's.
 """
 from __future__ import annotations
 
@@ -108,11 +110,15 @@ def gate_init(n_sites: int, k: int, device=None) -> GateState:
 
 
 def gate_update(spec: AdaptiveSpec, gate: GateState, values: Tensor,
-                counts: Tensor, *, use_kernel=None
+                counts: Tensor, *, use_kernel=None, shard=None
                 ) -> Tuple[GateState, Tensor]:
     """One window of the re-plan policy; returns ``(gate', replan () bool)``.
 
     The caller produces a plan when ``replan`` is true and keeps it.
+    ``shard`` (a :class:`~repro_torch.parallel.SiteShard`): ``gate`` and
+    ``values`` hold this rank's rows, and the deviation max closes over
+    the group, as the reference's ``pmax`` does; padded rows (zero values,
+    zero assumed correlation) contribute 0.
     """
     ew = ew_mod.ew_update(gate.ew, values, counts,
                           ew_mod.ew_decay(spec.halflife),
@@ -122,6 +128,8 @@ def gate_update(spec: AdaptiveSpec, gate: GateState, values: Tensor,
     off = ~torch.eye(k, dtype=torch.bool, device=corr.device)
     dev = torch.amax(torch.abs(corr - gate.assumed_corr) * off) \
         .to(torch.float32)
+    if shard is not None:
+        dev = shard.max_over_sites(dev)
 
     det_state, fire, lag = drift_mod.detector_update(
         spec.detector, {"accum": gate.det_accum, "age": gate.det_age},

@@ -566,9 +566,8 @@ def _report_fleet(scenario, r: dict, n_sites: int) -> RunReport:
 
 
 def check_scan_scenario(scenario: ScenarioConfig) -> None:
-    """Reject what the port cannot run yet, and what the scan runtime can
-    never honor (WAN timing it does not model)."""
-    # the sharded scan raises here: queue 1, 'Sharding'
+    """Reject what the scan runtimes (``scan``, ``scan_steps``,
+    ``scan_sharded``) can never honor (WAN timing they do not model)."""
     RUNTIMES.get(scenario.runtime)
     if scenario.method != "model":
         if scenario.method not in MODELS:
@@ -610,10 +609,10 @@ def check_scan_scenario(scenario: ScenarioConfig) -> None:
 
 
 def check_event_scenario(scenario: ScenarioConfig) -> None:
-    """Reject what the port's event loops cannot run yet (sharding).  One
-    edge plans as the reference's ``EdgeNode`` routes it: a baseline
-    through ``plan_with_baseline``; else the host planner for ``engine``
-    None, "host" or "host_loop", else that engine's E = 1 pass."""
+    """Reject what the port's event loops cannot run.  One edge plans as
+    the reference's ``EdgeNode`` routes it: a baseline through
+    ``plan_with_baseline``; else the host planner for ``engine`` None,
+    "host" or "host_loop", else that engine's E = 1 pass."""
     RUNTIMES.get(scenario.runtime)
     DATASETS.get(scenario.data.dataset)
     for q in scenario.queries:
@@ -688,9 +687,9 @@ class Experiment:
                 adaptive=scenario.adaptive, chaos=scenario.chaos,
                 device=dev)
             return cls(scenario=scenario, runtime=runtime)
-        from repro_torch.runtime.scan import ScanRuntime
-        runtime = ScanRuntime.from_scenario(scenario, use_kernel=use_kernel,
-                                            collect=collect, device=dev)
+        # ScanRuntime, or ShardedScanRuntime for runtime="scan_sharded"
+        runtime = RUNTIMES.get(scenario.runtime).from_scenario(
+            scenario, use_kernel=use_kernel, collect=collect, device=dev)
         return cls(scenario=scenario, runtime=runtime)
 
     @staticmethod

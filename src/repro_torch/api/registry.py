@@ -102,8 +102,10 @@ class Registry:
 #   IID_MODES         repro_torch.core.thinning  (none/iid | thinning
 #                                                 | m_dependence)
 #   SOLVERS           repro_torch.core.solver    (ipm | slsqp | closed_form)
-#   ENGINES           repro_torch.planning       (host/host_loop | batched)
-#   RUNTIMES          repro_torch.runtime        (event | scan | scan_steps)
+#   ENGINES           repro_torch.planning       (host/host_loop | batched
+#                                                 | sharded)
+#   RUNTIMES          repro_torch.runtime        (event | scan | scan_steps
+#                                                 | scan_sharded)
 #   DRIFT_DETECTORS   repro_torch.adaptive.drift (threshold | page_hinkley
 #                                                 | always | never)
 #   FAULTS            repro_torch.chaos.spec     (flap | join | outage

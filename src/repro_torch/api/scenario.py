@@ -236,6 +236,10 @@ class ScenarioConfig:
                     "allocations for dead sites")
             self.chaos.validate_topology(self.topology.n_sites,
                                          self.topology.n_regions)
+        if self.runtime == "scan_sharded" and not self.is_fleet:
+            raise ValueError(
+                "runtime='scan_sharded' shards the fleet site axis; a "
+                "single edge has nothing to shard (use runtime='scan')")
 
     @property
     def is_fleet(self) -> bool:

@@ -45,6 +45,12 @@ def _unbiased(total: Tensor, n: Tensor) -> Tensor:
 XTX_CHAIN = 384
 
 
+def _one_site(y: Tensor, n_sites) -> bool:
+    """Whether ``y`` (E, k, N) is one site's fit: the fleet's site count
+    decides, not the leading shape of a shard."""
+    return y.dim() == 3 and (y.shape[0] if n_sites is None else n_sites) == 1
+
+
 def _normal_equations(ft: Tensor, yw: Tensor, one: bool):
     """X^T X + ridge and X^T y of (..., 4, N) features in the order the
     reference's compiled dots sum them: one site's (the site axis
@@ -70,7 +76,8 @@ def _normal_equations(ft: Tensor, yw: Tensor, one: bool):
     return xtx + _RIDGE * eye, lane_sum(ft, yw[..., None, :], 8 if one else 1)
 
 
-def _fit_one(y: Tensor, x_pred: Tensor, pair_mask: Tensor, degree: int):
+def _fit_one(y: Tensor, x_pred: Tensor, pair_mask: Tensor, degree: int,
+             n_sites=None):
     """LSQ fit of y ~ poly(x_pred) over co-valid positions, batched over
     leading dims.  Returns (coeffs (..., 4), loc, scale, explained_var).
 
@@ -82,7 +89,9 @@ def _fit_one(y: Tensor, x_pred: Tensor, pair_mask: Tensor, degree: int):
     order (:func:`~repro_torch.core.stats.lu_solve4`) and the fitted
     values are 4-term multiply-add chains (:func:`~repro_torch.core.stats.
     fma_chain`, the reference's compiled length-4 dot), so on the CPU the
-    fit is bitwise the reference's.
+    fit is bitwise the reference's.  ``n_sites`` is the fleet's site count
+    when ``y`` holds a shard of it (a one-site shard of a fleet sums as a
+    fleet does); None reads it from ``y``.
     """
     w = pair_mask
     n = torch.clamp(blocked_sum(w), min=1.0)
@@ -91,7 +100,7 @@ def _fit_one(y: Tensor, x_pred: Tensor, pair_mask: Tensor, degree: int):
     scale = sqrt(torch.clamp(var_p, min=1e-12))
     u = (x_pred - loc[..., None]) / scale[..., None]
     f = _features(u, degree) * w[..., None]
-    one = y.dim() == 3 and y.shape[0] == 1
+    one = _one_site(y, n_sites)
     xtx, xty = _normal_equations(f.transpose(-1, -2), y * w, one)
     coeffs = lu_solve4(xtx, xty)
     fitted = fma_chain(f, coeffs[..., None, :])
@@ -103,12 +112,14 @@ def _fit_one(y: Tensor, x_pred: Tensor, pair_mask: Tensor, degree: int):
 
 def fit_models(values: Tensor, counts: Tensor, predictor: Tensor,
                degree: int = 3, use_kernel=None,
-               n_static=None) -> CompactModel:
+               n_static=None, n_sites=None) -> CompactModel:
     """Fit E[X_i | X_{p_i}] for every stream of every site.
 
     values (..., k, N) f32, counts (..., k), predictor (..., k) int64.
     ``n_static`` is accepted for the families' fit signature: the fit
     counts a gathered pair mask, which the reference never folds.
+    ``n_sites``: the fleet's site count when ``values`` holds a shard of
+    it (see :func:`_fit_one`).
     """
     n_max = values.shape[-1]
     idx = torch.arange(n_max, device=values.device)
@@ -120,7 +131,8 @@ def fit_models(values: Tensor, counts: Tensor, predictor: Tensor,
     if use_kernel is True:
         coeffs, loc, scale, ev = _fit_fused(values, xp, pair, degree)
     else:
-        coeffs, loc, scale, ev = _fit_one(values, xp, pair, degree)
+        coeffs, loc, scale, ev = _fit_one(values, xp, pair, degree,
+                                          n_sites)
     return CompactModel(coeffs=coeffs, loc=loc, scale=scale,
                         explained_var=ev, predictor=predictor)
 
@@ -173,10 +185,10 @@ def evaluate_model(model: CompactModel, x_pred: Tensor) -> Tensor:
 
 
 def mean_model(values: Tensor, counts: Tensor, predictor: Tensor,
-               use_kernel=None, n_static=None) -> CompactModel:
+               use_kernel=None, n_static=None, n_sites=None) -> CompactModel:
     """Mean imputation: E[X_i|X_p] := mu_i, explained variance exactly 0
-    (paper §III-B2).  ``use_kernel`` is accepted for the registry's fit
-    signature; no kernel serves this family."""
+    (paper §III-B2).  ``use_kernel`` and ``n_sites`` are accepted for the
+    registry's fit signature; no kernel serves this family."""
     n_max = values.shape[-1]
     mask = (torch.arange(n_max, device=values.device)
             < counts[..., None]).to(values.dtype)
@@ -195,10 +207,11 @@ def mean_model(values: Tensor, counts: Tensor, predictor: Tensor,
 # E[X_i | X_p, X_q] ~ c0 + c1 u + c2 v + c3 uv — still 4 coefficients;
 # constraint 1d becomes n_s,i <= min(n_r,p, n_r,q).
 
-def _fit_one_multi(y: Tensor, xp: Tensor, xq: Tensor, pair_mask: Tensor):
+def _fit_one_multi(y: Tensor, xp: Tensor, xq: Tensor, pair_mask: Tensor,
+                   n_sites=None):
     """LSQ fit of y ~ (1, u, v, uv) over co-valid positions, batched over
     leading dims.  Returns (coeffs (..., 4), loc (..., 2), scale (..., 2),
-    explained_var)."""
+    explained_var); ``n_sites`` as in :func:`_fit_one`."""
     w = pair_mask
     n = torch.clamp(blocked_sum(w), min=1.0)
 
@@ -211,7 +224,7 @@ def _fit_one_multi(y: Tensor, xp: Tensor, xq: Tensor, pair_mask: Tensor):
     u, loc_u, sc_u = std(xp)
     v, loc_v, sc_v = std(xq)
     f = torch.stack([torch.ones_like(u), u, v, u * v], dim=-1) * w[..., None]
-    one = y.dim() == 3 and y.shape[0] == 1
+    one = _one_site(y, n_sites)
     xtx, xty = _normal_equations(f.transpose(-1, -2), y * w, one)
     coeffs = lu_solve4(xtx, xty)
     fitted = fma_chain(f, coeffs[..., None, :])
@@ -222,13 +235,14 @@ def _fit_one_multi(y: Tensor, xp: Tensor, xq: Tensor, pair_mask: Tensor):
 
 
 def fit_models_multi(values: Tensor, counts: Tensor, predictors: Tensor,
-                     use_kernel=None, n_static=None) -> dict:
+                     use_kernel=None, n_static=None, n_sites=None) -> dict:
     """predictors (..., k, 2): two predictor streams per target.
 
     Returns the reference's dict model {coeffs (..., k, 4), loc and scale
     (..., k, 2), explained_var (..., k), predictor (..., k, 2)}.  No
     kernel serves this family, and nothing folds (``use_kernel`` and
     ``n_static`` are accepted for the families' fit signature).
+    ``n_sites`` as in :func:`fit_models`.
     """
     n_max = values.shape[-1]
     mask = (torch.arange(n_max, device=values.device)
@@ -240,7 +254,7 @@ def fit_models_multi(values: Tensor, counts: Tensor, predictors: Tensor,
     p0, p1 = predictors[..., 0], predictors[..., 1]
     pair = mask * take(mask, p0) * take(mask, p1)
     coeffs, loc, scale, ev = _fit_one_multi(values, take(values, p0),
-                                            take(values, p1), pair)
+                                            take(values, p1), pair, n_sites)
     return {"coeffs": coeffs, "loc": loc, "scale": scale,
             "explained_var": ev, "predictor": predictors}
 

@@ -83,7 +83,7 @@ class FleetPlan:
 def fleet_plan(values: Tensor, counts: Tensor, budgets: Tensor,
                epsilon_scale: float = 1.0, *, dependence: str = "spearman",
                model: str = "cubic", epsilon_policy: str = "k_se",
-               use_kernel=None, n_static=None) -> FleetPlan:
+               use_kernel=None, n_static=None, n_sites=None) -> FleetPlan:
     """values (E, k, N) f32, counts (E, k) int, budgets (E,) f32.
 
     ``use_kernel``: None runs the stream_stats kernel for CUDA tensors and
@@ -95,6 +95,10 @@ def fleet_plan(values: Tensor, counts: Tensor, budgets: Tensor,
     caller was built (the scan runtime).  The reference compiles such
     counts as constants, which changes how its statistics round; see
     :func:`~repro_torch.core.stats.stats_from_sums`.
+
+    ``n_sites``: the fleet's site count when ``values`` holds a shard of
+    it (a sharded run's rows); the one-site fit is chosen by it, never by
+    the shard's row count.  Every other stage is per site.
     """
     spec = MODELS.get(model)
     EPSILON_POLICIES.get(epsilon_policy)
@@ -122,7 +126,7 @@ def fleet_plan(values: Tensor, counts: Tensor, budgets: Tensor,
     # predictor selection + compact models (§IV-A/B) for every site at once
     predictor = spec.select(corr)
     fitted = spec.fit(values, counts, predictor, use_kernel=use_kernel,
-                      n_static=n_static)
+                      n_static=n_static, n_sites=n_sites)
     if spec.multi:                   # the two-predictor dict model
         coeffs, loc, scale, explained_var = (
             fitted[f] for f in ("coeffs", "loc", "scale", "explained_var"))
@@ -204,12 +208,12 @@ class BatchedEngine(PlanEngine):
         return plan.to_numpy()
 
     def run(self, values, counts, budgets, cfg, *, use_kernel=None,
-            n_static=None):
+            n_static=None, n_sites=None):
         return fleet_plan(values, counts, budgets, cfg.epsilon_scale,
                           dependence=cfg.dependence, model=cfg.model,
                           epsilon_policy=cfg.epsilon_policy,
-                          use_kernel=use_kernel, n_static=n_static)
+                          use_kernel=use_kernel, n_static=n_static,
+                          n_sites=n_sites)
 
 
 ENGINES.register("batched", BatchedEngine())
-ENGINES.defer("sharded", "queue 1, 'Sharding'")

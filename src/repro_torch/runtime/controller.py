@@ -1,5 +1,5 @@
 """The fleet budget controller on tensors — port of
-``repro.runtime.controller`` (single device).
+``repro.runtime.controller``.
 
 ``water_fill`` is the clip-and-redistribute allocator with the host
 version's early ``break`` written as a ``where`` guard;
@@ -79,7 +79,8 @@ def water_fill(demand, total: float, lo, hi, iters: int = 8) -> np.ndarray:
     return b
 
 
-def controller_budgets(state: ControllerState, p: CtrlParams, live=None):
+def controller_budgets(state: ControllerState, p: CtrlParams, live=None,
+                       shard=None):
     """(E,) raw per-window budgets, on the state's device (computed on the
     host: :func:`water_fill`).
 
@@ -88,29 +89,42 @@ def controller_budgets(state: ControllerState, p: CtrlParams, live=None):
     spreads their share over the live fleet, and they get 0.  None (no
     chaos) skips the masking; an all-live mask gives the same budgets
     bitwise.
+
+    ``shard`` (the sharded scan runtime, a
+    :class:`~repro_torch.parallel.SiteShard`): ``state`` and ``live`` hold
+    this rank's rows.  The water-fill's sums follow the reduction order of
+    exactly E sites, so the demand and liveness rows are gathered to the
+    unpadded fleet (one gather a window), filled there, and this rank's
+    rows kept; ``p.n_sites`` stays the fleet's count.
     """
     f32 = np.float32
     eq = p.equal_share
-    e = state.demand.shape[0]
     dev = state.demand.device
-    hi = np.full(e, p.ceil_mult * eq, f32)
-    static_b = np.minimum(np.full(e, eq, f32), hi)
-    if live is not None:
-        livf = _host(live).astype(f32)
-        hi = hi * livf
-        static_b = static_b * livf
+    livf = None if live is None else _host(live).astype(f32)
     if p.mode == "static" or not bool(state.seen):
+        e = state.demand.shape[0]
+        static_b = np.minimum(np.full(e, eq, f32),
+                              np.full(e, p.ceil_mult * eq, f32))
+        if livf is not None:
+            static_b = static_b * livf
         return torch.as_tensor(static_b, device=dev)
-    lo = np.minimum(np.full(e, p.floor_mult * eq, f32), hi)
     demand = _host(state.demand)
-    if live is not None:
+    if shard is not None:
+        demand, livf = shard.gather_sites(demand, livf)
+    e = demand.shape[0]
+    hi = np.full(e, p.ceil_mult * eq, f32)
+    if livf is not None:
+        hi = hi * livf
         demand = demand * livf
+    lo = np.minimum(np.full(e, p.floor_mult * eq, f32), hi)
     if p.cost_discount is not None:
         demand = demand / np.asarray(p.cost_discount, f32)
     reb = water_fill(demand, p.total_budget, lo, hi)
-    if live is not None:
+    if livf is not None:
         # an all-dead window fills a [0, 0] box; ship 0 all the same
         reb = reb * livf
+    if shard is not None:
+        reb = shard.local_rows(reb)
     return torch.as_tensor(reb, device=dev)
 
 

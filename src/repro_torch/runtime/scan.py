@@ -108,6 +108,9 @@ class ScanRuntime:
             self.n_sites = self.topology.n_sites
             self._cost = np.asarray([s.link.cost_per_byte
                                      for s in self.topology.sites])
+        # site rows this process's step carries: the fleet here; one
+        # rank's share of the padded fleet in the sharded runtime
+        self._rows = self.n_sites
 
     @classmethod
     def from_scenario(cls, scenario, *, use_kernel=None,
@@ -149,17 +152,21 @@ class ScanRuntime:
                    collect=collect, use_kernel=use_kernel, device=device,
                    adaptive=scenario.adaptive, chaos=scenario.chaos)
 
-    def _plan_fn(self, values, counts, budgets):
-        # full windows: every count is the window length, a constant of
-        # the step that the reference's compiler folds -- except inside
-        # the adaptive gate's lax.cond, whose branch takes the counts as
-        # an operand (data); "always" at interval 1 plans unwrapped
+    def _n_static(self, values) -> Optional[int]:
+        """The counts' constant, where the reference folds it.  Full
+        windows: every count is the window length, a constant of the step
+        that the reference's compiler folds -- except inside the adaptive
+        gate's lax.cond, whose branch takes the counts as an operand
+        (data); "always" at interval 1 plans unwrapped."""
         ad = self.adaptive
         folded = ad is None or (ad.detector == "always"
                                 and int(ad.min_replan_interval) == 1)
+        return values.shape[-1] if folded else None
+
+    def _plan_fn(self, values, counts, budgets):
         return self.engine.run(values, counts, budgets, self.cfg_eff,
                                use_kernel=self.use_kernel,
-                               n_static=values.shape[-1] if folded else None)
+                               n_static=self._n_static(values))
 
     def _static_exec(self, k: int, n: int) -> Optional[tuple]:
         """Executed budgets when they are window-invariant (one edge, or
@@ -182,6 +189,33 @@ class ScanRuntime:
         from repro_torch.chaos import liveness_table
         return liveness_table(self.chaos, T, self.n_sites,
                               self.topology.region_of(), first_window=w0)
+
+    # The sharded runtime (runtime/sharded.py) reuses run() and
+    # specializes these seams: the executed budgets, the state, the
+    # liveness mask and the pool as the step holds them (this process's
+    # rows), the plan, and the outputs and state as they leave the run.
+
+    def _step_exec(self, static_exec: Optional[tuple]):
+        return static_exec
+
+    def _adopt_state(self, state: RuntimeState) -> RuntimeState:
+        """A given (resumed) state as the step carries it."""
+        return state
+
+    def _step_liveness(self, live_tbl: Optional[np.ndarray], T: int,
+                       w0: int) -> Optional[np.ndarray]:
+        """The (T, rows) mask the step applies, or None (no mask)."""
+        return live_tbl
+
+    def _step_pool(self, pool_np: np.ndarray) -> np.ndarray:
+        return pool_np
+
+    def _step_kwargs(self) -> dict:
+        return {}
+
+    def _finalize(self, ys: dict, state: RuntimeState, live_tbl):
+        """(ys, final state, liveness table) of the whole fleet."""
+        return ys, state, live_tbl
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -217,43 +251,52 @@ class ScanRuntime:
         T = int(n_windows) if n_windows is not None else P
         static_exec = self._static_exec(k, n)
         eq = static_exec[0] if single else self.ctrl.equal_share
+        given = state
         if state is None:
-            state = init_state(self.n_sites, k, float(eq),
-                               device=self.device)
+            state = init_state(self._rows, k, float(eq), device=self.device)
             w0 = int(first_window) if first_window is not None else 0
         else:
             w0 = (int(first_window) if first_window is not None
                   else int(state.window_id))
+            state = self._adopt_state(state)
         if self.adaptive is not None and state.adaptive is None:
             from repro_torch.adaptive import make_adaptive_carry
-            state.adaptive = make_adaptive_carry(self.n_sites, k,
+            state.adaptive = make_adaptive_carry(self._rows, k,
                                                  device=self.device)
         live_tbl = self._liveness_table(T, w0)
-        if live_tbl is None:
+        step_live = self._step_liveness(live_tbl, T, w0)
+        if step_live is None:
             xs = list(range(w0, w0 + T))
         else:
             if state.chaos is None:
                 from repro_torch.chaos import make_chaos_carry
-                state.chaos = make_chaos_carry(self.n_sites, k,
+                state.chaos = make_chaos_carry(self._rows, k,
                                                self.query_names,
                                                device=self.device)
-            live = torch.as_tensor(live_tbl, device=self.device)
+            live = torch.as_tensor(step_live, device=self.device)
             xs = [(w0 + t, live[t]) for t in range(T)]
-        pool = torch.as_tensor(pool_np, device=self.device)
+        pool = torch.as_tensor(self._step_pool(pool_np), device=self.device)
         step = make_window_step(
             pool, seed=self.cfg_eff.seed, plan_fn=self._plan_fn,
             qnames=self.query_names, multi=self.spec.multi,
             mean=self.spec.mean, ctrl=self.ctrl,
-            static_exec_budgets=static_exec, collect=self.collect,
-            adaptive=self.adaptive, use_kernel=self.use_kernel,
-            chaos=live_tbl is not None)
+            static_exec_budgets=self._step_exec(static_exec),
+            collect=self.collect, adaptive=self.adaptive,
+            use_kernel=self.use_kernel, chaos=step_live is not None,
+            **self._step_kwargs())
 
         self._sync()
         t0 = time.perf_counter()
         outs = [step(state, x) for x in xs]
         self._sync()
         scan_seconds = time.perf_counter() - t0
-        ys = _stack_outputs(outs)
+        ys, state, live_tbl = self._finalize(_stack_outputs(outs), state,
+                                             live_tbl)
+        if given is not None and given is not state:
+            # the passed state is updated in place, as the step updates it
+            for f in dataclasses.fields(state):
+                setattr(given, f.name, getattr(state, f.name))
+            state = given
         host_state = state_to_numpy(state)
 
         if self.collect == "payloads":

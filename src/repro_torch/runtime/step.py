@@ -1,7 +1,7 @@
 """One scan window: budgets -> plan -> sample -> impute -> serve.
 
 Port of ``repro.runtime.step`` for fleets and single edges, with adaptive
-re-planning and chaos fault injection, without site sharding.
+re-planning, chaos fault injection and site sharding.
 :func:`make_window_step` builds ``step(state, xs) -> outputs``; the step
 updates the carry in place.
 
@@ -12,7 +12,9 @@ replica (:mod:`repro_torch.runtime.threefry`):
     ``permutation(sub_i, N)`` with ``sub_i`` from the sequential
     ``split`` chain, as the host planner's sampler draws it;
   * E > 1: the key is ``fold_in(PRNGKey(seed ^ wid), 0x5A)``, and the
-    partial Fisher–Yates shuffle makes the same swaps in the same order.
+    partial Fisher–Yates shuffle makes the same swaps in the same order;
+    a rank of a sharded fleet draws the whole fleet's uniforms and keeps
+    its rows (``sample_slice``).
 """
 from __future__ import annotations
 
@@ -55,7 +57,7 @@ PAYLOAD_PLAN_FIELDS = ("n_real", "n_imputed", "predictor", "coeffs", "loc",
                        "scale", "explained_var", "mean", "var")
 
 
-def _fy_sample(key: tuple, values, n_real):
+def _fy_sample(key: tuple, values, n_real, sample_slice=None):
     """Batched partial Fisher–Yates SRS for every (site, stream) row.
 
     One uniform per position up front, then for i < max(n_real): swap
@@ -63,9 +65,23 @@ def _fy_sample(key: tuple, values, n_real):
     permutation — a gather and two scatters over all (E, k) rows per step.
     Position i is final after its step and everything past n_real is
     masked, so stopping at max(n_real) (one host sync) changes nothing.
+
+    ``sample_slice`` = ``(e, e_pad, offset)`` (a rank of the sharded scan
+    runtime): ``values`` holds rows ``offset ..`` of a fleet of ``e``
+    sites padded to ``e_pad``.  Threefry draws are not prefix-stable
+    across shapes, so the rank draws the uniforms at the whole unpadded
+    fleet's shape (E, k, N), zero-pads them to ``e_pad`` rows and keeps
+    its own: its real rows make the unsharded run's swaps bitwise, and
+    padded rows (u = 0) are masked by ``n_real`` = 0.
     """
     e, k, n = values.shape
-    u = threefry.uniform(key, (e, k, n), device=values.device)
+    if sample_slice is None:
+        u = threefry.uniform(key, (e, k, n), device=values.device)
+    else:
+        e_all, e_pad, offset = sample_slice
+        u = threefry.uniform(key, (e_all, k, n), device=values.device)
+        u = torch.cat([u, u.new_zeros((e_pad - e_all, k, n))])
+        u = u[offset:offset + e]
     perm = torch.arange(n, device=values.device).expand(e, k, n).clone()
     stop = min(int(n_real.max()), n - 1)
     for i in range(stop):
@@ -91,17 +107,20 @@ def _permutation_sample(base: tuple, values, n_real):
     return torch.where(keep, shuffled, torch.zeros_like(shuffled))
 
 
-def sample_fleet(seed: int, wid: int, values, n_real):
+def sample_fleet(seed: int, wid: int, values, n_real, sample_slice=None):
     """SRS without replacement for every site and stream of one window.
 
     values (E, k, N) f32, n_real (E, k) int -> (E, k, N) f32 where row
     [s, i] holds stream i's n_real[s, i] sampled tuples in draw order,
-    then zeros.  One site draws by permutation, a fleet by Fisher–Yates.
+    then zeros.  One site draws by permutation, a fleet by Fisher–Yates;
+    ``sample_slice`` (see :func:`_fy_sample`) marks ``values`` as a shard
+    of a fleet, which draws by Fisher–Yates whatever its row count.
     """
     base = threefry.prng_key(np.int32(seed) ^ np.int32(wid))
-    if values.shape[0] == 1:
+    if values.shape[0] == 1 and sample_slice is None:
         return _permutation_sample(base, values, n_real)
-    return _fy_sample(threefry.fold_in(base, 0x5A), values, n_real)
+    return _fy_sample(threefry.fold_in(base, 0x5A), values, n_real,
+                      sample_slice)
 
 
 def draw_fleet_samples(seed: int, wid: int, values, n_real,
@@ -209,7 +228,7 @@ def make_window_step(pool, *, seed: int, plan_fn, qnames, multi: bool,
                      mean: bool, ctrl: CtrlParams,
                      static_exec_budgets: Optional[np.ndarray] = None,
                      collect: str = "estimates", adaptive=None,
-                     use_kernel=None, chaos: bool = False):
+                     use_kernel=None, chaos: bool = False, shard=None):
     """Build ``step(state, xs) -> outputs`` for one window of E sites.
 
     pool: (P, E, k, N) f32 tensor; window ``wid`` reads slot ``wid % P``.
@@ -231,6 +250,13 @@ def make_window_step(pool, *, seed: int, plan_fn, qnames, multi: bool,
     rows' Fisher–Yates draws stay bitwise), NaN raw estimates (which hold
     the controller's EWMAs), no ingest, and served estimates from the
     ``state.chaos`` gap-serving memory.  When False no mask is applied.
+    shard: a :class:`~repro_torch.parallel.SiteShard` when ``pool``,
+    ``state`` and ``live`` hold one rank's rows of a sharded fleet (the
+    sharded scan runtime; ``chaos`` is then True, padding being dead
+    sites).  The water-fill gathers the fleet's demand and the drift gate
+    closes its deviation max over the group; the Fisher–Yates draw keeps
+    this rank's rows of the fleet's uniforms.  Everything else is per
+    site.
     The step updates ``state`` in place (controller EWMAs, running totals,
     the window cursor) and returns the window's output tensors.  Each
     stage of :data:`STAGES` runs inside its own profiler range.
@@ -246,6 +272,8 @@ def make_window_step(pool, *, seed: int, plan_fn, qnames, multi: bool,
     static_exec = (None if static_exec_budgets is None else
                    torch.as_tensor(static_exec_budgets, dtype=torch.float32,
                                    device=dev))
+    sample_slice = (None if shard is None else
+                    (shard.n_sites, shard.n_padded, shard.offset))
 
     def step(state: RuntimeState, xs) -> dict:
         if chaos:
@@ -255,7 +283,8 @@ def make_window_step(pool, *, seed: int, plan_fn, qnames, multi: bool,
             wid, live = xs, None
         values = pool[wid % p_]
         with stage("budgets"):
-            raw_b = controller_budgets(state.controller, ctrl, live=live)
+            raw_b = controller_budgets(state.controller, ctrl, live=live,
+                                       shard=shard)
             if static_exec is not None:
                 budgets = static_exec if live is None else static_exec * livf
             elif live is None:
@@ -272,7 +301,8 @@ def make_window_step(pool, *, seed: int, plan_fn, qnames, multi: bool,
             with stage("gate"):
                 gate, replan = gate_update(adaptive, state.adaptive.gate,
                                            values, counts,
-                                           use_kernel=use_kernel)
+                                           use_kernel=use_kernel,
+                                           shard=shard)
                 replan = bool(replan)
             with stage("plan"):
                 # no stage writes into a plan's tensors, so the cached plan
@@ -286,7 +316,8 @@ def make_window_step(pool, *, seed: int, plan_fn, qnames, multi: bool,
             plan = dataclasses.replace(
                 plan, n_real=plan.n_real * live[:, None].to(plan.n_real.dtype))
         with stage("sample"):
-            samples = sample_fleet(seed, wid, values, plan.n_real)
+            samples = sample_fleet(seed, wid, values, plan.n_real,
+                                   sample_slice)
         with stage("impute"):
             imputed, ns, mask_i = _impute(plan, samples, plan.n_real,
                                           multi=multi, mean=mean)

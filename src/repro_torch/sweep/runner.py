@@ -68,7 +68,7 @@ KERNEL_CLASS_GAPS = {
     for name in ("single_scan", "single_scan_steps",
                  "fleet_event_adaptive_threshold",
                  "fleet_event_batched_rebalance", "fleet_event_chaos_flap",
-                 "fleet_event_cost_aware_wan")}
+                 "fleet_event_cost_aware_wan", "fleet_event_sharded_static")}
 
 
 # the fused fit's path only (use_kernel True): held to the reference's own

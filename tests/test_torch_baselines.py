@@ -65,8 +65,8 @@ FIG5_WINDOWS = _windows(FIG5)
 
 
 def test_the_registries_hold_the_reference_s_names():
-    """Every registry under the reference's key, with the reference's
-    names but the two that sharding ports."""
+    """Every registry under the reference's key, with every one of the
+    reference's names (sharding ported the last two)."""
     from repro.api import registry as ref_registry
     from repro_torch.api import registry
     assert SAMPLERS.names() == ref_registry.SAMPLERS.names()
@@ -76,8 +76,7 @@ def test_the_registries_hold_the_reference_s_names():
     assert port.keys() == ref.keys()
     missing = {key: set(ref[key].names()) - set(port[key].names())
                for key in ref}
-    assert {k: v for k, v in missing.items() if v} == {
-        "engines": {"sharded"}, "runtimes": {"scan_sharded"}}
+    assert {k: v for k, v in missing.items() if v} == {}
     for key in ref:
         assert set(port[key].names()) <= set(ref[key].names()), key
 

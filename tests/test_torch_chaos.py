@@ -34,6 +34,7 @@ from repro_torch.chaos import (ChaosSpec, chaos_metrics, liveness_table,
                                make_chaos_carry, padded_liveness_table)
 from repro_torch.runtime.controller import (CtrlParams, controller_budgets,
                                             controller_update, water_fill)
+from repro_torch.runtime.sharded import ShardedScanRuntime
 from repro_torch.runtime.state import ControllerState, state_from_numpy
 from repro_torch.sweep.report import serialize_report
 
@@ -108,9 +109,16 @@ def test_scenario_takes_a_chaos_spec_and_refuses_what_it_cannot_run():
     single = _golden("single_scan")
     with pytest.raises(ValueError, match="requires a fleet topology"):
         ScenarioConfig.from_dict(dict(single, chaos={"joins": [[1, 0]]}))
-    with pytest.raises(NotImplementedError, match="Sharding"):
-        Experiment.from_scenario(ScenarioConfig.from_dict(
-            dict(d, runtime="scan_sharded")), device="cpu")
+    # the sharded scan takes the spec too, and runs it as the scan does
+    sharded = Experiment.from_scenario(ScenarioConfig.from_dict(
+        dict(d, runtime="scan_sharded")), device="cpu")
+    assert isinstance(sharded.runtime, ShardedScanRuntime)
+    assert sharded.runtime.chaos == sc.chaos
+    want = Experiment.from_scenario(sc, device="cpu").run()
+    got = sharded.run()
+    assert (got.wan_bytes, got.gaps) == (want.wan_bytes, want.gaps)
+    np.testing.assert_array_equal(got.raw["budget_history"],
+                                  want.raw["budget_history"])
 
 
 # ------------------------------------------------------------- controller

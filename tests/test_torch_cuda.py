@@ -502,14 +502,53 @@ def test_cuda_gate_matches_cpu(cuda, use_kernel):
 @pytest.mark.parametrize("use_kernel", [False, None])
 def test_cuda_sweep_over_the_committed_reports(cuda, use_kernel):
     """The port's sweep on the card against tests/torch_goldens/reports:
-    seven scan goldens, no drift (with the kernels, the single-edge ones
-    held to the recorded f32 class)."""
+    eight scan goldens (the sharded one at world size 1), no drift (with
+    the kernels, the single-edge ones held to the recorded f32 class)."""
     from repro_torch.sweep import runner
     logged = []
     code = runner.run_sweep(pattern="scan", device="cuda",
                             use_kernel=use_kernel, log=logged.append)
     assert code == 0, "\n".join(logged)
-    assert "7 scenario(s) checked" in logged[-1]
+    assert "8 scenario(s) checked" in logged[-1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [0, 2])
+def test_cuda_sharded_scan_is_the_scan(cuda, extra):
+    """fleet_scan_sharded on the card at world size 1, padded by ``extra``
+    dead sites: every byte, budget and NRMSE table and the final state
+    bitwise runtime="scan"'s, both kernels launched on every window."""
+    import dataclasses
+    import json
+    import pathlib
+    import numpy as np
+    from repro_torch.api.experiment import Experiment
+    from repro_torch.api.scenario import ScenarioConfig
+    from repro_torch.ckpt import flatten
+    path = (pathlib.Path(__file__).parent / "goldens" / "scenarios"
+            / "fleet_scan_sharded.json")
+    d = json.loads(path.read_text())["scenario"]
+    ex = Experiment.from_scenario(ScenarioConfig.from_dict(d),
+                                  use_kernel=True, device=cuda)
+    windows = ex.make_windows()
+    rt = dataclasses.replace(ex.runtime, pad_sites=ex.runtime.n_sites + extra)
+    before = (ss_ops.LAUNCHES, poly_ops.LAUNCHES)
+    got = rt.run(windows)
+    t = len(windows)
+    assert (ss_ops.LAUNCHES - before[0], poly_ops.LAUNCHES - before[1]) == (
+        2 * t, t)
+    want = Experiment.from_scenario(
+        ScenarioConfig.from_dict(dict(d, runtime="scan")), use_kernel=True,
+        device=cuda).runtime.run(windows)
+    assert got["wan_bytes"] == want["wan_bytes"]
+    for key in ("bytes_history", "budget_history"):
+        assert np.array_equal(got[key], want[key]), key
+    for q, v in want["site_nrmse"].items():
+        assert np.array_equal(got["site_nrmse"][q], v, equal_nan=True), q
+    a, b = flatten(got["final_state"]), flatten(want["final_state"])
+    assert a.keys() == b.keys()
+    for key in a:
+        assert np.array_equal(a[key], b[key], equal_nan=True), key
 
 
 # ---- the fleet event loop on the card --------------------------------------
@@ -550,16 +589,17 @@ def test_cuda_event_loop_matches_cpu(cuda, use_kernel):
 @pytest.mark.cuda
 @pytest.mark.parametrize("use_kernel", [False, None, True])
 def test_cuda_sweep_over_the_event_goldens(cuda, use_kernel):
-    """The five fleet event goldens on the card against
-    tests/torch_goldens: no drift (on the fused fit's path held to the
-    runner's recorded classes and kernel-path reports; the host engine's
-    golden runs no kernel, so it is held to its own class on both)."""
+    """The six fleet event goldens (the sharded engine's at world size 1)
+    on the card against tests/torch_goldens: no drift (on the fused fit's
+    path held to the runner's recorded classes and kernel-path reports;
+    the host engine's golden runs no kernel, so it is held to its own
+    class on both)."""
     from repro_torch.sweep import runner
     logged = []
     code = runner.run_sweep(pattern="fleet_event", device="cuda",
                             use_kernel=use_kernel, log=logged.append)
     assert code == 0, "\n".join(logged)
-    assert "5 scenario(s) checked" in logged[-1]
+    assert "6 scenario(s) checked" in logged[-1]
 
 
 # ---- the host planner and the single-edge event loop on the card -----------

@@ -79,7 +79,7 @@ def _same_payload(got, want):
 def test_the_engine_registry_holds_the_host_engine():
     assert ENGINES.get("host") is ENGINES.get("host_loop") is HOST_ENGINE
     assert isinstance(HOST_ENGINE, HostEngine)
-    assert set(REF_ENGINES.names()) - set(ENGINES.names()) == {"sharded"}
+    assert set(REF_ENGINES.names()) - set(ENGINES.names()) == set()
 
 
 @pytest.mark.parametrize("wid", range(len(WINDOWS)))

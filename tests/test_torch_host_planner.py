@@ -285,7 +285,16 @@ def test_plan_one_is_the_reference_s():
 
 
 def test_the_host_planner_refuses_what_is_not_ported():
-    w = WindowBatch.from_numpy(np.ones((3, 8), np.float32))
-    with pytest.raises(NotImplementedError, match="Sharding"):
-        planner.plan_window(w, 4, PlannerConfig(engine="sharded"),
-                            device="cpu")
+    """Nothing is refused now: ``engine="sharded"`` plans one window as
+    its E = 1 case, which is the batched engine's."""
+    rng = np.random.default_rng(5)
+    w = WindowBatch.from_numpy(rng.normal(2.0, 1.0, (3, 8)).astype(
+        np.float32))
+    cfg = PlannerConfig(engine="sharded", solver="closed_form")
+    got, _ = planner.plan_window(w, 12, cfg, device="cpu")
+    want, _ = planner.plan_window(
+        w, 12, dataclasses.replace(cfg, engine="batched"), device="cpu")
+    np.testing.assert_array_equal(got.n_real, want.n_real)
+    np.testing.assert_array_equal(got.n_imputed, want.n_imputed)
+    for g, v in zip(got.real_values, want.real_values, strict=True):
+        np.testing.assert_array_equal(g, v)

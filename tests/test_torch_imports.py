@@ -79,7 +79,7 @@ def test_importing_the_port_leaves_jax_and_repro_out():
         *PORT.rglob("*.py"), ROOT / "chip_smoke.py",
         *(ROOT / "scripts" / f"{name}_times.py"
           for name in ("fleet_kernel", "flash_f32", "window_stats",
-                       "main_path"))]))
+                       "main_path", "sharded"))]))
 def test_no_jax_or_repro_import_lines(path):
     assert not FORBIDDEN.search((ROOT / path).read_text()), path
 

@@ -122,8 +122,10 @@ def test_unported_configurations_name_their_roadmap_item():
     with pytest.raises(ValueError, match="or engine='host'"):
         engine.check(PlannerConfig())           # solver="ipm" by default
     ENGINES.get("host").check(PlannerConfig())  # the host engine plans it
-    with pytest.raises(NotImplementedError, match="Sharding"):
-        ENGINES.get("sharded")
+    # sharding is ported: the sharded engine checks as the batched one
+    ENGINES.get("sharded").check(PlannerConfig(solver="closed_form"))
+    with pytest.raises(ValueError, match="or engine='host'"):
+        ENGINES.get("sharded").check(PlannerConfig())
     # every model family plans in the batched engine
     for model in ("linear", "cubic", "mean", "multi"):
         engine.check(PlannerConfig(solver="closed_form", model=model))

@@ -142,9 +142,18 @@ def test_resume_from_reference_carry(windows, reference):
     ({"planner": dict(SCENARIO["planner"], engine="sharded")}, "Sharding"),
 ])
 def test_unported_scenarios_name_their_roadmap_item(change, item):
+    """Nothing is left unported: the sharded runtime and the sharded
+    engine (ROADMAP's ``item``) run ``fleet_scan`` as the scan does,
+    bitwise (world size 1)."""
     sc = ScenarioConfig.from_dict(dict(SCENARIO, **change))
-    with pytest.raises(NotImplementedError, match=item):
-        Experiment.from_scenario(sc, device="cpu")
+    got = Experiment.from_scenario(sc, device="cpu").run(n_windows=3)
+    want = Experiment.from_scenario(ScenarioConfig.from_dict(SCENARIO),
+                                    device="cpu").run(n_windows=3)
+    assert got.wan_bytes == want.wan_bytes
+    for key in ("bytes_history", "budget_history"):
+        np.testing.assert_array_equal(got.raw[key], want.raw[key], key)
+    for q, v in want.nrmse_per_stream.items():
+        np.testing.assert_array_equal(got.nrmse_per_stream[q], v, q)
 
 
 @pytest.mark.parametrize("change,match", [

@@ -130,9 +130,18 @@ def test_a_cycled_pool_keeps_the_clock():
     ("fleet_scan_sharded", "Sharding"),
 ])
 def test_what_is_not_ported_names_its_item(name, item):
+    """The last two goldens, ported by ROADMAP's ``item``, build on the
+    sharded engine and runtime and are no longer listed as not ported."""
+    from repro_torch.planning import ShardedEngine
+    from repro_torch.runtime import ShardedScanRuntime
+    from repro_torch.sweep import load_scenario_file, not_ported
     sc = ScenarioConfig.from_dict(_scenario(name)["scenario"])
-    with pytest.raises(NotImplementedError, match=item):
-        Experiment.from_scenario(sc, device="cpu")
+    ex = Experiment.from_scenario(sc, device="cpu")
+    if sc.runtime == "scan_sharded":
+        assert isinstance(ex.runtime, ShardedScanRuntime)
+    else:
+        assert isinstance(ex.runtime.engine, ShardedEngine)
+    assert not_ported(load_scenario_file(GOLDENS / f"{name}.json")) is None
 
 
 def test_plain_links_and_clouds_are_upgraded(monkeypatch):

@@ -43,21 +43,27 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 REPORTS = ROOT / "tests" / "torch_goldens" / "reports"
 SCAN_GOLDENS = ["fleet_scan", "fleet_scan_adaptive_ph",
                 "fleet_scan_chaos_join", "fleet_scan_chaos_region",
+                # the sharded scan runtime (world size 1 here)
+                "fleet_scan_sharded",
                 "fleet_scan_steps_static", "single_scan", "single_scan_steps"]
 EVENT_GOLDENS = ["fleet_event_adaptive_threshold",
                  "fleet_event_batched_rebalance", "fleet_event_chaos_flap",
                  "fleet_event_cost_aware_wan",
                  # the host engine: the host planner at every site
-                 "fleet_event_host_engine"]
+                 "fleet_event_host_engine",
+                 # the sharded engine (world size 1 here)
+                 "fleet_event_sharded_static"]
 # one edge on the event clock, the host planner and its f64 IPM (a
 # baseline sampler in place of the planner in baseline_srs)
 SINGLE_EVENT_GOLDENS = [f"single_event_{n}" for n in (
     "baseline_srs", "cubic", "drop_gaps", "jitter_bandwidth",
     "latency_revise", "linear_alpha", "retransmit")]
 PORTED = sorted(SCAN_GOLDENS + EVENT_GOLDENS + SINGLE_EVENT_GOLDENS)
-NOT_PORTED = {"fleet_scan_sharded": "Sharding"}
-# every golden the port cannot run yet, with its item
-ALL_NOT_PORTED = {**NOT_PORTED, "fleet_event_sharded_static": "Sharding"}
+# the scan goldens the port cannot run yet, with their item: none since
+# sharding was ported
+NOT_PORTED = {}
+# every golden the port cannot run yet, with its item: none
+ALL_NOT_PORTED = {**NOT_PORTED}
 
 
 def golden_class(name: str) -> str:
@@ -181,8 +187,8 @@ def test_sweep_list_lint_and_usage():
     assert len(logged) == 21
     marked = [ln.split()[1] for ln in logged if ln.startswith(" *")]
     assert marked == sorted([*SCAN_GOLDENS, *NOT_PORTED])
-    assert sum("not ported: queue 1, 'Sharding'" in ln
-               for ln in logged) == len(ALL_NOT_PORTED) == 2
+    assert sum("not ported" in ln for ln in logged) == len(ALL_NOT_PORTED) \
+        == 0
     assert not any("'Event path'" in ln for ln in logged)
     from repro_torch.sweep.__main__ import main
     assert main(["--check", "--filter", "no_such_scenario",

@@ -11,9 +11,9 @@ from test_torch_sweep import ALL_NOT_PORTED, PORTED, ROOT, golden_class
 
 
 def test_sweep_checks_every_ported_golden_on_the_cpu():
-    """No filter: the seven scan, five fleet event and seven single-edge
-    event goldens are checked, each in its own class, and the two others
-    are named with their item."""
+    """No filter: the eight scan, six fleet event and seven single-edge
+    event goldens (all 21) are checked, each in its own class, and none
+    is left not ported."""
     # one intra-op thread: the sweep's tensors are small, and beside the
     # run's other workers more threads only contend for the cores
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
@@ -30,5 +30,5 @@ def test_sweep_checks_every_ported_golden_on_the_cpu():
     for name, item in ALL_NOT_PORTED.items():
         assert any(ln.split()[:3] == [name, "not", "ported"]
                    and f"'{item}'" in ln for ln in lines), name
-    assert "19 scenario(s) checked" in lines[-1]
-    assert "2 not ported" in lines[-1]
+    assert "21 scenario(s) checked" in lines[-1]
+    assert "0 not ported" in lines[-1]
