@@ -1,17 +1,21 @@
 """repro_torch — the PyTorch / CUDA port of ``repro`` for NVIDIA Hopper.
 
-Same subpackage names as the JAX package (``adaptive``, ``api``, ``core``,
-``kernels``, ``planning``, ``runtime``, ``data``, ``fleet``, ``sweep``),
-so every module has one counterpart there.  The port imports ``torch`` and ``numpy`` only.
+Same subpackage names as the JAX package (``adaptive``, ``api``, ``chaos``,
+``ckpt``, ``configs``, ``core``, ``data``, ``fleet``, ``kernels``,
+``models``, ``parallel``, ``planning``, ``runtime``, ``serving``,
+``streaming``, ``sweep``), so every module has one counterpart there.
+The port imports ``torch`` and ``numpy`` only.
 
 Device policy: every entry point takes ``device=None``, which resolves to
 ``"cuda"``; with no CUDA device it raises instead of quietly running on
 the CPU.  Callers that want the CPU (the tests) pass ``device="cpu"``.
 
-Precision: f32 throughout, as in the reference.  TF32 is switched off for
-matmuls and cuDNN: the reference's sums are f32, and TF32 keeps about
-three decimal digits, which would break the f32 tolerance class the port
-is held to.
+Precision: the stream-sampling system computes in f32, as the reference
+does; the LM models (``models``, ``serving``) compute in their config's
+activation type, bf16 by default, with f32 scores, norms and logits where
+the reference keeps them.  TF32 is switched off for matmuls and cuDNN:
+the reference's sums are f32, and TF32 keeps about three decimal digits,
+which would break the f32 tolerance class the port is held to.
 """
 from __future__ import annotations
 

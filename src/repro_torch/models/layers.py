@@ -1,0 +1,301 @@
+"""Model building blocks of the dense decoder families, in PyTorch.
+
+Port of the dense part of ``repro.models.layers``: RMSNorm, the RoPE
+variants (1d, chatglm's 2d half, qwen2-vl's M-RoPE), GQA attention (full,
+sliding-window, block-banded, cross) with the ring KV cache, and the gated
+MLP.  ``moe_*`` and ``mamba_*`` wait for later slices.
+
+Parameters are mappings of tensors (an ``nn.ParameterDict`` in the model)
+with the reference's names and layouts: ``wq`` (d, H, hd), ``wk`` and
+``wv`` (d, KV, hd), ``wo`` (H, hd, d); ``wi``, ``wg`` (d, ff), ``wo``
+(ff, d); a norm's ``scale`` (d,).  The arithmetic follows the reference
+step for step, in the same types: scores and logits are f32 products of
+the activation-type operands, the probabilities are cast to the
+activation type before P·V, and a bf16 q or k comes out of RoPE in f32.
+
+Self-attention over a prompt (``s > 1``, no ``kv_x``) on a CUDA tensor
+runs on the hand-written flash kernels (``kernels/flash_attention``) unless
+the caller passes ``use_kernel=False``; decode, cross-attention and the CPU
+stay plain torch, as the reference computes them outside any Pallas
+kernel.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.config import ModelConfig
+
+
+# ---------------------------------------------------------------- init utils
+
+def _trunc_normal(generator: torch.Generator, shape, device) -> torch.Tensor:
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    return torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                       generator=generator)
+
+
+def _dense_init(generator, shape, in_axis=-2, device=None) -> torch.Tensor:
+    """Truncated normal on [-2, 2] over sqrt(fan_in), fan_in =
+    ``shape[in_axis]`` as in the reference (``wq`` (d, H, hd) takes H)."""
+    fan_in = shape[in_axis] if len(shape) > 1 else shape[0]
+    return _trunc_normal(generator, shape, device).mul_(1.0 / math.sqrt(fan_in))
+
+
+def _embed_init(generator, shape, device=None) -> torch.Tensor:
+    # 1/sqrt(d) keeps tied-head logits O(1) at init
+    return _trunc_normal(generator, shape, device).mul_(
+        1.0 / math.sqrt(shape[-1]))
+
+
+# ---------------------------------------------------------------- norms
+
+def rmsnorm_init(d, device=None) -> dict:
+    return {"scale": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def rmsnorm(params, x, eps=1e-6):
+    """f32 inside, ``x * (1 + scale)``, cast back to x's type."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + params["scale"])).to(dt)
+
+
+# ---------------------------------------------------------------- RoPE
+
+def _rope_angles(positions, dim, theta):
+    """positions (..., S) -> cos/sin (..., S, dim/2), f32."""
+    exps = torch.arange(0, dim, 2, dtype=torch.float32,
+                        device=positions.device) / dim
+    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                         device=positions.device), exps)
+    ang = positions[..., None].to(torch.float32) * freqs
+    # cos and sin of the f32 angle, rounded once from f64: this matches the
+    # reference's f32 cos and sin where torch's own f32 versions are a unit
+    # in the last place off (which RoPE's differences of products magnify)
+    ang = ang.to(torch.float64)
+    return torch.cos(ang).to(torch.float32), torch.sin(ang).to(torch.float32)
+
+
+def _apply_rot(x, cos, sin):
+    """x (..., dim): rotate the interleaved (even, odd) pairs by cos/sin
+    (..., dim/2) and interleave them again."""
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.reshape(x.shape)
+
+
+def apply_rope(x, positions, kind: str, theta: float):
+    """x: (B, S, H, hd); positions: (B, S) or (B, S, 3) for mrope.  A bf16
+    x comes back in f32 (its product with the f32 angles), as in the
+    reference."""
+    hd = x.shape[-1]
+    if kind == "none":
+        return x
+    if kind == "rope":
+        cos, sin = _rope_angles(positions, hd, theta)          # (B,S,hd/2)
+        return _apply_rot(x, cos[:, :, None, :], sin[:, :, None, :])
+    if kind == "rope2d":
+        # chatglm: rotary on the first half of head_dim only
+        half = hd // 2
+        cos, sin = _rope_angles(positions, half, theta)
+        rot = _apply_rot(x[..., :half], cos[:, :, None, :], sin[:, :, None, :])
+        return torch.cat([rot, x[..., half:].to(rot.dtype)], dim=-1)
+    if kind == "mrope":
+        # qwen2-vl: head_dim split into (t, h, w) sections (2:1:1)
+        if positions.dim() == 2:
+            positions = torch.stack([positions] * 3, dim=-1)
+        secs = [hd // 2, hd // 4, hd - hd // 2 - hd // 4]
+        outs, start = [], 0
+        for s_i, sec in enumerate(secs):
+            cos, sin = _rope_angles(positions[..., s_i], sec, theta)
+            outs.append(_apply_rot(x[..., start:start + sec],
+                                   cos[:, :, None, :], sin[:, :, None, :]))
+            start += sec
+        return torch.cat(outs, dim=-1)
+    raise ValueError(kind)
+
+
+# ---------------------------------------------------------------- attention
+
+def attention_init(generator, cfg: ModelConfig, device=None) -> dict:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
+    return {
+        "wq": _dense_init(generator, (d, h, hd), device=device),
+        "wk": _dense_init(generator, (d, kv, hd), device=device),
+        "wv": _dense_init(generator, (d, kv, hd), device=device),
+        "wo": _dense_init(generator, (h, hd, d), in_axis=0, device=device),
+    }
+
+
+def _expand_kv(k, n_rep):
+    """(B,T,KV,hd) -> (B,T,H,hd): query head h reads kv head h // n_rep."""
+    if n_rep == 1:
+        return k
+    return torch.repeat_interleave(k, n_rep, dim=2)
+
+
+def _gqa_scores(q, k, n_rep):
+    """q (B,S,H,hd), k (B,T,KV,hd) -> (B,H,S,T): the f32 product of the
+    operands as they are (bf16 products are exact in f32)."""
+    k = _expand_kv(k, n_rep)
+    return torch.einsum("bshk,bthk->bhst", q.to(torch.float32),
+                        k.to(torch.float32))
+
+
+def _gqa_out(probs, v, n_rep):
+    v = _expand_kv(v, n_rep)
+    return torch.einsum("bhst,bthk->bshk", probs, v)
+
+
+def _banded_attention(q, k, v, q_pos, window, n_rep, scale):
+    """Exact sliding-window attention in O(S·2w) instead of O(S²): query
+    chunk i attends chunks {i-1, i} when the chunk length is the window."""
+    b, s, h, hd = q.shape
+    w = window
+    nq = s // w
+    k = _expand_kv(k, n_rep)
+    v = _expand_kv(v, n_rep)
+    qc = q.reshape(b, nq, w, h, hd)
+    kc = k.reshape(b, nq, w, h, hd)
+    vc = v.reshape(b, nq, w, h, hd)
+
+    def with_prev(t, pad_val=0.0):
+        prev = torch.cat([torch.full_like(t[:, :1], pad_val), t[:, :-1]],
+                         dim=1)
+        return torch.cat([prev, t], dim=2)             # (b, nq, 2w, ...)
+
+    k2 = with_prev(kc)
+    v2 = with_prev(vc)
+    qp = q_pos.reshape(b, nq, w)
+    kp2 = torch.cat([torch.cat([torch.full_like(qp[:, :1], -10**9),
+                                qp[:, :-1]], dim=1), qp], dim=2)   # (b,nq,2w)
+
+    scores = torch.einsum("bnqhk,bnthk->bhnqt", qc.to(torch.float32),
+                          k2.to(torch.float32)) * scale
+    mask = (kp2[:, None, :, None, :] <= qp[:, None, :, :, None]) & \
+           (qp[:, None, :, :, None] - kp2[:, None, :, None, :] < w)
+    scores = torch.where(mask, scores, torch.tensor(
+        -1e30, dtype=torch.float32, device=scores.device))
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bhnqt,bnthk->bnqhk", probs, v2)
+    return out.reshape(b, s, h, hd).to(v.dtype)
+
+
+def attention_apply(params, x, positions, cfg: ModelConfig, *, window: int = 0,
+                    kv_x: Optional[torch.Tensor] = None, causal: bool = True,
+                    cache: Optional[dict] = None, rope: bool = True,
+                    use_kernel: bool = True):
+    """Full/sliding/cross attention with optional KV cache.
+
+    window > 0  => sliding-window causal mask (gemma3 local layers).
+    kv_x        => cross-attention onto encoder output (no mask, no rope).
+    cache       => {'k','v','pos','write_idx'} ring buffer: 'pos' (B,T) holds
+      each slot's absolute position (-1 = empty), so full caches (T=max_seq)
+      and sliding-window rings (T=window+pad) share one code path.  x holds
+      the new token(s); decode is s==1 and writes slot ``write_idx``,
+      prefill writes the last T positions to slots 0..  The port writes
+      the cache's tensors in place and returns the same dict.
+    use_kernel  => self-attention over the s > 1 tokens of x, whose
+      positions must be 0..s-1 (a prompt, as the model gives them), runs
+      on the flash kernels when x is on the GPU: bf16 on the tensor-core
+      kernel, f32 on the CUDA-core one, with q and k after RoPE cast to
+      x's type.
+    """
+    b, s, d = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    n_rep = h // kv
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(x.dtype))
+    src = kv_x if kv_x is not None else x
+    k = torch.einsum("btd,dgk->btgk", src, params["wk"].to(x.dtype))
+    v = torch.einsum("btd,dgk->btgk", src, params["wv"].to(x.dtype))
+    if rope and kv_x is None and cfg.rope != "none":
+        q = apply_rope(q, positions, cfg.rope, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope, cfg.rope_theta)
+
+    q_pos = positions[..., 0] if positions.dim() == 3 else positions  # (B,S)
+    slot_pos = None
+    if cache is not None:
+        T = cache["k"].shape[1]
+        if s == 1:                                   # decode: ring write
+            widx = cache["write_idx"]
+            cache["k"][:, widx] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][:, widx] = v[:, 0].to(cache["v"].dtype)
+            cache["pos"][:, widx] = q_pos[:, 0].to(torch.int32)
+            # decode attends over the whole ring
+            k, v, slot_pos = cache["k"], cache["v"], cache["pos"]
+        else:                                        # prefill: keep last T
+            start = max(s - T, 0)
+            n = s - start
+            cache["k"][:, :n] = k[:, start:].to(cache["k"].dtype)
+            cache["v"][:, :n] = v[:, start:].to(cache["v"].dtype)
+            cache["pos"][:, :n] = q_pos[:, start:].to(torch.int32)
+
+    wo = params["wo"].to(x.dtype)
+    if use_kernel and x.is_cuda and kv_x is None and slot_pos is None:
+        out = flash_attention(q.to(x.dtype).contiguous(),
+                              k.to(x.dtype).contiguous(), v.contiguous(),
+                              causal=causal, window=window)
+        return torch.einsum("bshk,hkd->bsd", out, wo), cache
+
+    # block-banded path for sliding-window layers (train/prefill)
+    if (cfg.attn_impl == "banded" and window > 0 and kv_x is None
+            and slot_pos is None and s % window == 0 and s // window >= 2):
+        out = _banded_attention(q, k, v, q_pos, window, n_rep,
+                                1.0 / math.sqrt(hd))
+        return torch.einsum("bshk,hkd->bsd", out, wo), cache
+
+    scores = _gqa_scores(q, k, n_rep) / math.sqrt(hd)      # (B,H,S,T) f32
+
+    if slot_pos is not None:
+        sp = slot_pos[:, None, None, :]
+        mask = (sp >= 0) & (sp <= q_pos[:, None, :, None])
+        if window > 0:
+            mask = mask & (q_pos[:, None, :, None] - sp < window)
+    elif kv_x is not None:
+        mask = None                                            # cross: dense
+    else:
+        kv_pos = q_pos
+        mask = (kv_pos[:, None, None, :] <= q_pos[:, None, :, None]
+                if causal else None)
+        if window > 0:
+            wmask = q_pos[:, None, :, None] - kv_pos[:, None, None, :] < window
+            mask = wmask if mask is None else (mask & wmask)
+
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.tensor(
+            -1e30, dtype=torch.float32, device=scores.device))
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = _gqa_out(probs, v, n_rep)
+    return torch.einsum("bshk,hkd->bsd", out, wo), cache
+
+
+# ---------------------------------------------------------------- gated MLP
+
+def mlp_init(generator, d, d_ff, device=None) -> dict:
+    return {"wi": _dense_init(generator, (d, d_ff), device=device),
+            "wg": _dense_init(generator, (d, d_ff), device=device),
+            "wo": _dense_init(generator, (d_ff, d), device=device)}
+
+
+def _silu(g):
+    """``jax.nn.silu`` as the reference's compiler evaluates it: g times
+    the logistic, which in bf16 is 1 / (1 + exp(-g)) rounded to bf16 at
+    each step (``F.silu`` and ``torch.sigmoid`` round once, and differ in
+    about a third of the elements); in f32 ``torch.sigmoid`` agrees with
+    it to the last place in all but a few."""
+    if g.dtype == torch.float32:
+        return g * torch.sigmoid(g)
+    return g * (1.0 / (1.0 + torch.exp(-g)))
+
+
+def mlp_apply(params, x):
+    h = torch.einsum("bsd,df->bsf", x, params["wi"].to(x.dtype))
+    g = torch.einsum("bsd,df->bsf", x, params["wg"].to(x.dtype))
+    h = _silu(g) * h
+    return torch.einsum("bsf,fd->bsd", h, params["wo"].to(x.dtype))

@@ -1,0 +1,309 @@
+"""The decoder stack of the dense families, and its serving functions.
+
+Port of the serving part of ``repro.models.transformer``.  The reference
+stacks each period position's parameters over blocks and scans; the port
+keeps one :class:`Block` per layer (layer ``i`` is block ``i // period``,
+position ``i % period``) and loops over them.  Its cache holds one ring
+per layer, written in place: ``{"layers": [{"k", "v", "pos",
+"write_idx"}, ...], "len": int}``.
+
+Parameters: the reference keeps f32 masters and casts each matrix to the
+activation type where it is used; the port casts the matrices once, when
+the model is built, which gives the same numbers (the norms' scales stay
+f32, as the reference uses them).
+
+Served here: the dense decoder families (``"attn"`` and ``"local"``
+layers, gated MLP, text input).  MoE, Mamba, the whisper encoder and the
+vision and audio stubs raise ``NotImplementedError`` when a model is built
+(ROADMAP queue 1, items 4c-4e).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+# parameter groups that are matrices, cast to the activation type at load
+_MATRICES = ("mixer", "mlp")
+
+
+def check_served(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a family this slice does not
+    serve, naming the ROADMAP item that will."""
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers (cfg.moe) are not ported yet (ROADMAP "
+            f"queue 1, item 4c)")
+    if "mamba" in cfg.pattern:
+        raise NotImplementedError(
+            f"{cfg.name}: Mamba2 layers are not ported yet (ROADMAP queue 1, "
+            f"item 4d)")
+    if cfg.encoder is not None or cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder and the {cfg.frontend!r} frontend are "
+            f"not ported yet (ROADMAP queue 1, item 4e)")
+
+
+def _position_init(generator, cfg: ModelConfig, device) -> dict:
+    """One dense layer's f32 parameters (``_moe_at`` and the Mamba and
+    cross-attention groups come with items 4c-4e)."""
+    p = {"norm1": L.rmsnorm_init(cfg.d_model, device),
+         "mixer": L.attention_init(generator, cfg, device)}
+    if cfg.d_ff > 0:
+        p["norm2"] = L.rmsnorm_init(cfg.d_model, device)
+        p["mlp"] = L.mlp_init(generator, cfg.d_model, cfg.d_ff, device)
+    return p
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, *,
+                device=None, dtype: Optional[torch.dtype] = None) -> dict:
+    """Random parameters from ``generator`` (on ``device``), drawn in f32
+    layer by layer: ``{"embed", "final_norm", "layers": [...],
+    "lm_head"?}``.  With ``dtype`` each matrix is cast to it as soon as it
+    is drawn (the norms stay f32), so a bf16 model never holds its f32
+    weights whole; the values are those of the f32 draw, cast."""
+    check_served(cfg)
+
+    def cast(t):
+        return t if dtype is None else t.to(dtype)
+
+    layers = []
+    for i in range(cfg.n_layers):
+        p = _position_init(generator, cfg, device)
+        layers.append({g: ({n: cast(t) for n, t in leaves.items()}
+                           if g in _MATRICES else leaves)
+                       for g, leaves in p.items()})
+    params = {"embed": cast(L._embed_init(generator, (cfg.vocab, cfg.d_model),
+                                          device)),
+              "final_norm": L.rmsnorm_init(cfg.d_model, device),
+              "layers": layers}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = cast(L._dense_init(
+            generator, (cfg.vocab, cfg.d_model), in_axis=-1, device=device))
+    return params
+
+
+def _frozen(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+class Block(nn.Module):
+    """One layer: norm, attention, norm, gated MLP (the MLP absent where
+    ``d_ff`` is 0)."""
+
+    def __init__(self, p: dict, cfg: ModelConfig, pos: int, dtype, device):
+        super().__init__()
+        self.kind = cfg.pattern[pos]
+        self.window = cfg.window if self.kind == "local" else 0
+
+        def group(name):
+            if name not in p:
+                return None
+            return nn.ParameterDict({
+                n: _frozen(t.to(device=device, dtype=dtype if name in
+                                _MATRICES else torch.float32))
+                for n, t in p[name].items()})
+        self.norm1 = group("norm1")
+        self.mixer = group("mixer")
+        self.norm2 = group("norm2")
+        self.mlp = group("mlp")
+
+
+class Transformer(nn.Module):
+    """A dense decoder on one device, in ``cfg.activation_dtype``.
+
+    ``params``: the port's parameter tree (:func:`init_params`, or
+    :func:`repro_torch.models.convert.params_from_jax` for the reference's
+    weights); without it the weights are drawn from a ``torch.Generator``
+    seeded with ``seed`` on the device.  ``device=None`` is the GPU (and
+    raises without one).  ``use_kernel=False`` keeps prefill's attention
+    on the plain route on the GPU too.
+    """
+
+    def __init__(self, cfg: ModelConfig, params: Optional[dict] = None, *,
+                 device=None, seed: int = 0, use_kernel: bool = True):
+        super().__init__()
+        check_served(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.use_kernel = use_kernel
+        dt = cfg.activation_dtype
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = init_params(cfg, gen, device=self.device, dtype=dt)
+        self.embed = _frozen(params["embed"].to(device=self.device, dtype=dt))
+        self.final_norm = nn.ParameterDict({"scale": _frozen(
+            params["final_norm"]["scale"].to(self.device, torch.float32))})
+        self.lm_head = (None if cfg.tie_embeddings else _frozen(
+            params["lm_head"].to(device=self.device, dtype=dt)))
+        self.layers = nn.ModuleList(
+            Block(p, cfg, i % cfg.period, dt, self.device)
+            for i, p in enumerate(params["layers"]))
+        if len(self.layers) != cfg.n_layers:
+            raise ValueError(f"{cfg.name}: {len(self.layers)} layers given, "
+                             f"the config has {cfg.n_layers}")
+
+    def n_params(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
+    def forward(self, batch: dict) -> torch.Tensor:
+        """Logits (B, S, V) in f32 at every position of ``batch["tokens"]``:
+        the full forward the reference's cache tests compare with."""
+        x, positions = _prepare_inputs(self, self.cfg, batch)
+        x = _stack(self, x, positions, use_kernel=self.use_kernel)
+        x = L.rmsnorm(self.final_norm, x, self.cfg.norm_eps)
+        return _lm_logits(self, self.cfg, x)
+
+    def prefill(self, batch: dict, max_seq: int):
+        """Run the prompt through the stack, returning (last_logits (B,1,V)
+        f32, cache)."""
+        cfg = self.cfg
+        x, positions = _prepare_inputs(self, cfg, batch)
+        b, s = x.shape[0], x.shape[1]
+        cache = init_cache(cfg, b, max_seq, device=self.device)
+        layer_caches = _with_write_idx(cache["layers"], 0)
+        x = _stack(self, x, positions, caches=layer_caches,
+                   use_kernel=self.use_kernel)
+        x = L.rmsnorm(self.final_norm, x, cfg.norm_eps)
+        logits = _lm_logits(self, cfg, x[:, -1:, :])
+        cache["len"] = s
+        return logits, cache
+
+    def decode_step(self, cache: dict, tokens):
+        """One decode step: tokens (B, 1).  Returns (logits (B,1,V) f32,
+        cache), the cache updated in place."""
+        cfg = self.cfg
+        tokens = _tokens(tokens, self.device)
+        b = tokens.shape[0]
+        pos_scalar = cache["len"]
+        x = _embed_tokens(self, cfg, tokens)
+        shape = (b, 1, 3) if cfg.rope == "mrope" else (b, 1)
+        positions = torch.full(shape, pos_scalar, dtype=torch.int32,
+                               device=self.device)
+        layer_caches = _with_write_idx(cache["layers"], pos_scalar)
+        x = _stack(self, x, positions, caches=layer_caches,
+                   use_kernel=self.use_kernel)
+        x = L.rmsnorm(self.final_norm, x, cfg.norm_eps)
+        logits = _lm_logits(self, cfg, x)
+        cache["len"] = pos_scalar + 1
+        return logits, cache
+
+
+# ---------------------------------------------------------------- blocks
+
+def _apply_position(p: Block, x, u, positions, cfg: ModelConfig, cache=None,
+                    use_kernel: bool = True):
+    """One layer.  ``x`` is its input in the activation type, ``u`` the
+    same value in f32 as the layer's first norm reads it.  Returns both for
+    the layer's output.
+
+    Inside one compiled block the reference's residual sums reach the next
+    norm unrounded (its compiler keeps the f32 sum of two bf16 values),
+    while the residual adds themselves read them rounded to bf16; ``u``
+    carries the unrounded sum.  In f32 ``u`` and ``x`` hold the same
+    values."""
+    dt = x.dtype
+    h, _ = L.attention_apply(
+        p.mixer, L.rmsnorm(p.norm1, u, cfg.norm_eps).to(dt), positions, cfg,
+        window=p.window, cache=cache, use_kernel=use_kernel)
+    u = x.to(torch.float32) + h.to(torch.float32)
+    x = u.to(dt)
+    if p.mlp is not None:
+        h = L.mlp_apply(p.mlp, L.rmsnorm(p.norm2, u, cfg.norm_eps).to(dt))
+        u = x.to(torch.float32) + h.to(torch.float32)
+        x = u.to(dt)
+    return x, u
+
+
+def _stack(model: Transformer, x, positions, caches=None,
+           use_kernel: bool = True):
+    """Every layer in order.  ``caches``: one ring per layer (written in
+    place), or None.  A period block starts from its input rounded to the
+    activation type, as the reference's scan carries it."""
+    cfg = model.cfg
+    for i, p in enumerate(model.layers):
+        if i % cfg.period == 0:
+            u = x.to(torch.float32)
+        x, u = _apply_position(p, x, u, positions, cfg,
+                               cache=None if caches is None else caches[i],
+                               use_kernel=use_kernel)
+    return x
+
+
+def _tokens(tokens, device) -> torch.Tensor:
+    """Token ids (a tensor, array or nested list) as int64 on ``device``."""
+    if not isinstance(tokens, torch.Tensor):
+        tokens = torch.as_tensor(np.asarray(tokens))
+    return tokens.to(device=device, dtype=torch.int64)
+
+
+def _embed_tokens(model: Transformer, cfg: ModelConfig, tokens):
+    x = model.embed[tokens]
+    if cfg.scale_embed:
+        # sqrt(d_model) rounded to the activation type first
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
+    return x
+
+
+def _lm_logits(model: Transformer, cfg: ModelConfig, x):
+    """f32 logits: the f32 product of the activation-type operands, then
+    gemma's softcap ``tanh(l / c) * c`` in f32."""
+    head = model.embed if cfg.tie_embeddings else model.lm_head
+    logits = torch.einsum("bsd,vd->bsv", x.to(torch.float32),
+                          head.to(torch.float32))
+    if cfg.logit_softcap > 0:
+        c = cfg.logit_softcap
+        logits = torch.tanh(logits / c) * c
+    return logits
+
+
+def _prepare_inputs(model: Transformer, cfg: ModelConfig, batch: dict):
+    """Token embeds and their positions 0..S-1 (text input only)."""
+    tokens = _tokens(batch["tokens"], model.device)
+    x = _embed_tokens(model, cfg, tokens)
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=model.device)[None, :].expand(b, s)
+    return x, positions
+
+
+# ---------------------------------------------------------------- serving
+
+def ring_size(cfg: ModelConfig, pos: int, max_seq: int) -> int:
+    if cfg.pattern[pos] == "local":
+        return min(max_seq, cfg.window + 8)
+    return max_seq
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
+               device=None) -> dict:
+    """Allocate the decode cache: a KV ring per layer, every slot empty
+    (``pos`` -1)."""
+    dtype = dtype or cfg.activation_dtype
+    layers = []
+    for i in range(cfg.n_layers):
+        eff = ring_size(cfg, i % cfg.period, max_seq)
+        shape = (batch, eff, cfg.n_kv, cfg.head_dim)
+        layers.append({
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.full((batch, eff), -1, dtype=torch.int32,
+                              device=device),
+            "write_idx": 0,
+        })
+    return {"layers": layers, "len": 0}
+
+
+def _with_write_idx(layer_caches: list, pos_scalar: int) -> list:
+    """Set each layer's ring write index to len % ring."""
+    for c in layer_caches:
+        c["write_idx"] = pos_scalar % c["k"].shape[1]
+    return layer_caches

@@ -779,3 +779,88 @@ def test_cuda_host_engine_equals_cpu(cuda):
     for q in want.nrmse_per_stream:
         assert np.array_equal(got.nrmse_per_stream[q],
                               want.nrmse_per_stream[q], equal_nan=True), q
+
+
+# LM serving: the dense decoders' prefill sends self-attention to the flash
+# kernels (one launch a layer); decode and the plain route stay torch.  f32:
+# the two routes' logits within rtol 1e-3, atol 1e-3 (the model tests' f32
+# tolerance: random attention weights magnify the kernel's other summation
+# order layer by layer).  bf16: the kernel reads q and k rounded to bf16,
+# where the plain route (as the reference) keeps them in f32 after RoPE, so
+# the routes' logits part ways at smoke size; there each layer's kernel
+# output is held to its plain version on the layer's own q, k, v instead.
+LM_ARCHS = ["gemma3-12b", "yi-9b", "starcoder2-3b", "chatglm3-6b"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_cuda_lm_prefill_kernel_route_matches_plain(cuda, arch, dtype):
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer
+    from repro_torch.models import layers as lm_layers
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=dtype)
+    model = Transformer(cfg, device=cuda, seed=5)
+    toks = np.random.default_rng(6).integers(0, cfg.vocab, (3, 40))
+    seen = []
+    kernel = lm_layers.flash_attention
+
+    def spy(q, k, v, **kw):
+        out = kernel(q, k, v, **kw)
+        seen.append((q, k, v, kw, out))
+        return out
+    before = (fa_ops.LAUNCHES, fa_ops.SM90_LAUNCHES)
+    lm_layers.flash_attention = spy
+    try:
+        got, cache_k = model.prefill({"tokens": toks}, 64)
+    finally:
+        lm_layers.flash_attention = kernel
+    torch.cuda.synchronize()
+    sm90 = cfg.n_layers if dtype == "bfloat16" else 0
+    assert (fa_ops.LAUNCHES - before[0], fa_ops.SM90_LAUNCHES - before[1]) \
+        == (cfg.n_layers, sm90)
+    assert len(seen) == cfg.n_layers and torch.isfinite(got).all()
+    model.use_kernel = False
+    want, cache_p = model.prefill({"tokens": toks}, 64)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES - before[0] == cfg.n_layers
+    for a, b in zip(cache_k["layers"], cache_p["layers"]):
+        assert torch.equal(a["pos"], b["pos"])
+        assert a["write_idx"] == b["write_idx"]
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+        return
+    for q, k, v, kw, out in seen:
+        assert q.dtype == k.dtype == v.dtype == torch.bfloat16
+        _assert_bf16_close(out, flash_attention_ref(q, k, v, **kw))
+
+
+@pytest.mark.cuda
+def test_cuda_lm_serve_launches_the_kernel_once_a_layer_per_prefill(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.serving import Request, ServeEngine
+    from repro_torch.serving.__main__ import PROMPTS
+    cfg = get_config("gemma3-12b", smoke=True)
+    engine = ServeEngine(None, cfg, batch_slots=4, max_seq=96, device=cuda)
+    for i, p in enumerate(PROMPTS):
+        engine.submit(Request(rid=i, prompt=p, max_new_tokens=12))
+    before = fa_ops.SM90_LAUNCHES
+    done = engine.run()
+    torch.cuda.synchronize()
+    assert sum(len(r.generated) for r in done) == 72
+    # two batches of prompts, one launch a layer each
+    assert fa_ops.SM90_LAUNCHES - before == 2 * cfg.n_layers
+
+
+@pytest.mark.cuda
+def test_cuda_lm_prefill_refuses_a_head_dim_the_kernels_lack(cuda):
+    """No quiet fallback on the card: hd 24 is not in ``HEAD_DIMS``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer
+    cfg = dataclasses.replace(get_config("yi-9b", smoke=True), head_dim=24)
+    model = Transformer(cfg, device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        model.prefill({"tokens": [[1, 2, 3]]}, 16)

@@ -30,7 +30,8 @@ def test_every_module_of_the_port_is_imported_here():
     """The walk below covers the modules the port's later slices add."""
     mods = _port_modules()
     for m in ("repro_torch.core.thinning", "repro_torch.core.samplers",
-              "repro_torch.planning.engine"):
+              "repro_torch.planning.engine", "repro_torch.models.transformer",
+              "repro_torch.serving.engine"):
         assert m in mods
 
 
@@ -69,7 +70,13 @@ def test_importing_the_port_leaves_jax_and_repro_out():
             "repro_torch.streaming.events", "repro_torch.streaming.runtime",
             "repro_torch.fleet.controller", "repro_torch.core.samplers",
             "repro_torch.core.solver", "repro_torch.core.planner",
-            "repro_torch.planning.engine"} <= set(res["mods"])
+            "repro_torch.planning.engine", "repro_torch.models",
+            "repro_torch.models.config", "repro_torch.models.layers",
+            "repro_torch.models.transformer", "repro_torch.models.convert",
+            "repro_torch.configs", "repro_torch.configs.gemma3_12b",
+            "repro_torch.configs.jamba_1_5_large_398b",
+            "repro_torch.serving", "repro_torch.serving.engine",
+            "repro_torch.serving.__main__"} <= set(res["mods"])
     assert res["bad"] == []
     assert res["libs"] == [] and res["built"] == []
 
