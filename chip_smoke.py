@@ -148,7 +148,22 @@ Phases, one JSON line each; any failed check exits non-zero:
      layers 0 and 5's own q, k, v against its plain version (row 4's RMS
      bound; element-wise, each against f64); and the kernel timed at the
      prefill shape, local and global, beside SDPA and its bound;
- 25. the kernels line, then ``{"ok": true, "device": {...}}`` last.
+ 25. slice 15's LM training path on starcoder2-3b at full width
+     (``TRAIN``: 30 layers, d 3072, 24 heads of 128, 2 kv heads, vocab
+     49152; f32 masters, m and v, 69 GB with the gradients; bf16
+     activations; every period block recomputed in the backward pass),
+     after the serve model is freed: ``launch.train.main`` for 8 steps of
+     4 x 512 tokens (losses, grad norms, median step ms split into forward
+     + backward and optimizer, tokens/sec, peak memory); a fixed batch at
+     a constant lr of 1e-4 for 8 steps (every leaf a finite, nonzero
+     gradient after step 1; the loss after step 8 below step 0's); the
+     four dense smoke families' f32 step on the card against the CPU; the
+     driver's smoke run failed at step 25 and resumed from its step-20
+     checkpoint against the uninterrupted run (losses to 1e-5 relative,
+     and whether bitwise).  The flash kernels launch 0 times (asserted):
+     a training forward takes the plain attention, as the reference's
+     does;
+ 26. the kernels line, then ``{"ok": true, "device": {...}}`` last.
 
 Phase 12's sweep also runs the six fleet event goldens and the seven
 single-edge event goldens (all twenty-one goldens), their counters held
@@ -304,6 +319,22 @@ LM = {"arch": "gemma3-12b", "seed": 29, "slots": 4, "max_seq": 1100,
       "batch": (4, 512), "layers": (0, 5), "ring_prompt": 1000,
       "ring_decode": 40, "kernel_over_plain": 1.25, "ring_tol": 1e-3,
       "f32_layer_ratio": 2.0}
+# slice 15: LM training on starcoder2-3b FULL (configs/starcoder2_3b.py:
+# 30 layers, d 3072, vocab 49152; f32 masters, m and v, bf16 activations):
+# the driver's run of 8 steps of 4 x 512 tokens, the fixed-batch run at a
+# constant lr, the four dense smoke families' f32 step on the card against
+# the CPU on ``smoke_batch`` (the CPU tests' f32 limits; each gradient leaf
+# within twice their 1e-3 of its largest |grad|, as the CPU tests hold each
+# side within 1e-3 of the reference), and the driver's failed-and-resumed
+# smoke run against the uninterrupted one
+TRAIN = {"arch": "starcoder2-3b", "steps": 8, "batch": 4, "seq": 512,
+         "fixed_lr": 1e-4, "fixed_steps": 8, "seed": 30,
+         "smoke_archs": ("starcoder2-3b", "yi-9b", "chatglm3-6b",
+                         "gemma3-12b"),
+         "smoke_batch": (2, 24), "smoke_lr": 1e-3, "loss_rtol": 1e-5,
+         "gnorm_rtol": 1e-3, "grad_limit": 2e-3,
+         "resume": {"steps": 30, "every": 10, "fail": 25, "batch": 4,
+                    "seq": 32}, "resume_rtol": 1e-5}
 # a fleet of the main path's kind whose data (134 MB for stream_stats_fleet,
 # 268 MB for polyfit) does not fit in the 50 MB L2: (E, k, N)
 LARGE = (4096, 8, 1024)
@@ -795,13 +826,17 @@ def main() -> int:
     # ---- 24. slice 14: LM serving at full width ---------------------------
     lm = lm_serve_path(torch, results, card_line)
 
-    # ---- 25. the kernels line and the result -----------------------------
+    # ---- 25. slice 15: LM training at full width --------------------------
+    train = lm_train_path(torch, card_line)
+
+    # ---- 26. the kernels line and the result -----------------------------
     # launches: rows 1 and 2 on the runtime paths driven with the counts
     # at 0 (main_path, adaptive_path, chaos_path, event_path, and
     # single_event_path, baseline_path, iid_path and host_engine_path,
     # which launch neither; sharded_path in this process and
     # sharded_path_ranks summed over its two ranks), row 3 on the kernel
-    # entry points, row 4 there and in the LM serve run
+    # entry points, row 4 there and in the LM serve run (and 0 times in
+    # the LM training run, asserted: it has no backward)
     by_path = {n: ({"main_path": launches[n], "adaptive_path": adaptive[n],
                     "chaos_path": chaos[n], "event_path": event[n],
                     "single_event_path": single_event[n],
@@ -810,7 +845,8 @@ def main() -> int:
                     "sharded_path": sharded["in_process"][n],
                     "sharded_path_ranks": sharded["ranks"][n]}
                    if n in adaptive else {"kernel_entry_points": launches[n],
-                                          **({"lm_serve_path": lm[n]}
+                                          **({"lm_serve_path": lm[n],
+                                              "lm_train_path": train[n]}
                                              if n in lm else {})})
                for n in KERNELS}
     emit({"kernels": [dict(name=n, route="cuda", source=KERNELS[n][0],
@@ -1338,6 +1374,244 @@ def lm_serve_path(torch, results, card_line: str) -> dict:
     del model
     torch.cuda.empty_cache()
     return launches
+
+
+def _finite(xs) -> bool:
+    import math
+    return all(math.isfinite(x) for x in xs)
+
+
+def lm_train_path(torch, card_line: str) -> dict:
+    """Phase 25: training at full width and the training checks (``TRAIN``).
+    Every check raises.  Returns the flash kernels' launches in the
+    phase, asserted 0."""
+    import dataclasses
+    import gc
+    import tempfile
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import MarkovTokenStream
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import make_train_step
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import forward_train, init_params
+    from repro_torch.optim import (adamw_init, cosine_schedule, tree_leaves,
+                                   tree_map)
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa_ops.LAUNCHES = 0
+    fa_ops.SM90_LAUNCHES = 0
+    cfg = get_config(TRAIN["arch"])
+    bsz, seq = TRAIN["batch"], TRAIN["seq"]
+
+    # ---- (a) the driver at full width -------------------------------------
+    stats = {}
+    t0 = time.perf_counter()
+    losses = train_mod.main(
+        ["--arch", TRAIN["arch"], "--full", "--steps", str(TRAIN["steps"]),
+         "--batch", str(bsz), "--seq", str(seq), "--log-every", "1",
+         "--seed", str(TRAIN["seed"]), "--device", "cuda"], stats=stats)
+    run_s = time.perf_counter() - t0
+    emit({"phase": "lm_train_driver", "nvidia_smi": card_line,
+          "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab, "params": stats["params"],
+          "state_bytes": 16 * stats["params"], "batch": [bsz, seq],
+          "tokens_per_step": stats["tokens_per_step"],
+          "steps": stats["step"], "losses": stats["loss"],
+          "grad_norms": stats["grad_norm"],
+          "fwd_bwd_ms": stats["fwd_bwd_ms"], "opt_ms": stats["opt_ms"],
+          "median_step_ms": stats["median_step_ms"],
+          "median_fwd_bwd_ms": stats["median_fwd_bwd_ms"],
+          "median_opt_ms": stats["median_opt_ms"],
+          "tokens_per_sec": stats["tokens_per_sec"],
+          "peak_mem_bytes": stats["peak_mem_bytes"], "seconds": run_s})
+    if len(stats["loss"]) != TRAIN["steps"] or len(losses) != TRAIN["steps"] \
+            or not _finite(stats["loss"] + stats["grad_norm"]
+                           + stats["fwd_bwd_ms"] + stats["opt_ms"]):
+        raise AssertionError(f"the driver's full-width run: {stats}")
+    del stats
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) one fixed batch at a constant lr -----------------------------
+    toks = MarkovTokenStream(cfg.vocab, TRAIN["seed"]).sample(
+        np.random.default_rng(TRAIN["seed"]), bsz, seq)
+    batch = {"tokens": torch.as_tensor(toks[:, :-1], device="cuda"),
+             "labels": torch.as_tensor(toks[:, 1:], device="cuda")}
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN["seed"])
+    state = adamw_init(init_params(cfg, gen, device="cuda"))
+    step = make_train_step(cfg, lambda _: TRAIN["fixed_lr"])
+    fixed, empty = [], []
+    for i in range(TRAIN["fixed_steps"]):
+        if i == 1:       # the second step under the profiler
+            state, metrics = profile_train_step(step, state, batch, torch,
+                                                card_line)
+            fixed.append(float(metrics["loss"]))
+            continue
+        loss, metrics, grads = step.loss_and_grads(state, batch)
+        if i == 0:
+            leaves = tree_leaves(grads)
+            ok = torch.stack([torch.isfinite(g).all() & (g.abs().amax() > 0)
+                              for g in leaves]).cpu()
+            empty = [j for j, o in enumerate(ok.tolist()) if not o]
+            n_leaves = len(leaves)
+            del leaves
+        state, metrics = step.apply(state, grads, loss, metrics)
+        del grads
+        fixed.append(float(metrics["loss"]))
+    # the loss after step 8 (its graph, which holds the masters, dropped)
+    fixed.append(float(forward_train(state.params, batch, cfg)[0].detach()))
+    del state, step, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_train_fixed_batch", "nvidia_smi": card_line,
+          "arch": cfg.name, "batch": [bsz, seq], "lr": TRAIN["fixed_lr"],
+          "losses": fixed, "leaves": n_leaves,
+          "leaves_without_finite_nonzero_grad": empty})
+    if empty or not _finite(fixed) or not fixed[-1] < fixed[0]:
+        raise AssertionError(f"fixed-batch run: losses {fixed}, leaves "
+                             f"without a finite nonzero gradient {empty}")
+
+    # ---- (c) the smoke families' f32 step, card against CPU ---------------
+    sb, ss = TRAIN["smoke_batch"]
+    rows = []
+    for arch in TRAIN["smoke_archs"]:
+        scfg = dataclasses.replace(get_config(arch, smoke=True),
+                                   dtype="float32")
+        rng = np.random.default_rng(1)
+        sbatch = {"tokens": rng.integers(0, scfg.vocab, (sb, ss)),
+                  "labels": rng.integers(0, scfg.vocab, (sb, ss))}
+        sbatch["labels"][0, :5] = -1
+        sbatch["labels"][1, -3:] = -1
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            params = init_params(scfg, torch.Generator().manual_seed(7))
+            st = adamw_init(tree_map(lambda t: t.to(dev), params))
+            sstep = make_train_step(scfg, cosine_schedule(TRAIN["smoke_lr"],
+                                                          0, 10))
+            loss, metrics, grads = sstep.loss_and_grads(st, sbatch)
+            g = [t.detach().cpu().clone() for t in tree_leaves(grads)]
+            st, m = sstep.apply(st, grads, loss, metrics)
+            runs[dev] = (float(m["loss"]), float(m["grad_norm"]), g,
+                         [t.detach().cpu() for t in tree_leaves(st.params)])
+        (l0, n0, g0, p0), (l1, n1, g1, p1) = runs["cpu"], runs["cuda"]
+        row = {"arch": arch, "loss_rel": abs(l1 - l0) / abs(l0),
+               "grad_norm_rel": abs(n1 - n0) / n0,
+               "grad_err_over_leaf_max": max(
+                   float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(g1, g0)),
+               "param_max_abs_diff": max(float((a - b).abs().max())
+                                         for a, b in zip(p1, p0))}
+        row["ok"] = (row["loss_rel"] <= TRAIN["loss_rtol"]
+                     and row["grad_norm_rel"] <= TRAIN["gnorm_rtol"]
+                     and row["grad_err_over_leaf_max"] <= TRAIN["grad_limit"]
+                     and row["param_max_abs_diff"] <= 2 * TRAIN["smoke_lr"])
+        rows.append(row)
+    emit({"phase": "lm_train_smoke_card_vs_cpu", "nvidia_smi": card_line,
+          "batch": [sb, ss], "lr": TRAIN["smoke_lr"],
+          "limits": {k: TRAIN[k] for k in ("loss_rtol", "gnorm_rtol",
+                                           "grad_limit")}, "rows": rows})
+    if not all(r["ok"] for r in rows):
+        raise AssertionError(f"smoke train steps, card against CPU: {rows}")
+
+    # ---- (c) the driver failed and resumed, against the uninterrupted run
+    rs = TRAIN["resume"]
+    flags = ["--arch", TRAIN["arch"], "--steps", str(rs["steps"]),
+             "--batch", str(rs["batch"]), "--seq", str(rs["seq"]),
+             "--ckpt-every", str(rs["every"]), "--log-every", "10",
+             "--device", "cuda"]
+    whole, resumed = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        train_mod.main(flags + ["--ckpt-dir", os.path.join(tmp, "whole")],
+                       stats=whole)
+        ck = os.path.join(tmp, "ck")
+        try:
+            train_mod.main(flags + ["--ckpt-dir", ck, "--fail-at-step",
+                                    str(rs["fail"])])
+            raise AssertionError("--fail-at-step did not fail")
+        except RuntimeError as exc:
+            if "injected node failure" not in str(exc):
+                raise
+        train_mod.main(flags + ["--ckpt-dir", ck, "--restore"],
+                       stats=resumed)
+    start = (rs["fail"] // rs["every"]) * rs["every"]
+    want = whole["loss"][start:]
+    got = resumed["loss"]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(got, want)) \
+        if len(got) == len(want) else float("inf")
+    launches = {"flash_attention": fa_ops.SM90_LAUNCHES,
+                "flash_attention_f32": fa_ops.LAUNCHES - fa_ops.SM90_LAUNCHES}
+    emit({"phase": "lm_train_resume", "nvidia_smi": card_line,
+          "arch": get_config(TRAIN["arch"], smoke=True).name,
+          "steps": rs["steps"], "failed_at": rs["fail"],
+          "restored_step": start, "resumed_steps": resumed["step"],
+          "max_rel_loss_diff": worst, "limit": TRAIN["resume_rtol"],
+          "bitwise": got == want, "launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    if resumed["step"] != list(range(start + 1, rs["steps"] + 1)) or \
+            not worst <= TRAIN["resume_rtol"]:
+        raise AssertionError(f"the resumed run's losses {got} against the "
+                             f"uninterrupted run's {want}")
+    if launches != {"flash_attention": 0, "flash_attention_f32": 0}:
+        raise AssertionError(f"flash kernel launches in the training phase "
+                             f"{launches}: a training forward takes the "
+                             f"plain attention")
+    return launches
+
+
+def profile_train_step(step, state, batch, torch, card_line: str,
+                       out_name: str = "profile_train.txt"):
+    """One train step under torch.profiler (table in chiprun_out/<out_name>):
+    its wall ms (inflated by the profiler: compare the device time with
+    the driver's unprofiled step ms), the device time of its kernels and
+    their launches, each half's (``train_step/grads``: forward,
+    recomputation and backward; ``train_step/update``: AdamW) wall ms and
+    span on the device, and the ten largest kernels.  Returns the step's
+    (state, metrics)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with record_function("train_step/grads"):
+            loss, metrics, grads = step.loss_and_grads(state, batch)
+            torch.cuda.synchronize()
+        with record_function("train_step/update"):
+            state, metrics = step.apply(state, grads, loss, metrics)
+            del grads
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    evs = prof.key_averages()
+    with open(os.path.join(OUT_DIR, out_name), "w") as f:
+        f.write(f"== one train step ({card_line})\n")
+        f.write(evs.table(sort_by="self_device_time_total"
+                          if hasattr(evs[0], "self_device_time_total")
+                          else "self_cuda_time_total", row_limit=40))
+    on_dev = [e for e in evs if str(e.device_type).endswith("CUDA")]
+    # a range shows twice: on the host (its wall time) and as an
+    # annotation on the device timeline (its span there, not a kernel)
+    kernels = [e for e in on_dev if not e.key.startswith(("Memcpy",
+                                                          "train_step/"))]
+    dev = sum(_dev_ms(e) for e in kernels)
+    halves = {}
+    for e in evs:
+        if e.key.startswith("train_step/"):
+            side = ("device_span_ms" if str(e.device_type).endswith("CUDA")
+                    else "wall_ms")
+            ms = _dev_ms(e) if side == "device_span_ms" \
+                else e.cpu_time_total / 1e3
+            halves.setdefault(e.key.split("/", 1)[1], {})[side] = ms
+    top = sorted(kernels, key=lambda e: -_dev_ms(e))[:10]
+    emit({"phase": "profile_train", "file": out_name, "nvidia_smi": card_line,
+          "batch": list(batch["tokens"].shape), "profiled_wall_ms": wall,
+          "kernel_device_ms": dev, "kernel_launches":
+              sum(e.count for e in kernels), "halves": halves,
+          "top": [{"name": e.key[:70], "count": e.count, "ms": _dev_ms(e)}
+                  for e in top]})
+    return state, metrics
 
 
 def _attention_f64(q, k, v, *, causal: bool, window: int):

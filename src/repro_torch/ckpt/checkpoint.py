@@ -1,5 +1,6 @@
-"""Checkpoints of the scan runtime's carry, with atomic manifests — port
-of ``repro.ckpt.checkpoint`` over the port's dataclass states.
+"""Checkpoints of the scan runtime's carry and of training states, with
+atomic manifests — port of ``repro.ckpt.checkpoint`` over the port's
+dataclass states.
 
 Format (the reference's): one directory per step holding
   manifest.json   — step, leaf paths, shapes, dtypes, save-complete marker
@@ -7,10 +8,13 @@ Format (the reference's): one directory per step holding
 
 A leaf's key is its path as ``jax.tree_util.keystr`` writes it for the
 reference's pytrees: ``.name`` for a dataclass field, ``['q']`` for a
-dict entry (``.window_id``, ``.controller.demand``,
-``.chaos.served['AVG']``); ``None`` holds no leaves, and ``window_id``
-is saved as an int32 0-d array.  A checkpoint written by either package
-therefore restores into the other.
+dict entry, ``[i]`` for a list or tuple item (``.window_id``,
+``.controller.demand``, ``.chaos.served['AVG']``,
+``.params['blocks'][0]['mixer']['wq']``); ``None`` holds no leaves, and
+an int leaf (``window_id``, a training state's ``step``) is saved as an
+int32 0-d array.  A checkpoint written by either package therefore
+restores into the other.  A training state is saved in the reference's
+stacked layout (``models.convert.train_state_to_jax``).
 
 Atomicity: a save writes ``<dir>/.tmp-<step>-<pid>`` and renames it, so a
 crashed save never shadows the previous good checkpoint; the next save
@@ -40,7 +44,8 @@ from repro_torch import resolve_device
 
 def _leaves(tree, path: str = ""):
     """(key, leaf) pairs of a state in the reference's flattening order:
-    dataclass fields in order, dict entries by sorted key, None skipped."""
+    dataclass fields in order, dict entries by sorted key, sequence items
+    in order, None skipped."""
     if tree is None:
         return
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
@@ -49,6 +54,9 @@ def _leaves(tree, path: str = ""):
     elif isinstance(tree, dict):
         for k in sorted(tree):
             yield from _leaves(tree[k], f"{path}[{k!r}]")
+    elif isinstance(tree, (list, tuple)):
+        for i, t in enumerate(tree):
+            yield from _leaves(t, f"{path}[{i}]")
     else:
         yield path, tree
 
@@ -125,7 +133,8 @@ def _write(flat: dict, step: int, directory: Path) -> Path:
 
 def save(state, step: int, directory: str | Path) -> Path:
     """Write ``state`` (a :class:`~repro_torch.runtime.state.RuntimeState`
-    or any tree of dataclasses, dicts and arrays) as checkpoint ``step``."""
+    or any tree of dataclasses, dicts, sequences and arrays) as
+    checkpoint ``step``."""
     return _write(flatten(state), step, Path(directory))
 
 
@@ -158,6 +167,9 @@ def _rebuild(template, data, device, path: str = ""):
     if isinstance(template, dict):
         return {k: _rebuild(v, data, device, f"{path}[{k!r}]")
                 for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        return type(template)(_rebuild(t, data, device, f"{path}[{i}]")
+                              for i, t in enumerate(template))
     arr = data[path]
     shape = tuple(template.shape) if hasattr(template, "shape") else ()
     if tuple(arr.shape) != shape:

@@ -59,8 +59,16 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch a kernel on contiguous CUDA tensors q (B,S,H,hd) and k, v
     (B,T,KV,hd) of one type, f32 or bf16, 16-byte aligned (cp.async or
     TMA loads), with H % KV == 0 and hd in ``HEAD_DIMS``; bf16 also needs
-    T >= 1.  Returns o (B,S,H,hd) in q's type."""
+    T >= 1.  Returns o (B,S,H,hd) in q's type.  Raises where autograd
+    would record the call (grad mode on and q, k or v requiring grad): the
+    kernels have no backward."""
     global LAUNCHES, SM90_LAUNCHES
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward: the kernels write their output "
+            "outside autograd, so q, k and v would get no gradient.  Call it "
+            "under torch.no_grad() or on tensors that do not require grad; "
+            "a training forward takes the plain attention")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"flash_attention needs CUDA tensors, {name} is "

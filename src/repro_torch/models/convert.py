@@ -1,11 +1,16 @@
-"""Carry the reference's weights across to the port.
+"""Carry parameters and training states between the two packages.
 
 ``repro.models.transformer.init_params`` stacks each period position's
 parameters over blocks (``blocks[pos][group][leaf]`` has a leading axis of
 ``n_blocks``); the port keeps one dict per layer.  :func:`params_from_jax`
 unstacks block ``i`` of position ``pos`` into layer ``i * period + pos``,
-so that both packages compute the same function.  It reads numpy arrays
-(or anything ``np.asarray`` takes) and imports nothing of JAX.
+so that both packages compute the same function; :func:`params_to_jax`
+stacks them back.  :func:`train_state_from_jax` and
+:func:`train_state_to_jax` do the same for an AdamW state (params, m, v,
+step), which is also the layout a training checkpoint is saved in, so
+that either package restores the other's.  Everything here reads and
+writes numpy arrays (or anything ``np.asarray`` takes) and imports
+nothing of JAX.
 """
 from __future__ import annotations
 
@@ -13,11 +18,17 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import check_served
+from repro_torch.models.transformer import check_served, init_params
+from repro_torch.optim.adamw import TrainState
 
 
 def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """An f32 host copy (never a view: the optimizer updates in place)."""
+    return t.detach().to("cpu", torch.float32, copy=True).numpy()
 
 
 def params_from_jax(tree: dict, cfg: ModelConfig) -> dict:
@@ -37,3 +48,60 @@ def params_from_jax(tree: dict, cfg: ModelConfig) -> dict:
     if "lm_head" in tree:
         params["lm_head"] = _tensor(tree["lm_head"])
     return params
+
+
+def _stacked(params: dict, cfg: ModelConfig, leaf, stack) -> dict:
+    """The port's tree in the reference's layout: ``leaf`` maps each
+    tensor, ``stack`` a list of one position's layers over the blocks."""
+    check_served(cfg)
+    layers = params["layers"]
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"{cfg.name}: {len(layers)} layers given, the "
+                         f"config has {cfg.n_layers}")
+    blocks = tuple(
+        {group: {name: stack([layers[i * cfg.period + pos][group][name]
+                              for i in range(cfg.n_blocks)])
+                 for name in leaves}
+         for group, leaves in layers[pos].items()}
+        for pos in range(cfg.period))
+    tree = {"embed": leaf(params["embed"]),
+            "final_norm": {"scale": leaf(params["final_norm"]["scale"])},
+            "blocks": blocks}
+    if "lm_head" in params:
+        tree["lm_head"] = leaf(params["lm_head"])
+    return tree
+
+
+def params_to_jax(params: dict, cfg: ModelConfig) -> dict:
+    """The port's tree (any float type, any device) -> the reference's
+    stacked layout as f32 numpy arrays; the inverse of
+    :func:`params_from_jax`.  Also maps a tree of gradients or moments."""
+    return _stacked(params, cfg, _host,
+                    lambda ts: np.stack([_host(t) for t in ts]))
+
+
+def train_state_from_jax(state, cfg: ModelConfig) -> TrainState:
+    """A reference-layout AdamW state (the reference's ``TrainState``, or
+    one :func:`train_state_to_jax` made) -> the port's, as f32 CPU
+    tensors; ``step`` becomes an int."""
+    return TrainState(params=params_from_jax(state.params, cfg),
+                      m=params_from_jax(state.m, cfg),
+                      v=params_from_jax(state.v, cfg),
+                      step=int(np.asarray(state.step)))
+
+
+def train_state_to_jax(state: TrainState, cfg: ModelConfig) -> TrainState:
+    """The port's AdamW state in the reference's layout (f32 numpy, step
+    an int): what a training checkpoint holds."""
+    return TrainState(params=params_to_jax(state.params, cfg),
+                      m=params_to_jax(state.m, cfg),
+                      v=params_to_jax(state.v, cfg), step=int(state.step))
+
+
+def train_state_template(cfg: ModelConfig) -> TrainState:
+    """The shapes of :func:`train_state_to_jax`'s state as meta tensors
+    (no memory): the template a training checkpoint restores into."""
+    params = _stacked(
+        init_params(cfg, None, device="meta"), cfg, lambda t: t,
+        lambda ts: torch.empty((len(ts), *ts[0].shape), device="meta"))
+    return TrainState(params=params, m=params, v=params, step=0)

@@ -17,7 +17,12 @@ Self-attention over a prompt (``s > 1``, no ``kv_x``) on a CUDA tensor
 runs on the hand-written flash kernels (``kernels/flash_attention``) unless
 the caller passes ``use_kernel=False``; decode, cross-attention and the CPU
 stay plain torch, as the reference computes them outside any Pallas
-kernel.
+kernel, and so does a training forward (the kernels have no backward; the
+reference trains through the plain attention too).
+
+Every matrix is cast to the activation type where it is used, so the
+same functions run the serving model's pre-cast weights and the f32
+masters of training.
 """
 from __future__ import annotations
 
@@ -58,12 +63,15 @@ def rmsnorm_init(d, device=None) -> dict:
 
 
 def rmsnorm(params, x, eps=1e-6):
-    """f32 inside, ``x * (1 + scale)``, cast back to x's type."""
+    """f32 inside, ``x * (1 + scale)``, cast back to x's type.  A bf16
+    scale (a training step's cast copy) enters ``1 + scale`` in f32: the
+    reference's compiled step keeps that sum unrounded (it would round to
+    1 in bf16 for any scale below 2**-8)."""
     dt = x.dtype
     x = x.to(torch.float32)
     var = torch.mean(x * x, dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
-    return (x * (1.0 + params["scale"])).to(dt)
+    return (x * (1.0 + params["scale"].to(torch.float32))).to(dt)
 
 
 # ---------------------------------------------------------------- RoPE
@@ -187,6 +195,23 @@ def _banded_attention(q, k, v, q_pos, window, n_rep, scale):
     return out.reshape(b, s, h, hd).to(v.dtype)
 
 
+def is_differentiated(*tensors) -> bool:
+    """Whether autograd records a graph through any of ``tensors``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def kernel_route(*, use_kernel: bool, on_gpu: bool, cross: bool,
+                 decode: bool, differentiated: bool) -> bool:
+    """Whether self-attention runs on the flash kernels: over a prompt
+    (not a decode step, not cross-attention) on the GPU, when the caller
+    allows it, and only when the forward is not being differentiated.  The
+    kernels have no backward (nor has the reference's Pallas kernel: the
+    reference trains through the plain attention), so a training forward
+    takes the plain route on the GPU too."""
+    return (use_kernel and on_gpu and not cross and not decode
+            and not differentiated)
+
+
 def attention_apply(params, x, positions, cfg: ModelConfig, *, window: int = 0,
                     kv_x: Optional[torch.Tensor] = None, causal: bool = True,
                     cache: Optional[dict] = None, rope: bool = True,
@@ -205,7 +230,8 @@ def attention_apply(params, x, positions, cfg: ModelConfig, *, window: int = 0,
       positions must be 0..s-1 (a prompt, as the model gives them), runs
       on the flash kernels when x is on the GPU: bf16 on the tensor-core
       kernel, f32 on the CUDA-core one, with q and k after RoPE cast to
-      x's type.
+      x's type.  A forward that autograd records stays on the plain route
+      (:func:`kernel_route`).
     """
     b, s, d = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
@@ -237,7 +263,9 @@ def attention_apply(params, x, positions, cfg: ModelConfig, *, window: int = 0,
             cache["pos"][:, :n] = q_pos[:, start:].to(torch.int32)
 
     wo = params["wo"].to(x.dtype)
-    if use_kernel and x.is_cuda and kv_x is None and slot_pos is None:
+    if kernel_route(use_kernel=use_kernel, on_gpu=x.is_cuda,
+                    cross=kv_x is not None, decode=slot_pos is not None,
+                    differentiated=is_differentiated(q, k, v)):
         out = flash_attention(q.to(x.dtype).contiguous(),
                               k.to(x.dtype).contiguous(), v.contiguous(),
                               causal=causal, window=window)

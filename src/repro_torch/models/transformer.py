@@ -1,6 +1,6 @@
-"""The decoder stack of the dense families, and its serving functions.
+"""The decoder stack of the dense families: serving and training.
 
-Port of the serving part of ``repro.models.transformer``.  The reference
+Port of ``repro.models.transformer`` for the dense families.  The reference
 stacks each period position's parameters over blocks and scans; the port
 keeps one :class:`Block` per layer (layer ``i`` is block ``i // period``,
 position ``i % period``) and loops over them.  Its cache holds one ring
@@ -8,11 +8,18 @@ per layer, written in place: ``{"layers": [{"k", "v", "pos",
 "write_idx"}, ...], "len": int}``.
 
 Parameters: the reference keeps f32 masters and casts each matrix to the
-activation type where it is used; the port casts the matrices once, when
-the model is built, which gives the same numbers (the norms' scales stay
-f32, as the reference uses them).
+activation type where it is used.  The serving :class:`Transformer` casts
+the matrices once, when it is built, which gives the same numbers (the
+norms' scales stay f32, as the reference uses them).  Training,
+:func:`forward_train`, runs on the parameter tree itself: f32 masters
+(trainable leaves after ``repro_torch.optim.adamw_init``), each cast to
+the activation type where it is used, the embedding before its gather
+and the head before the f32 logits product, as in the reference.  Each
+period block is recomputed in the backward pass
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` with
+``nothing_saveable`` does.
 
-Served here: the dense decoder families (``"attn"`` and ``"local"``
+Served and trained here: the dense decoder families (``"attn"`` and ``"local"``
 layers, gated MLP, text input).  MoE, Mamba, the whisper encoder and the
 vision and audio stubs raise ``NotImplementedError`` when a model is built
 (ROADMAP queue 1, items 4c-4e).
@@ -25,6 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
@@ -62,10 +70,10 @@ def _position_init(generator, cfg: ModelConfig, device) -> dict:
     return p
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator, *,
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator], *,
                 device=None, dtype: Optional[torch.dtype] = None) -> dict:
-    """Random parameters from ``generator`` (on ``device``), drawn in f32
-    layer by layer: ``{"embed", "final_norm", "layers": [...],
+    """Random parameters from ``generator`` (on ``device``; None: torch's
+    default generator), drawn in f32 layer by layer: ``{"embed", "final_norm", "layers": [...],
     "lm_head"?}``.  With ``dtype`` each matrix is cast to it as soon as it
     is drawn (the norms stay f32), so a bf16 model never holds its f32
     weights whole; the values are those of the f32 draw, cast."""
@@ -115,6 +123,13 @@ class Block(nn.Module):
         self.norm2 = group("norm2")
         self.mlp = group("mlp")
 
+    @property
+    def params(self) -> dict:
+        """The layer's parameter groups by name, as in the parameter
+        tree."""
+        return {n: g for n in ("norm1", "mixer", "norm2", "mlp")
+                if (g := getattr(self, n)) is not None}
+
 
 class Transformer(nn.Module):
     """A dense decoder on one device, in ``cfg.activation_dtype``.
@@ -150,6 +165,11 @@ class Transformer(nn.Module):
             raise ValueError(f"{cfg.name}: {len(self.layers)} layers given, "
                              f"the config has {cfg.n_layers}")
 
+    @property
+    def head(self) -> torch.Tensor:
+        """The output projection: the embedding where it is tied."""
+        return self.embed if self.cfg.tie_embeddings else self.lm_head
+
     def n_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
@@ -159,7 +179,7 @@ class Transformer(nn.Module):
         x, positions = _prepare_inputs(self, self.cfg, batch)
         x = _stack(self, x, positions, use_kernel=self.use_kernel)
         x = L.rmsnorm(self.final_norm, x, self.cfg.norm_eps)
-        return _lm_logits(self, self.cfg, x)
+        return _lm_logits(self.head, self.cfg, x)
 
     def prefill(self, batch: dict, max_seq: int):
         """Run the prompt through the stack, returning (last_logits (B,1,V)
@@ -172,7 +192,7 @@ class Transformer(nn.Module):
         x = _stack(self, x, positions, caches=layer_caches,
                    use_kernel=self.use_kernel)
         x = L.rmsnorm(self.final_norm, x, cfg.norm_eps)
-        logits = _lm_logits(self, cfg, x[:, -1:, :])
+        logits = _lm_logits(self.head, cfg, x[:, -1:, :])
         cache["len"] = s
         return logits, cache
 
@@ -183,7 +203,7 @@ class Transformer(nn.Module):
         tokens = _tokens(tokens, self.device)
         b = tokens.shape[0]
         pos_scalar = cache["len"]
-        x = _embed_tokens(self, cfg, tokens)
+        x = _embed_tokens(self.embed, cfg, tokens)
         shape = (b, 1, 3) if cfg.rope == "mrope" else (b, 1)
         positions = torch.full(shape, pos_scalar, dtype=torch.int32,
                                device=self.device)
@@ -191,18 +211,20 @@ class Transformer(nn.Module):
         x = _stack(self, x, positions, caches=layer_caches,
                    use_kernel=self.use_kernel)
         x = L.rmsnorm(self.final_norm, x, cfg.norm_eps)
-        logits = _lm_logits(self, cfg, x)
+        logits = _lm_logits(self.head, cfg, x)
         cache["len"] = pos_scalar + 1
         return logits, cache
 
 
 # ---------------------------------------------------------------- blocks
 
-def _apply_position(p: Block, x, u, positions, cfg: ModelConfig, cache=None,
-                    use_kernel: bool = True):
-    """One layer.  ``x`` is its input in the activation type, ``u`` the
-    same value in f32 as the layer's first norm reads it.  Returns both for
-    the layer's output.
+def _apply_position(p: dict, window: int, x, u, positions, cfg: ModelConfig,
+                    cache=None, use_kernel: bool = True):
+    """One layer with parameter groups ``p`` (``norm1``, ``mixer``, and
+    ``norm2`` and ``mlp`` where ``d_ff`` > 0) and sliding ``window`` (0:
+    global).  ``x`` is its input in the activation type, ``u`` the same
+    value in f32 as the layer's first norm reads it.  Returns both for the
+    layer's output.
 
     Inside one compiled block the reference's residual sums reach the next
     norm unrounded (its compiler keeps the f32 sum of two bf16 values),
@@ -211,12 +233,13 @@ def _apply_position(p: Block, x, u, positions, cfg: ModelConfig, cache=None,
     values."""
     dt = x.dtype
     h, _ = L.attention_apply(
-        p.mixer, L.rmsnorm(p.norm1, u, cfg.norm_eps).to(dt), positions, cfg,
-        window=p.window, cache=cache, use_kernel=use_kernel)
+        p["mixer"], L.rmsnorm(p["norm1"], u, cfg.norm_eps).to(dt), positions,
+        cfg, window=window, cache=cache, use_kernel=use_kernel)
     u = x.to(torch.float32) + h.to(torch.float32)
     x = u.to(dt)
-    if p.mlp is not None:
-        h = L.mlp_apply(p.mlp, L.rmsnorm(p.norm2, u, cfg.norm_eps).to(dt))
+    if "mlp" in p:
+        h = L.mlp_apply(p["mlp"], L.rmsnorm(p["norm2"], u, cfg.norm_eps)
+                        .to(dt))
         u = x.to(torch.float32) + h.to(torch.float32)
         x = u.to(dt)
     return x, u
@@ -231,10 +254,64 @@ def _stack(model: Transformer, x, positions, caches=None,
     for i, p in enumerate(model.layers):
         if i % cfg.period == 0:
             u = x.to(torch.float32)
-        x, u = _apply_position(p, x, u, positions, cfg,
+        x, u = _apply_position(p.params, p.window, x, u, positions, cfg,
                                cache=None if caches is None else caches[i],
                                use_kernel=use_kernel)
     return x
+
+
+def _window(cfg: ModelConfig, pos: int) -> int:
+    return cfg.window if cfg.pattern[pos] == "local" else 0
+
+
+def _period_block(x, positions, layers: list, cfg: ModelConfig):
+    """One period block of the training stack: its layers in order, from
+    the block's input rounded to the activation type, as the reference's
+    scan carries it."""
+    u = x.to(torch.float32)
+    for pos, p in enumerate(layers):
+        x, u = _apply_position(p, _window(cfg, pos), x, u, positions, cfg)
+    return x
+
+
+def forward_train(params: dict, batch: dict, cfg: ModelConfig, *,
+                  remat: bool = True):
+    """Next-token cross-entropy of the parameter tree ``params`` (the
+    port's layout; f32 masters, cast at use).  ``batch``: ``tokens`` and
+    ``labels`` (B, S), a label of -1 masked out.  Returns (loss, metrics):
+    the mean over the unmasked tokens of logsumexp(logits) minus the gold
+    logit, in f32, and ``{"ce", "ntokens"}``.  ``remat`` recomputes each
+    period block in the backward pass instead of keeping its activations.
+    Attention takes the plain route wherever autograd records the forward
+    (``layers.kernel_route``)."""
+    check_served(cfg)
+    device = params["embed"].device
+    tokens = _tokens(batch["tokens"], device)
+    x = _embed_tokens(params["embed"], cfg, tokens)
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=device)[None, :].expand(b, s)
+    layers = params["layers"]
+    for start in range(0, cfg.n_layers, cfg.period):
+        block = layers[start:start + cfg.period]
+        if remat:
+            x = checkpoint(_period_block, x, positions, block, cfg,
+                           use_reentrant=False)
+        else:
+            x = _period_block(x, positions, block, cfg)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    logits = _lm_logits(head, cfg, x)                        # (B,S,V) f32
+
+    labels = _tokens(batch["labels"], device)
+    mask = (labels >= 0).to(torch.float32)
+    safe = torch.clamp(labels, min=0)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    ce = (logz - gold) * mask
+    ntok = torch.clamp(mask.sum(), min=1.0)
+    loss = ce.sum() / ntok
+    return loss, {"ce": loss, "ntokens": ntok}
 
 
 def _tokens(tokens, device) -> torch.Tensor:
@@ -244,8 +321,9 @@ def _tokens(tokens, device) -> torch.Tensor:
     return tokens.to(device=device, dtype=torch.int64)
 
 
-def _embed_tokens(model: Transformer, cfg: ModelConfig, tokens):
-    x = model.embed[tokens]
+def _embed_tokens(embed, cfg: ModelConfig, tokens):
+    """The embedding cast to the activation type, then gathered."""
+    x = embed.to(cfg.activation_dtype)[tokens]
     if cfg.scale_embed:
         # sqrt(d_model) rounded to the activation type first
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
@@ -253,12 +331,11 @@ def _embed_tokens(model: Transformer, cfg: ModelConfig, tokens):
     return x
 
 
-def _lm_logits(model: Transformer, cfg: ModelConfig, x):
-    """f32 logits: the f32 product of the activation-type operands, then
-    gemma's softcap ``tanh(l / c) * c`` in f32."""
-    head = model.embed if cfg.tie_embeddings else model.lm_head
+def _lm_logits(head, cfg: ModelConfig, x):
+    """f32 logits: the f32 product of x and the head cast to x's type,
+    then gemma's softcap ``tanh(l / c) * c`` in f32."""
     logits = torch.einsum("bsd,vd->bsv", x.to(torch.float32),
-                          head.to(torch.float32))
+                          head.to(x.dtype).to(torch.float32))
     if cfg.logit_softcap > 0:
         c = cfg.logit_softcap
         logits = torch.tanh(logits / c) * c
@@ -268,7 +345,7 @@ def _lm_logits(model: Transformer, cfg: ModelConfig, x):
 def _prepare_inputs(model: Transformer, cfg: ModelConfig, batch: dict):
     """Token embeds and their positions 0..S-1 (text input only)."""
     tokens = _tokens(batch["tokens"], model.device)
-    x = _embed_tokens(model, cfg, tokens)
+    x = _embed_tokens(model.embed, cfg, tokens)
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=model.device)[None, :].expand(b, s)

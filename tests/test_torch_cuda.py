@@ -864,3 +864,92 @@ def test_cuda_lm_prefill_refuses_a_head_dim_the_kernels_lack(cuda):
     model = Transformer(cfg, device=cuda)
     with pytest.raises(ValueError, match="head dims"):
         model.prefill({"tokens": [[1, 2, 3]]}, 16)
+
+
+# LM training: a training forward is differentiated, so its attention takes
+# the plain route on the card too (the flash kernels have no backward), and
+# every leaf gets a gradient.  f32 smoke train steps on the card against the
+# same step on the CPU, held to the CPU tests' f32 limits (the train-step
+# tests against the reference): the loss within 1e-5 relative, the grad
+# norm within 1e-3 relative, every parameter within 2 * lr; each gradient
+# leaf within 2e-3 of its largest |grad|: the CPU tests hold each of the
+# two within 1e-3 of the reference, so their distance from each other is
+# bounded by twice that (gemma3 smoke's card and CPU gradients part by
+# 1.2e-3).
+TRAIN_B, TRAIN_S, TRAIN_LR = 2, 24, 1e-3
+
+
+def _train_batch(vocab):
+    import numpy as np
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, vocab, (TRAIN_B, TRAIN_S)).astype(np.int32)
+    labels = rng.integers(0, vocab, (TRAIN_B, TRAIN_S)).astype(np.int32)
+    labels[0, :5] = -1
+    labels[1, -3:] = -1
+    return {"tokens": tokens, "labels": labels}
+
+
+def _train_state(cfg, device):
+    """The same seeded f32 draw on any device: drawn on the CPU, moved."""
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init, tree_map
+    params = init_params(cfg, torch.Generator().manual_seed(7))
+    return adamw_init(tree_map(lambda t: t.to(device), params))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses_a_differentiated_call(cuda):
+    q = torch.zeros(1, 64, 4, 64, device=cuda, requires_grad=True)
+    k = torch.zeros(1, 64, 2, 64, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa_ops.flash_attention(q, k, k)
+    with torch.no_grad():
+        assert fa_ops.flash_attention(q, k, k).shape == q.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_cuda_lm_train_step_gives_every_leaf_a_gradient(cuda, arch):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_train_step
+    from repro_torch.optim import cosine_schedule, tree_leaves
+    cfg = get_config(arch, smoke=True)                      # bf16
+    state = _train_state(cfg, cuda)
+    step = make_train_step(cfg, cosine_schedule(TRAIN_LR, 0, 10))
+    before = fa_ops.LAUNCHES
+    loss, _, grads = step.loss_and_grads(state, _train_batch(cfg.vocab))
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES == before            # the plain route
+    assert torch.isfinite(loss)
+    leaves = tree_leaves(grads)
+    assert len(leaves) == len(tree_leaves(state.params))
+    for g in leaves:
+        assert g.is_cuda and torch.isfinite(g).all() and g.abs().max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_cuda_lm_f32_train_step_matches_cpu(cuda, arch):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_train_step
+    from repro_torch.optim import cosine_schedule, tree_leaves
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    batch = _train_batch(cfg.vocab)
+    runs = {}
+    for dev in ("cpu", cuda):
+        state = _train_state(cfg, dev)
+        step = make_train_step(cfg, cosine_schedule(TRAIN_LR, 0, 10))
+        loss, metrics, grads = step.loss_and_grads(state, batch)
+        g = [t.detach().cpu().clone() for t in tree_leaves(grads)]
+        state, m = step.apply(state, grads, loss, metrics)
+        runs[str(dev)] = (float(m["loss"]), float(m["grad_norm"]), g,
+                          [t.detach().cpu() for t in
+                           tree_leaves(state.params)])
+    (l0, n0, g0, p0), (l1, n1, g1, p1) = runs["cpu"], runs[str(cuda)]
+    assert abs(l1 - l0) <= 1e-5 * abs(l0)
+    assert abs(n1 - n0) <= 1e-3 * n0
+    for a, b in zip(g1, g0):
+        assert (a - b).abs().max() <= 2e-3 * b.abs().max()
+    for a, b in zip(p1, p0):
+        assert (a - b).abs().max() <= 2 * TRAIN_LR

@@ -31,7 +31,9 @@ def test_every_module_of_the_port_is_imported_here():
     mods = _port_modules()
     for m in ("repro_torch.core.thinning", "repro_torch.core.samplers",
               "repro_torch.planning.engine", "repro_torch.models.transformer",
-              "repro_torch.serving.engine"):
+              "repro_torch.serving.engine", "repro_torch.launch",
+              "repro_torch.launch.train", "repro_torch.optim",
+              "repro_torch.data.lm_data"):
         assert m in mods
 
 
@@ -76,7 +78,11 @@ def test_importing_the_port_leaves_jax_and_repro_out():
             "repro_torch.configs", "repro_torch.configs.gemma3_12b",
             "repro_torch.configs.jamba_1_5_large_398b",
             "repro_torch.serving", "repro_torch.serving.engine",
-            "repro_torch.serving.__main__"} <= set(res["mods"])
+            "repro_torch.serving.__main__", "repro_torch.launch",
+            "repro_torch.launch.steps", "repro_torch.launch.train",
+            "repro_torch.launch.__main__", "repro_torch.optim",
+            "repro_torch.optim.adamw",
+            "repro_torch.data.lm_data"} <= set(res["mods"])
     assert res["bad"] == []
     assert res["libs"] == [] and res["built"] == []
 
