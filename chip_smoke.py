@@ -163,7 +163,28 @@ Phases, one JSON line each; any failed check exits non-zero:
      and whether bitwise).  The flash kernels launch 0 times (asserted):
      a training forward takes the plain attention, as the reference's
      does;
- 26. the kernels line, then ``{"ok": true, "device": {...}}`` last.
+ 26. slice 16's MoE serving path on deepseek-moe-16b at full width
+     (``MOE_SERVE``: 28 layers, d 2048, 16 heads of 128, 64 routed
+     experts top-6 and 2 shared, vocab 102400; 16.9 B seeded parameters):
+     in f32 on the first 4 layers, each layer's MoE on its own input of a
+     4 x 512 prefill, card against CPU (routes equal but at near ties,
+     the card's error against an f64 evaluation of the same routes at
+     most twice the CPU's); then ``ServeEngine`` as in 24 in bf16 (28
+     tensor-core flash launches a prefill, asserted; the dropped slots of
+     every prefill layer), a profile of a prefill and three decode steps,
+     one MoE layer's router, dispatch, experts and shared experts
+     profiled at the prefill and decode shapes, the 4 x 512 batch on both
+     attention routes, and row 4 on layer 0's q, k, v against its plain
+     version and timed beside SDPA and its bound;
+ 27. slice 16's MoE training path on qwen3-moe-30b-a3b at full width cut
+     to 4 of 48 layers (``MOE_TRAIN``: 128 experts top-8, d 2048, vocab
+     151936; 3.1 B parameters, ~50 GB of state): ``launch.train.main`` for
+     8 steps of 4 x 512 tokens (losses near ln 151936, ``moe_lb`` and
+     ``moe_z`` finite, step ms, tokens/sec, peak memory); one step's
+     gradients all finite, the experts with an all-zero gradient exactly
+     those no token was routed to; both MoE smoke families' f32 step on
+     the card against the CPU, routes equal; 0 flash launches;
+ 28. the kernels line, then ``{"ok": true, "device": {...}}`` last.
 
 Phase 12's sweep also runs the six fleet event goldens and the seven
 single-edge event goldens (all twenty-one goldens), their counters held
@@ -323,18 +344,47 @@ LM = {"arch": "gemma3-12b", "seed": 29, "slots": 4, "max_seq": 1100,
 # 30 layers, d 3072, vocab 49152; f32 masters, m and v, bf16 activations):
 # the driver's run of 8 steps of 4 x 512 tokens, the fixed-batch run at a
 # constant lr, the four dense smoke families' f32 step on the card against
-# the CPU on ``smoke_batch`` (the CPU tests' f32 limits; each gradient leaf
-# within twice their 1e-3 of its largest |grad|, as the CPU tests hold each
-# side within 1e-3 of the reference), and the driver's failed-and-resumed
-# smoke run against the uninterrupted one
+# the CPU on ``smoke_batch`` (the CPU tests' f32 limits, each gradient leaf
+# within their 1e-3 of its largest |grad|; gemma3's within 2e-3: its f32
+# gradients sit 1.66e-3 from its f64 step on the CPU alone, the backward of
+# a sliding-window attention with nearly one-hot probabilities magnifying
+# the f32 rounding, while its f64 step on the card equals the CPU's, see
+# scripts/lm_grad_probe.py), and the driver's failed-and-resumed smoke run
+# against the uninterrupted one
 TRAIN = {"arch": "starcoder2-3b", "steps": 8, "batch": 4, "seq": 512,
          "fixed_lr": 1e-4, "fixed_steps": 8, "seed": 30,
          "smoke_archs": ("starcoder2-3b", "yi-9b", "chatglm3-6b",
                          "gemma3-12b"),
          "smoke_batch": (2, 24), "smoke_lr": 1e-3, "loss_rtol": 1e-5,
-         "gnorm_rtol": 1e-3, "grad_limit": 2e-3,
+         "gnorm_rtol": 1e-3, "grad_limit": 1e-3, "grad_limit_gemma3": 2e-3,
          "resume": {"steps": 30, "every": 10, "fail": 25, "batch": 4,
                     "seq": 32}, "resume_rtol": 1e-5}
+# slice 16: MoE serving on deepseek-moe-16b FULL (configs/deepseek_moe_16b.py:
+# 28 layers, d 2048, 16 heads of 128, 64 routed experts top-6 and 2 shared,
+# vocab 102400; 16.9 B seeded parameters, bf16): the serve run as ``LM``'s,
+# the 4 x 512 prefill batch on both attention routes and row 4 on layer 0's
+# q, k, v; and the MoE layer at full width in f32 on the first ``f32_layers``
+# layers' own inputs of that batch, card against CPU: every token's routes
+# equal but at a near tie (k-th and (k+1)-th probabilities within
+# ``near_tie`` relative), and on the tokens whose routes and ranks agree the
+# card's error against an f64 evaluation of the same routes at most
+# ``f32_ratio`` times the CPU's, times the largest ratio the two devices'
+# f32 products alone show on the layer's own products, where it passes 1
+MOE_SERVE = {"arch": "deepseek-moe-16b", "seed": 31, "slots": 4,
+             "max_seq": 1100, "requests": 8, "prompt": (16, 1000),
+             "new_tokens": 32, "batch": (4, 512), "f32_layers": 4,
+             "near_tie": 1e-6, "f32_ratio": 2.0, "n_decode_prof": 3}
+# slice 16: MoE training on qwen3-moe-30b-a3b at full width (128 experts
+# top-8, d 2048, 32 heads of 128, 4 kv heads, vocab 151936), cut to 4 of
+# its 48 layers (3.1 B parameters, ~50 GB of masters, gradients, m and v;
+# the whole model's 30.5 B do not train on one card): the driver's 8 steps
+# of 4 x 512 tokens, losses within ``loss_band`` of ln(vocab); one step's
+# gradients, the experts with an all-zero gradient being exactly those no
+# token was routed to; and both MoE smoke families' f32 step on the card
+# against the CPU, routes equal, at ``TRAIN``'s limits
+MOE_TRAIN = {"arch": "qwen3-moe-30b-a3b", "n_layers": 4, "steps": 8,
+             "batch": 4, "seq": 512, "seed": 31, "loss_band": 2.5,
+             "smoke_archs": ("deepseek-moe-16b", "qwen3-moe-30b-a3b")}
 # a fleet of the main path's kind whose data (134 MB for stream_stats_fleet,
 # 268 MB for polyfit) does not fit in the 50 MB L2: (E, k, N)
 LARGE = (4096, 8, 1024)
@@ -829,14 +879,18 @@ def main() -> int:
     # ---- 25. slice 15: LM training at full width --------------------------
     train = lm_train_path(torch, card_line)
 
-    # ---- 26. the kernels line and the result -----------------------------
+    # ---- 26.-27. slice 16: MoE serving and training at full width --------
+    moe_serve = lm_moe_serve_path(torch, card_line)
+    moe_train = lm_moe_train_path(torch, card_line)
+
+    # ---- 28. the kernels line and the result -----------------------------
     # launches: rows 1 and 2 on the runtime paths driven with the counts
     # at 0 (main_path, adaptive_path, chaos_path, event_path, and
     # single_event_path, baseline_path, iid_path and host_engine_path,
     # which launch neither; sharded_path in this process and
     # sharded_path_ranks summed over its two ranks), row 3 on the kernel
-    # entry points, row 4 there and in the LM serve run (and 0 times in
-    # the LM training run, asserted: it has no backward)
+    # entry points, row 4 there and in the LM serve runs, dense and MoE
+    # (and 0 times in the LM training runs, asserted: it has no backward)
     by_path = {n: ({"main_path": launches[n], "adaptive_path": adaptive[n],
                     "chaos_path": chaos[n], "event_path": event[n],
                     "single_event_path": single_event[n],
@@ -846,7 +900,11 @@ def main() -> int:
                     "sharded_path_ranks": sharded["ranks"][n]}
                    if n in adaptive else {"kernel_entry_points": launches[n],
                                           **({"lm_serve_path": lm[n],
-                                              "lm_train_path": train[n]}
+                                              "lm_train_path": train[n],
+                                              "lm_moe_serve_path":
+                                                  moe_serve[n],
+                                              "lm_moe_train_path":
+                                                  moe_train[n]}
                                              if n in lm else {})})
                for n in KERNELS}
     emit({"kernels": [dict(name=n, route="cuda", source=KERNELS[n][0],
@@ -1051,7 +1109,6 @@ def lm_serve_path(torch, results, card_line: str) -> dict:
     import dataclasses
 
     import numpy as np
-    import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -1275,83 +1332,13 @@ def lm_serve_path(torch, results, card_line: str) -> dict:
     if not dk <= LM["kernel_over_plain"] * dp:
         raise AssertionError(f"bf16 kernel route is {dk / dp} times the plain "
                              f"route's distance from f32")
-    tol = ATTENTION_TOL["bfloat16"]
     fa_err = results["flash_attention"]["max_abs_err"]
     lib_line = {}
     for layer in LM["layers"]:
         q, k, v, kw = captured[layer]
-        out = fa_ops.flash_attention_cuda(q, k, v, **kw)
-        want = flash_attention_ref(q, k, v, **kw)
-        d = (out.float() - want.float()).abs()
-        w = want.float().abs()
-        err = float(d.max())
-        scaled = float((d / (tol["atol"] + tol["rtol"] * w)).max())
-        rms = float(d.square().mean().sqrt() / w.square().mean().sqrt())
-        # row 4's element-wise bound assumes O(1) scores; at these weights
-        # (scores of ~260 RMS) a row whose top two scores nearly tie mixes
-        # two value rows by a share that either f32 score order moves, so
-        # the element-wise gate is the same one as in f32: each version
-        # against the attention in f64, the kernel at most
-        # ``f32_layer_ratio`` times as far off as the plain version (which
-        # also rounds its output to bf16), beside row 4's RMS bound
-        exact = _attention_f64(q, k, v, **kw)
-        err_k = float((out.double() - exact).abs().max())
-        err_p = float((want.double() - exact).abs().max())
-        ok = (err_k <= LM["f32_layer_ratio"] * err_p and rms <= tol["rms"]
-              and bool(torch.isfinite(out).all()))
-        emit({"phase": "kernel_check", "kernel": "flash_attention",
-              "case": f"lm_layer_{layer}", "shape": list(q.shape),
-              "kv_shape": list(k.shape), **kw, "max_abs_err": err,
-              "err_over_tol": scaled, "rms_err_over_rms_want": rms, **tol,
-              "kernel_err_vs_f64": err_k, "plain_err_vs_f64": err_p,
-              "max_abs_want": float(w.max()),
-              "limit_kernel_over_plain": LM["f32_layer_ratio"], "ok": ok})
-        if not ok:
-            raise AssertionError(f"flash_attention disagrees with its plain "
-                                 f"version on layer {layer}'s q, k, v: max "
-                                 f"|err| {err} (against f64: kernel {err_k},"
-                                 f" plain {err_p}), RMS {rms}")
+        err, lib_line = row4_check_and_time(torch, q, k, v, kw,
+                                            f"lm_layer_{layer}", card_line)
         fa_err = max(fa_err, err)
-
-        # ---- row 4 timed at the prefill shape -------------------------------
-        B, S, H, hd = q.shape
-        KV = k.shape[2]
-        window, causal = kw["window"], kw["causal"]
-        ms = time_cuda(lambda: fa_ops.flash_attention_cuda(q, k, v, **kw),
-                       torch, 20, 5)
-        dev_ms = device_ms(lambda: fa_ops.flash_attention_cuda(q, k, v, **kw),
-                           torch, 20, "flash_fwd", launches_per_call=1)
-        plain = time_cuda(lambda: flash_attention_ref(q, k, v, **kw), torch,
-                          10, 2)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        mask = None
-        if window > 0 and window < S:
-            qp = torch.arange(S, device=q.device)[:, None]
-            kp = torch.arange(S, device=q.device)[None, :]
-            mask = (qp - kp < window) & (kp <= qp)
-
-        def sdpa():
-            return F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
-                enable_gqa=H != KV)
-        lib = time_cuda(sdpa, torch, 20, 5)
-        lib_diff = float((sdpa().transpose(1, 2).float() - out.float())
-                         .abs().max())
-        nbytes = 2 * q.numel() * q.element_size() \
-            + 2 * k.numel() * k.element_size()
-        flops = 4 * B * H * hd * live_pairs(S, S, causal, window)
-        b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
-        emit({"phase": "kernel_time", "kernel": "flash_attention",
-              "case": f"lm_prefill_layer_{layer}", "nvidia_smi": card_line,
-              "shape": [B, S, S, H, KV, hd], "causal": causal,
-              "window": window, "dtype": "bfloat16", "kernel_ms": ms,
-              "kernel_device_ms": dev_ms, "plain_ms": plain,
-              "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-              "flops": flops, "device_over_bound": dev_ms / b_ms,
-              "library_ms": lib, "library": "scaled_dot_product_attention",
-              "library_max_abs_diff": lib_diff})
-        lib_line = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain,
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
     # the kernels line carries the main path's shape: the global layer
     results["flash_attention"] = {"max_abs_err": fa_err, **lib_line}
     del engine, model, captured
@@ -1376,6 +1363,90 @@ def lm_serve_path(torch, results, card_line: str) -> dict:
     return launches
 
 
+def row4_check_and_time(torch, q, k, v, kw, case: str, card_line: str):
+    """Row 4's bf16 kernel on one prefill layer's own q, k, v: held against
+    its plain version (row 4's RMS bound; element-wise, kernel and plain
+    version each against f64, the kernel at most ``f32_layer_ratio`` times
+    as far off), then timed at that shape beside its bound, the plain
+    version and SDPA.  Returns (max |err|, the kernels line's times)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    tol = ATTENTION_TOL["bfloat16"]
+    out = fa_ops.flash_attention_cuda(q, k, v, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    d = (out.float() - want.float()).abs()
+    w = want.float().abs()
+    err = float(d.max())
+    scaled = float((d / (tol["atol"] + tol["rtol"] * w)).max())
+    rms = float(d.square().mean().sqrt() / w.square().mean().sqrt())
+    # row 4's element-wise bound assumes O(1) scores; at these weights
+    # (scores of ~260 RMS) a row whose top two scores nearly tie mixes
+    # two value rows by a share that either f32 score order moves, so
+    # the element-wise gate is the same one as in f32: each version
+    # against the attention in f64, the kernel at most
+    # ``f32_layer_ratio`` times as far off as the plain version (which
+    # also rounds its output to bf16), beside row 4's RMS bound
+    exact = _attention_f64(q, k, v, **kw)
+    err_k = float((out.double() - exact).abs().max())
+    err_p = float((want.double() - exact).abs().max())
+    ok = (err_k <= LM["f32_layer_ratio"] * err_p and rms <= tol["rms"]
+          and bool(torch.isfinite(out).all()))
+    emit({"phase": "kernel_check", "kernel": "flash_attention",
+          "case": case, "shape": list(q.shape),
+          "kv_shape": list(k.shape), **kw, "max_abs_err": err,
+          "err_over_tol": scaled, "rms_err_over_rms_want": rms, **tol,
+          "kernel_err_vs_f64": err_k, "plain_err_vs_f64": err_p,
+          "max_abs_want": float(w.max()),
+          "limit_kernel_over_plain": LM["f32_layer_ratio"], "ok": ok})
+    if not ok:
+        raise AssertionError(f"flash_attention disagrees with its plain "
+                             f"version on {case}'s q, k, v: max "
+                             f"|err| {err} (against f64: kernel {err_k},"
+                             f" plain {err_p}), RMS {rms}")
+
+    # ---- row 4 timed at the prefill shape -------------------------------
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    window, causal = kw["window"], kw["causal"]
+    ms = time_cuda(lambda: fa_ops.flash_attention_cuda(q, k, v, **kw),
+                   torch, 20, 5)
+    dev_ms = device_ms(lambda: fa_ops.flash_attention_cuda(q, k, v, **kw),
+                       torch, 20, "flash_fwd", launches_per_call=1)
+    plain = time_cuda(lambda: flash_attention_ref(q, k, v, **kw), torch,
+                      10, 2)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    mask = None
+    if window > 0 and window < S:
+        qp = torch.arange(S, device=q.device)[:, None]
+        kp = torch.arange(S, device=q.device)[None, :]
+        mask = (qp - kp < window) & (kp <= qp)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+            enable_gqa=H != KV)
+    lib = time_cuda(sdpa, torch, 20, 5)
+    lib_diff = float((sdpa().transpose(1, 2).float() - out.float())
+                     .abs().max())
+    nbytes = 2 * q.numel() * q.element_size() \
+        + 2 * k.numel() * k.element_size()
+    flops = 4 * B * H * hd * live_pairs(S, S, causal, window)
+    b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+    emit({"phase": "kernel_time", "kernel": "flash_attention",
+          "case": f"prefill_{case}", "nvidia_smi": card_line,
+          "shape": [B, S, S, H, KV, hd], "causal": causal,
+          "window": window, "dtype": "bfloat16", "kernel_ms": ms,
+          "kernel_device_ms": dev_ms, "plain_ms": plain,
+          "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+          "flops": flops, "device_over_bound": dev_ms / b_ms,
+          "library_ms": lib, "library": "scaled_dot_product_attention",
+          "library_max_abs_diff": lib_diff})
+    lib_line = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+    return err, lib_line
+
+
 def _finite(xs) -> bool:
     import math
     return all(math.isfinite(x) for x in xs)
@@ -1385,7 +1456,6 @@ def lm_train_path(torch, card_line: str) -> dict:
     """Phase 25: training at full width and the training checks (``TRAIN``).
     Every check raises.  Returns the flash kernels' launches in the
     phase, asserted 0."""
-    import dataclasses
     import gc
     import tempfile
 
@@ -1396,8 +1466,7 @@ def lm_train_path(torch, card_line: str) -> dict:
     from repro_torch.launch import make_train_step
     from repro_torch.launch import train as train_mod
     from repro_torch.models import forward_train, init_params
-    from repro_torch.optim import (adamw_init, cosine_schedule, tree_leaves,
-                                   tree_map)
+    from repro_torch.optim import adamw_init, tree_leaves
 
     t_phase = time.perf_counter()
     gc.collect()
@@ -1476,46 +1545,7 @@ def lm_train_path(torch, card_line: str) -> dict:
                              f"without a finite nonzero gradient {empty}")
 
     # ---- (c) the smoke families' f32 step, card against CPU ---------------
-    sb, ss = TRAIN["smoke_batch"]
-    rows = []
-    for arch in TRAIN["smoke_archs"]:
-        scfg = dataclasses.replace(get_config(arch, smoke=True),
-                                   dtype="float32")
-        rng = np.random.default_rng(1)
-        sbatch = {"tokens": rng.integers(0, scfg.vocab, (sb, ss)),
-                  "labels": rng.integers(0, scfg.vocab, (sb, ss))}
-        sbatch["labels"][0, :5] = -1
-        sbatch["labels"][1, -3:] = -1
-        runs = {}
-        for dev in ("cpu", "cuda"):
-            params = init_params(scfg, torch.Generator().manual_seed(7))
-            st = adamw_init(tree_map(lambda t: t.to(dev), params))
-            sstep = make_train_step(scfg, cosine_schedule(TRAIN["smoke_lr"],
-                                                          0, 10))
-            loss, metrics, grads = sstep.loss_and_grads(st, sbatch)
-            g = [t.detach().cpu().clone() for t in tree_leaves(grads)]
-            st, m = sstep.apply(st, grads, loss, metrics)
-            runs[dev] = (float(m["loss"]), float(m["grad_norm"]), g,
-                         [t.detach().cpu() for t in tree_leaves(st.params)])
-        (l0, n0, g0, p0), (l1, n1, g1, p1) = runs["cpu"], runs["cuda"]
-        row = {"arch": arch, "loss_rel": abs(l1 - l0) / abs(l0),
-               "grad_norm_rel": abs(n1 - n0) / n0,
-               "grad_err_over_leaf_max": max(
-                   float((a - b).abs().max() / b.abs().max())
-                   for a, b in zip(g1, g0)),
-               "param_max_abs_diff": max(float((a - b).abs().max())
-                                         for a, b in zip(p1, p0))}
-        row["ok"] = (row["loss_rel"] <= TRAIN["loss_rtol"]
-                     and row["grad_norm_rel"] <= TRAIN["gnorm_rtol"]
-                     and row["grad_err_over_leaf_max"] <= TRAIN["grad_limit"]
-                     and row["param_max_abs_diff"] <= 2 * TRAIN["smoke_lr"])
-        rows.append(row)
-    emit({"phase": "lm_train_smoke_card_vs_cpu", "nvidia_smi": card_line,
-          "batch": [sb, ss], "lr": TRAIN["smoke_lr"],
-          "limits": {k: TRAIN[k] for k in ("loss_rtol", "gnorm_rtol",
-                                           "grad_limit")}, "rows": rows})
-    if not all(r["ok"] for r in rows):
-        raise AssertionError(f"smoke train steps, card against CPU: {rows}")
+    smoke_card_vs_cpu(torch, TRAIN["smoke_archs"], card_line)
 
     # ---- (c) the driver failed and resumed, against the uninterrupted run
     rs = TRAIN["resume"]
@@ -1559,6 +1589,591 @@ def lm_train_path(torch, card_line: str) -> dict:
         raise AssertionError(f"flash kernel launches in the training phase "
                              f"{launches}: a training forward takes the "
                              f"plain attention")
+    return launches
+
+
+def smoke_card_vs_cpu(torch, archs, card_line: str,
+                      phase: str = "lm_train_smoke_card_vs_cpu") -> None:
+    """Each smoke family's f32 train step on the card against the same
+    step on the CPU (the same f32 draw, ``TRAIN["smoke_batch"]``): an
+    MoE's routes (every layer's top-k experts, forward and recomputation)
+    equal, the loss, grad norm and parameters within the CPU tests'
+    limits, each gradient leaf within ``grad_limit`` of its largest
+    |grad| (gemma3: ``grad_limit_gemma3``, its f32 order's spread).
+    Raises on any miss."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.optim import adamw_init, cosine_schedule, tree_leaves, \
+        tree_map
+    sb, ss = TRAIN["smoke_batch"]
+    dispatch = lm_layers.moe_dispatch
+    rows = []
+    for arch in archs:
+        scfg = dataclasses.replace(get_config(arch, smoke=True),
+                                   dtype="float32")
+        rng = np.random.default_rng(1)
+        sbatch = {"tokens": rng.integers(0, scfg.vocab, (sb, ss)),
+                  "labels": rng.integers(0, scfg.vocab, (sb, ss))}
+        sbatch["labels"][0, :5] = -1
+        sbatch["labels"][1, -3:] = -1
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            routes = []
+
+            def spy(topi, cap):
+                routes.append(topi.cpu())
+                return dispatch(topi, cap)
+            params = init_params(scfg, torch.Generator().manual_seed(7))
+            st = adamw_init(tree_map(lambda t: t.to(dev), params))
+            sstep = make_train_step(scfg, cosine_schedule(TRAIN["smoke_lr"],
+                                                          0, 10))
+            lm_layers.moe_dispatch = spy
+            try:
+                loss, metrics, grads = sstep.loss_and_grads(st, sbatch)
+            finally:
+                lm_layers.moe_dispatch = dispatch
+            g = [t.detach().cpu().clone() for t in tree_leaves(grads)]
+            st, m = sstep.apply(st, grads, loss, metrics)
+            runs[dev] = (float(m["loss"]), float(m["grad_norm"]), g,
+                         [t.detach().cpu() for t in tree_leaves(st.params)],
+                         routes)
+        (l0, n0, g0, p0, r0), (l1, n1, g1, p1, r1) = runs["cpu"], runs["cuda"]
+        limit = TRAIN["grad_limit_gemma3"] if arch == "gemma3-12b" \
+            else TRAIN["grad_limit"]
+        row = {"arch": arch, "loss_rel": abs(l1 - l0) / abs(l0),
+               "grad_norm_rel": abs(n1 - n0) / n0,
+               "grad_err_over_leaf_max": max(
+                   float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(g1, g0)),
+               "grad_limit": limit,
+               "param_max_abs_diff": max(float((a - b).abs().max())
+                                         for a, b in zip(p1, p0)),
+               "moe_route_calls": len(r1),
+               "routes_equal": len(r0) == len(r1) and all(
+                   torch.equal(a, b) for a, b in zip(r0, r1))}
+        row["ok"] = (row["loss_rel"] <= TRAIN["loss_rtol"]
+                     and row["grad_norm_rel"] <= TRAIN["gnorm_rtol"]
+                     and row["grad_err_over_leaf_max"] <= limit
+                     and row["param_max_abs_diff"] <= 2 * TRAIN["smoke_lr"]
+                     and row["routes_equal"])
+        rows.append(row)
+    emit({"phase": phase, "nvidia_smi": card_line,
+          "batch": [sb, ss], "lr": TRAIN["smoke_lr"],
+          "limits": {k: TRAIN[k] for k in ("loss_rtol", "gnorm_rtol",
+                                           "grad_limit",
+                                           "grad_limit_gemma3")},
+          "rows": rows})
+    if not all(r["ok"] for r in rows):
+        raise AssertionError(f"smoke train steps, card against CPU: {rows}")
+
+
+def _moe_routes_of(lm_layers, params, xt, m):
+    """One MoE layer's routes for tokens ``xt`` (T, d): the sorted
+    probabilities, the top-k experts, each (token, slot)'s clipped rank
+    (cap = dropped), and the capacity."""
+    import torch
+    _, probs, _, topi = lm_layers.moe_router(params["router"], xt, m.top_k)
+    cap = lm_layers.moe_capacity(xt.shape[0], m)
+    sort_idx, _, rank_c = lm_layers.moe_dispatch(topi, cap)
+    rank = torch.empty_like(rank_c)
+    rank[sort_idx] = rank_c
+    return (torch.sort(probs, dim=-1, descending=True).values, topi,
+            rank.reshape(topi.shape), cap)
+
+
+def _moe_f64(lm_layers, params, xt, topi, m):
+    """The MoE layer's output (T, d) in f64 on the routes ``topi``: the
+    router's f64 softmax read at ``topi``, the same capacity routes, the
+    experts and the shared experts in f64."""
+    import torch
+
+    def f64(t):
+        return ({n: f64(v) for n, v in t.items()} if isinstance(t, dict)
+                else t.to(torch.float64))
+    p = f64(dict(params))
+    x = xt.to(torch.float64)
+    probs = torch.softmax(x @ p["router"], dim=-1)
+    topv = torch.gather(probs, 1, topi)
+    topw = topv / torch.clamp(topv.sum(dim=-1, keepdim=True), min=1e-9)
+    cap = lm_layers.moe_capacity(x.shape[0], m)
+    out = lm_layers.moe_experts(p, x, topw, lm_layers.moe_dispatch(topi, cap),
+                                cap)
+    if "shared" in p:
+        out = out + lm_layers.mlp_apply(p["shared"], x[None])[0]
+    return out
+
+
+@contextlib.contextmanager
+def _einsum_tap(mod):
+    """Within, ``mod``'s ``torch.einsum`` calls are recorded as (equation,
+    operands) into the list it yields."""
+    import torch
+    calls = []
+
+    class Tap:
+        def __getattr__(self, name):
+            return getattr(torch, name)
+
+        @staticmethod
+        def einsum(eq, *ops):
+            calls.append((eq, ops))
+            return torch.einsum(eq, *ops)
+    mod.torch = Tap()
+    try:
+        yield calls
+    finally:
+        mod.torch = torch
+
+
+@contextlib.contextmanager
+def _spied(mod, name, on_call):
+    """``mod.name`` calls ``on_call(args, out)`` after each call."""
+    fn = getattr(mod, name)
+
+    def spy(*args, **kw):
+        out = fn(*args, **kw)
+        on_call(args, out)
+        return out
+    setattr(mod, name, spy)
+    try:
+        yield
+    finally:
+        setattr(mod, name, fn)
+
+
+def lm_moe_serve_path(torch, card_line: str) -> dict:
+    """Phase 26: deepseek-moe-16b at full width (``MOE_SERVE``): the MoE
+    layer in f32 card against CPU, then ``ServeEngine`` in bf16, a profile,
+    both attention routes on the 4 x 512 batch and row 4 on layer 0's own
+    q, k, v.  Every check raises.  Returns the flash kernels' launches in
+    the serve run."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import Transformer
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.serving import Request, ServeEngine
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg16 = get_config(MOE_SERVE["arch"])
+    m = cfg16.moe
+    rng = np.random.default_rng(MOE_SERVE["seed"])
+    bsz, blen = MOE_SERVE["batch"]
+    batch = {"tokens": rng.integers(0, cfg16.vocab, (bsz, blen))}
+
+    # ---- (a) the MoE layer in f32 at full width, card against CPU ---------
+    cfg32 = dataclasses.replace(cfg16, dtype="float32",
+                                n_layers=MOE_SERVE["f32_layers"])
+    model = Transformer(cfg32, device="cuda", seed=MOE_SERVE["seed"])
+    inputs = []
+    with _spied(lm_layers, "moe_apply",
+                lambda args, out: inputs.append((args[0], args[1]))):
+        model.prefill(batch, blen)
+    torch.cuda.synchronize()
+    rows = []
+    for i, (params, x) in enumerate(inputs):
+        xt = x.reshape(-1, x.shape[-1])
+        cpu = {n: ({a: b.cpu() for a, b in t.items()}
+                   if isinstance(t, dict) else t.cpu())
+               for n, t in params.items()}
+        t0 = time.perf_counter()
+        out_c = lm_layers.moe_apply(params, x, m)[0].reshape(xt.shape)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        with _einsum_tap(lm_layers) as products:
+            lm_layers.moe_apply(params, x, m)
+        t0 = time.perf_counter()
+        out_h = lm_layers.moe_apply(cpu, x.cpu(), m)[0].reshape(xt.shape)
+        cpu_s = time.perf_counter() - t0
+        sp_c, ti_c, rk_c, cap = _moe_routes_of(lm_layers, params, xt, m)
+        sp_h, ti_h, rk_h, _ = _moe_routes_of(lm_layers, cpu, xt.cpu(), m)
+        k = m.top_k
+        gap = (sp_h[:, k - 1] - sp_h[:, k]).abs() / sp_h[:, k - 1]
+        near = gap <= MOE_SERVE["near_tie"]
+        diff = (ti_c.cpu() != ti_h).any(dim=1)
+        same = ~diff & (rk_c.cpu() == rk_h).all(dim=1)
+        exact = _moe_f64(lm_layers, params, xt, ti_c, m).cpu()
+        err_c = float((out_c.cpu().double() - exact)[same].abs().max())
+        err_h = float((out_h.double() - exact)[same].abs().max())
+        # the yardstick of the two devices' f32 products: each of the
+        # layer's own products (the router's, the experts' three batched
+        # ones, the shared experts' three) on its card operands, on each
+        # device against f64
+        gemm = []
+        for eq, ops in products:
+            p64 = torch.einsum(eq, *(o.double() for o in ops))
+            e_c = float((torch.einsum(eq, *ops).double() - p64).abs().max())
+            e_h = float((torch.einsum(eq, *(o.cpu() for o in ops)).double()
+                         - p64.cpu()).abs().max())
+            gemm.append({"product": eq, "shape": [list(o.shape) for o in ops],
+                         "card_err_vs_f64": e_c, "cpu_err_vs_f64": e_h,
+                         "card_over_cpu": e_c / e_h})
+            del p64
+        gemm_ratio = max(g["card_over_cpu"] for g in gemm)
+        del products
+        row = {"layer": i, "tokens": xt.shape[0], "cap": cap,
+               "dropped": int((rk_c == cap).sum()),
+               "near_ties": int(near.sum()),
+               "route_diffs": int(diff.sum()),
+               "route_diffs_off_near_tie": int((diff & ~near).sum()),
+               "tokens_compared": int(same.sum()),
+               "card_err_vs_f64": err_c, "cpu_err_vs_f64": err_h,
+               "card_over_cpu": err_c / err_h,
+               "products": gemm, "products_card_over_cpu": gemm_ratio,
+               "max_abs_f64": float(exact.abs().max()),
+               "card_s": card_s, "cpu_s": cpu_s}
+        row["ok"] = (row["route_diffs_off_near_tie"] == 0
+                     and err_c <= MOE_SERVE["f32_ratio"] * err_h
+                     * max(1.0, gemm_ratio)
+                     and bool(torch.isfinite(out_c).all()))
+        rows.append(row)
+        del cpu, out_h, exact
+    emit({"phase": "lm_moe_f32_layers", "nvidia_smi": card_line,
+          "arch": cfg32.name, "layers": cfg32.n_layers,
+          "batch": [bsz, blen], "near_tie_rel": MOE_SERVE["near_tie"],
+          "limit_card_over_cpu": MOE_SERVE["f32_ratio"], "rows": rows})
+    if len(rows) != cfg32.n_layers or not all(r["ok"] for r in rows):
+        raise AssertionError(f"MoE layers at full width, card against CPU: "
+                             f"{rows}")
+    del model, inputs, params, x
+    torch.cuda.empty_cache()
+
+    # ---- (b) bf16: the serve run -------------------------------------------
+    t0 = time.perf_counter()
+    engine = ServeEngine(None, cfg16, batch_slots=MOE_SERVE["slots"],
+                         max_seq=MOE_SERVE["max_seq"], device="cuda",
+                         seed=MOE_SERVE["seed"])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model = engine.model
+    model.prefill({"tokens": batch["tokens"][:, :16]}, blen)      # warm
+    timed = {"prefill": [], "decode": []}
+    finite = []
+
+    def timer(name, fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            timed[name].append(time.perf_counter() - t)
+            finite.append(bool(torch.isfinite(out[0]).all()))
+            return out
+        return run
+    model.prefill = timer("prefill", model.prefill)
+    model.decode_step = timer("decode", model.decode_step)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg16.vocab, int(n))
+                    .tolist(), max_new_tokens=MOE_SERVE["new_tokens"])
+            for i, n in enumerate(rng.integers(MOE_SERVE["prompt"][0],
+                                               MOE_SERVE["prompt"][1] + 1,
+                                               MOE_SERVE["requests"]))]
+    for r in reqs:
+        engine.submit(r)
+    drops = []          # (tokens, cap, dropped entries on the device)
+
+    def count_drops(args, out):
+        topi, cap = args
+        if topi.shape[0] > MOE_SERVE["slots"]:              # a prefill
+            drops.append((topi.shape[0], cap, (out[2] == cap).sum()))
+    fa_ops.LAUNCHES = 0
+    fa_ops.SM90_LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    with _spied(lm_layers, "moe_dispatch", count_drops):
+        t0 = time.perf_counter()
+        done = engine.run()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+    launches = {"flash_attention": fa_ops.SM90_LAUNCHES,
+                "flash_attention_f32": fa_ops.LAUNCHES - fa_ops.SM90_LAUNCHES}
+    del model.prefill, model.decode_step
+    n_tok = sum(len(r.generated) for r in done)
+    n_pre = len(timed["prefill"])
+    dropped = [[int(d) for _, _, d in drops[j:j + cfg16.n_layers]]
+               for j in range(0, len(drops), cfg16.n_layers)]
+    emit({"phase": "lm_moe_serve_path", "nvidia_smi": card_line,
+          "arch": cfg16.name, "dtype": cfg16.dtype, "layers": cfg16.n_layers,
+          "d_model": cfg16.d_model, "experts": m.n_experts, "top_k": m.top_k,
+          "shared": m.n_shared, "vocab": cfg16.vocab,
+          "params": model.n_params(), "slots": MOE_SERVE["slots"],
+          "max_seq": MOE_SERVE["max_seq"], "requests": len(reqs),
+          "prompt_lengths": [len(r.prompt) for r in reqs],
+          "tokens": n_tok, "seconds": serve_s,
+          "tokens_per_sec": n_tok / serve_s, "prefill_calls": n_pre,
+          "prefill_ms_per_batch": [1e3 * t for t in timed["prefill"]],
+          "prefill_tokens": [t for t, _, _ in drops[::cfg16.n_layers]],
+          "capacity": [c for _, c, _ in drops[::cfg16.n_layers]],
+          "dropped_slots_per_prefill_layer": dropped,
+          "decode_steps": len(timed["decode"]),
+          "decode_ms_per_step": 1e3 * statistics.median(timed["decode"]),
+          "decode_ms_mean": 1e3 * statistics.mean(timed["decode"]),
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+          "init_seconds": init_s, "launches": launches})
+    if sorted(r.rid for r in done) != list(range(len(reqs))) or any(
+            len(r.generated) != MOE_SERVE["new_tokens"] for r in done):
+        raise AssertionError("the MoE serve run did not give every request "
+                             f"{MOE_SERVE['new_tokens']} tokens")
+    if not all(finite):
+        raise AssertionError("the MoE serve run produced non-finite logits")
+    if len(drops) != cfg16.n_layers * n_pre or launches != {
+            "flash_attention": cfg16.n_layers * n_pre,
+            "flash_attention_f32": 0}:
+        raise AssertionError(f"flash kernel launches in the MoE serve run "
+                             f"{launches} over {n_pre} prefills "
+                             f"({len(drops)} MoE prefill layers), want "
+                             f"{cfg16.n_layers} a prefill on the tensor-core "
+                             f"kernel")
+
+    profile_lm(model, batch, blen, torch, card_line,
+               n_decode=MOE_SERVE["n_decode_prof"],
+               out_name="profile_lm_moe.txt")
+    profile_moe_ops(model, batch, torch, card_line)
+
+    # ---- (c) the two attention routes on the 4 x 512 batch; row 4 on
+    # layer 0's own q, k, v ---------------------------------------------------
+    captured = {}
+
+    def capture(i, q, k, v, kw, out):
+        if i == 0:
+            captured[i] = (q, k, v, kw)
+    model.use_kernel = True
+    with _attention_spy(lm_layers, capture):
+        lk, _ = model.prefill(batch, blen)
+    model.use_kernel = False
+    lp, _ = model.prefill(batch, blen)
+    model.use_kernel = True
+    torch.cuda.synchronize()
+    lk, lp = lk[:, -1].float(), lp[:, -1].float()
+    emit({"phase": "lm_moe_kernel_vs_plain", "nvidia_smi": card_line,
+          "layers": cfg16.n_layers, "batch": [bsz, blen],
+          "rms_kernel_minus_plain_over_rms": _rms(lk - lp) / _rms(lp),
+          "argmax_agree": float((lk.argmax(-1) == lp.argmax(-1))
+                                .float().mean())})
+    if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+        raise AssertionError("MoE prefill logits not finite")
+    q, k, v, kw = captured[0]
+    err, times = row4_check_and_time(torch, q, k, v, kw, "moe_lm_layer_0",
+                                     card_line)
+    emit({"phase": "lm_moe_serve_path_seconds",
+          "seconds": time.perf_counter() - t_phase,
+          "row4_max_abs_err": err, "row4": times})
+    del engine, model, captured
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_moe_ops(model, batch, torch, card_line: str, reps: int = 3,
+                    pad: int = 16, out_name: str = "profile_moe.txt") -> None:
+    """One MoE layer's three parts (``moe_router``, ``moe_dispatch``,
+    ``moe_experts``) and the shared experts, each under torch.profiler on
+    layer 0's own input at the prefill shape and at the decode shape (the
+    first ``slots`` tokens): kernel launches and device ms a call of each
+    part, over ``reps`` calls.  A profile late in the script drops the
+    records of its first kernels (``device_ms``), so the calls sit
+    between ``pad`` launches of ``torch.cuda._sleep``'s ``spin_kernel`` on
+    each side, left out of the sums; ``launch_calls`` counts the host's
+    launch calls as a check on dropped device records."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import layers as lm_layers
+    inputs = []
+    with _spied(lm_layers, "moe_apply",
+                lambda args, out: inputs.append(args)):
+        model.prefill({"tokens": batch["tokens"]}, batch["tokens"].shape[1])
+    params, x, m = inputs[0]
+    rows = {}
+    with open(os.path.join(OUT_DIR, out_name), "w") as f:
+        for shape, xt in (("prefill", x.reshape(-1, x.shape[-1])),
+                          ("decode", x.reshape(-1, x.shape[-1])
+                           [:MOE_SERVE["slots"]])):
+            _, probs, topv, topi = lm_layers.moe_router(params["router"], xt,
+                                                        m.top_k)
+            topw = topv / topv.sum(dim=-1, keepdim=True)
+            cap = lm_layers.moe_capacity(xt.shape[0], m)
+            routes = lm_layers.moe_dispatch(topi, cap)
+            parts = {
+                "router": lambda: lm_layers.moe_router(params["router"], xt,
+                                                       m.top_k),
+                "dispatch": lambda: lm_layers.moe_dispatch(topi, cap),
+                "experts": lambda: lm_layers.moe_experts(params, xt, topw,
+                                                         routes, cap)}
+            if "shared" in params:
+                parts["shared"] = lambda: lm_layers.mlp_apply(
+                    params["shared"], xt[None])
+            rows[shape] = {"tokens": xt.shape[0], "cap": cap}
+            for name, fn in parts.items():
+                fn()
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    for _ in range(pad):
+                        torch.cuda._sleep(100)
+                    torch.cuda.synchronize()
+                    time.sleep(0.02)
+                    t0 = time.perf_counter()
+                    for _ in range(reps):
+                        fn()
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3 / reps
+                    for _ in range(pad):
+                        torch.cuda._sleep(100)
+                    torch.cuda.synchronize()
+                evs = prof.key_averages()
+                f.write(f"== {shape} {name} ({card_line})\n")
+                f.write(evs.table(sort_by="self_device_time_total"
+                                  if hasattr(evs[0], "self_device_time_total")
+                                  else "self_cuda_time_total", row_limit=15))
+                kernels = [e for e in evs
+                           if str(e.device_type).endswith("CUDA")
+                           and not e.key.startswith("Memcpy")
+                           and "spin_kernel" not in e.key]
+                launches = sum(e.count for e in evs
+                               if not str(e.device_type).endswith("CUDA")
+                               and e.key.startswith(("cudaLaunchKernel",
+                                                     "cuLaunchKernel")))
+                rows[shape][name] = {
+                    "wall_ms": wall,
+                    "device_ms": sum(_dev_ms(e) for e in kernels) / reps,
+                    "kernel_launches": sum(e.count for e in kernels) / reps,
+                    "launch_calls": (launches - 2 * pad) / reps}
+    emit({"phase": "profile_moe", "file": out_name, "nvidia_smi": card_line,
+          **rows})
+
+
+def lm_moe_train_path(torch, card_line: str) -> dict:
+    """Phase 27: qwen3-moe-30b-a3b at full width cut to 4 layers
+    (``MOE_TRAIN``): the driver's run, one step's gradients against its
+    routes, and both MoE smoke families' f32 step card against CPU.  Every
+    check raises.  Returns the flash kernels' launches in the phase,
+    asserted 0."""
+    import dataclasses
+    import gc
+    import math
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import MarkovTokenStream
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import make_train_step
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import init_params
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.optim import TrainState, cosine_schedule, tree_leaves
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa_ops.LAUNCHES = 0
+    fa_ops.SM90_LAUNCHES = 0
+    cfg = dataclasses.replace(get_config(MOE_TRAIN["arch"]),
+                              n_layers=MOE_TRAIN["n_layers"])
+    bsz, seq = MOE_TRAIN["batch"], MOE_TRAIN["seq"]
+    ln_v = math.log(cfg.vocab)
+
+    # ---- (a) the driver at full width, 4 layers ----------------------------
+    stats = {}
+    t0 = time.perf_counter()
+    losses = train_mod.main(
+        ["--arch", MOE_TRAIN["arch"], "--full", "--n-layers",
+         str(MOE_TRAIN["n_layers"]), "--steps", str(MOE_TRAIN["steps"]),
+         "--batch", str(bsz), "--seq", str(seq), "--log-every", "1",
+         "--seed", str(MOE_TRAIN["seed"]), "--device", "cuda"], stats=stats)
+    run_s = time.perf_counter() - t0
+    emit({"phase": "lm_moe_train_driver", "nvidia_smi": card_line,
+          "arch": cfg.name, "layers": cfg.n_layers,
+          "layers_full": get_config(MOE_TRAIN["arch"]).n_layers,
+          "d_model": cfg.d_model, "experts": cfg.moe.n_experts,
+          "top_k": cfg.moe.top_k, "vocab": cfg.vocab,
+          "params": stats["params"], "state_bytes": 16 * stats["params"],
+          "batch": [bsz, seq], "tokens_per_step": stats["tokens_per_step"],
+          "steps": stats["step"], "losses": stats["loss"],
+          "ln_vocab": ln_v, "moe_lb": stats.get("moe_lb"),
+          "moe_z": stats.get("moe_z"), "grad_norms": stats["grad_norm"],
+          "fwd_bwd_ms": stats["fwd_bwd_ms"], "opt_ms": stats["opt_ms"],
+          "median_step_ms": stats["median_step_ms"],
+          "median_fwd_bwd_ms": stats["median_fwd_bwd_ms"],
+          "median_opt_ms": stats["median_opt_ms"],
+          "tokens_per_sec": stats["tokens_per_sec"],
+          "peak_mem_bytes": stats["peak_mem_bytes"], "seconds": run_s})
+    aux = (stats.get("moe_lb") or []) + (stats.get("moe_z") or [])
+    if len(stats["loss"]) != MOE_TRAIN["steps"] \
+            or len(losses) != MOE_TRAIN["steps"] \
+            or len(aux) != 2 * MOE_TRAIN["steps"] \
+            or not _finite(stats["loss"] + stats["grad_norm"] + aux) \
+            or not all(abs(v - ln_v) <= MOE_TRAIN["loss_band"]
+                       for v in stats["loss"]):
+        raise AssertionError(f"the MoE driver's run: {stats}")
+    del stats
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) one step's gradients against its routes ----------------------
+    toks = MarkovTokenStream(cfg.vocab, MOE_TRAIN["seed"]).sample(
+        np.random.default_rng(MOE_TRAIN["seed"]), bsz, seq)
+    batch = {"tokens": torch.as_tensor(toks[:, :-1], device="cuda"),
+             "labels": torch.as_tensor(toks[:, 1:], device="cuda")}
+    gen = torch.Generator(device="cuda").manual_seed(MOE_TRAIN["seed"])
+    params = init_params(cfg, gen, device="cuda")
+    for t in tree_leaves(params):
+        t.requires_grad_(True)
+    routed = []
+    step = make_train_step(cfg, cosine_schedule(1e-4, 0, 10))
+    with _spied(lm_layers, "moe_dispatch",
+                lambda args, out: routed.append(
+                    torch.bincount(args[0].reshape(-1),
+                                   minlength=cfg.moe.n_experts))):
+        loss, metrics, grads = step.loss_and_grads(
+            TrainState(params=params, m={}, v={}, step=0), batch)
+    # with recomputation the forward runs twice a layer, on the same
+    # routes: the backward recomputes the layers last to first
+    n = cfg.n_layers
+    same_twice = len(routed) == 2 * n and all(
+        torch.equal(routed[i], routed[2 * n - 1 - i]) for i in range(n))
+    finite = all(bool(torch.isfinite(g).all()) for g in tree_leaves(grads))
+    zero_grad, unrouted = [], []
+    for i, layer in enumerate(grads["layers"]):
+        moe = layer["moe"]
+        z = ((moe["wi"].abs().amax(dim=(1, 2)) == 0)
+             & (moe["wg"].abs().amax(dim=(1, 2)) == 0)
+             & (moe["wo"].abs().amax(dim=(1, 2)) == 0))
+        zero_grad.append(int(z.sum()))
+        unrouted.append(int((routed[i] == 0).sum()))
+        if not torch.equal(z.cpu(), (routed[i] == 0).cpu()):
+            zero_grad[-1] = -1
+    emit({"phase": "lm_moe_train_grads", "nvidia_smi": card_line,
+          "arch": cfg.name, "layers": n, "batch": [bsz, seq],
+          "loss": float(loss), "moe_lb": float(metrics["moe_lb"]),
+          "moe_z": float(metrics["moe_z"]), "all_finite": finite,
+          "routes_same_in_recomputation": same_twice,
+          "experts_zero_grad_per_layer": zero_grad,
+          "experts_unrouted_per_layer": unrouted})
+    if not (finite and same_twice and zero_grad == unrouted
+            and math.isfinite(float(loss))):
+        raise AssertionError(f"MoE step gradients: finite {finite}, routes "
+                             f"kept in recomputation {same_twice}, zero-grad "
+                             f"experts {zero_grad} against unrouted "
+                             f"{unrouted}")
+    del params, grads, loss, metrics, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (c) both MoE smoke families' f32 step, card against CPU ----------
+    smoke_card_vs_cpu(torch, MOE_TRAIN["smoke_archs"], card_line,
+                      phase="lm_moe_train_smoke_card_vs_cpu")
+    launches = {"flash_attention": fa_ops.SM90_LAUNCHES,
+                "flash_attention_f32": fa_ops.LAUNCHES - fa_ops.SM90_LAUNCHES}
+    emit({"phase": "lm_moe_train_path_seconds",
+          "seconds": time.perf_counter() - t_phase, "launches": launches})
+    if launches != {"flash_attention": 0, "flash_attention_f32": 0}:
+        raise AssertionError(f"flash kernel launches in the MoE training "
+                             f"phase {launches}: a training forward takes "
+                             f"the plain attention")
     return launches
 
 

@@ -14,7 +14,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import forward_train
+from repro_torch.models.transformer import MOE_AUX, forward_train
 from repro_torch.optim.adamw import (TrainState, adamw_update, tree_leaves,
                                      tree_map, tree_unflatten)
 
@@ -42,7 +42,9 @@ def make_train_step(cfg: ModelConfig, lr_fn: Callable, *, microbatches: int = 1,
     and ``train_step.apply(state, grads, loss, metrics)``.
 
     ``microbatches``: the batch is cut into that many equal parts, their
-    gradients summed in f32 and divided by the count (the loss likewise).
+    gradients summed in f32 and divided by the count (the loss likewise,
+    and an MoE model's ``moe_lb`` and ``moe_z``, the only metrics a
+    microbatched step reports; the reference's reports none).
     ``cast_params_bf16``: the f32 leaves that have two or more dims in
     the reference's stacked layout (the matrices, the embedding and head,
     and the layers' norm scales, which the reference stacks over blocks;
@@ -80,21 +82,25 @@ def make_train_step(cfg: ModelConfig, lr_fn: Callable, *, microbatches: int = 1,
             grads = torch.autograd.grad(loss, leaves)
             return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                     tree_unflatten(params, grads))
-        g_sum, loss_sum = None, None
+        g_sum, loss_sum, aux_sum = None, None, {}
         for mb in _split_microbatches(batch, microbatches):
-            loss, _ = forward_train(params, mb, cfg)
+            loss, metrics = forward_train(params, mb, cfg)
             grads = torch.autograd.grad(loss, leaves)
+            aux = {k: metrics[k].detach() for k in MOE_AUX if k in metrics}
             if g_sum is None:
                 g_sum = [g.to(torch.float32) for g in grads]
-                loss_sum = loss.detach()
+                loss_sum, aux_sum = loss.detach(), aux
             else:
                 for a, g in zip(g_sum, grads):
                     a.add_(g.to(torch.float32))
                 loss_sum = loss_sum + loss.detach()
+                aux_sum = {k: aux_sum[k] + v for k, v in aux.items()}
             del grads
         for g in g_sum:
             g.div_(microbatches)
-        return loss_sum / microbatches, {}, tree_unflatten(params, g_sum)
+        return (loss_sum / microbatches,
+                {k: v / microbatches for k, v in aux_sum.items()},
+                tree_unflatten(params, g_sum))
 
     def apply(state: TrainState, grads, loss, metrics: dict):
         lr = lr_fn(state.step)

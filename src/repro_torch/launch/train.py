@@ -3,7 +3,7 @@ point behind ``examples/train_lm.py``).
 
     python -m repro_torch.launch.train [--arch starcoder2-3b] [--full] ...
 
-Trains any dense architecture of the zoo (smoke or full config) on the
+Trains any dense or MoE architecture of the zoo (smoke or full config) on the
 synthetic Markov token stream, on one device: the GPU by default
 (``--device cpu`` for the CPU).  With no arguments it runs the example's
 default: starcoder2 smoke, 150 steps of 8 x 64 tokens at lr 8e-3.
@@ -24,7 +24,8 @@ The mesh flags (``--host-devices``, ``--pods``, ``--model-parallel``) and
 the paper's gradient exchange (``--edge-exchange``) need LM sharding
 (ROADMAP queue 1, item 4f) and raise ``NotImplementedError``.
 
-Each step's two halves, the loss with its gradients and the optimizer,
+An MoE model's aux losses (``moe_lb``, ``moe_z``) are logged beside the
+loss.  Each step's two halves, the loss with its gradients and the optimizer,
 are timed apart (with a device synchronize between them on the GPU); the
 run ends with a summary line of the median step, tokens/sec and the peak
 device memory, which ``main(argv, stats=d)`` also writes into ``d``.
@@ -118,6 +119,7 @@ def main(argv=None, stats: Optional[dict] = None):
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import (init_params, train_state_from_jax,
                                     train_state_template, train_state_to_jax)
+    from repro_torch.models.transformer import MOE_AUX
     from repro_torch.optim.adamw import adamw_init, cosine_schedule, tree_map
 
     device = resolve_device(args.device)
@@ -179,16 +181,18 @@ def main(argv=None, stats: Optional[dict] = None):
             t_c = time.perf_counter()
             loss = float(metrics["loss"])
             gnorm = float(metrics["grad_norm"])
+            aux = {k: float(metrics[k]) for k in MOE_AUX if k in metrics}
             for k, val in (("step", step + 1), ("loss", loss),
                            ("grad_norm", gnorm),
                            ("fwd_bwd_ms", 1e3 * (t_b - t_a)),
-                           ("opt_ms", 1e3 * (t_c - t_b))):
-                record[k].append(val)
+                           ("opt_ms", 1e3 * (t_c - t_b)), *aux.items()):
+                record.setdefault(k, []).append(val)
             if (step + 1) % args.log_every == 0 or step == start_step:
                 losses.append(loss)
                 print(f"[train] step={step + 1} loss={loss:.4f} "
-                      f"gnorm={gnorm:.3f} ({time.time() - t0:.1f}s)",
-                      flush=True)
+                      f"gnorm={gnorm:.3f} " + "".join(
+                          f"{k}={v:.4f} " for k, v in aux.items())
+                      + f"({time.time() - t0:.1f}s)", flush=True)
             if ckpt is not None and (step + 1) % args.ckpt_every == 0:
                 ckpt.save(train_state_to_jax(state, cfg), step + 1)
         if ckpt is not None:

@@ -31,6 +31,13 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", torch.float32, copy=True).numpy()
 
 
+def _unstack(stacked: dict, i: int) -> dict:
+    """Block ``i`` of a tree of stacked leaves, nested groups (the MoE's
+    ``shared``) included."""
+    return {n: (_unstack(a, i) if isinstance(a, dict)
+                else _tensor(np.asarray(a)[i])) for n, a in stacked.items()}
+
+
 def params_from_jax(tree: dict, cfg: ModelConfig) -> dict:
     """The reference's parameter tree -> the port's (f32 CPU tensors):
     ``{"embed", "final_norm", "layers": [...], "lm_head"?}``."""
@@ -38,10 +45,7 @@ def params_from_jax(tree: dict, cfg: ModelConfig) -> dict:
     layers = [None] * cfg.n_layers
     for pos, stacked in enumerate(tree["blocks"]):
         for i in range(cfg.n_blocks):
-            layers[i * cfg.period + pos] = {
-                group: {name: _tensor(np.asarray(a)[i])
-                        for name, a in leaves.items()}
-                for group, leaves in stacked.items()}
+            layers[i * cfg.period + pos] = _unstack(stacked, i)
     params = {"embed": _tensor(tree["embed"]),
               "final_norm": {"scale": _tensor(tree["final_norm"]["scale"])},
               "layers": layers}
@@ -58,11 +62,15 @@ def _stacked(params: dict, cfg: ModelConfig, leaf, stack) -> dict:
     if len(layers) != cfg.n_layers:
         raise ValueError(f"{cfg.name}: {len(layers)} layers given, the "
                          f"config has {cfg.n_layers}")
+
+    def over_blocks(trees: list) -> dict:
+        # one position's layers, block by block -> its stacked tree
+        return {n: (over_blocks([t[n] for t in trees])
+                    if isinstance(trees[0][n], dict) else
+                    stack([t[n] for t in trees])) for n in trees[0]}
     blocks = tuple(
-        {group: {name: stack([layers[i * cfg.period + pos][group][name]
-                              for i in range(cfg.n_blocks)])
-                 for name in leaves}
-         for group, leaves in layers[pos].items()}
+        over_blocks([layers[i * cfg.period + pos]
+                     for i in range(cfg.n_blocks)])
         for pos in range(cfg.period))
     tree = {"embed": leaf(params["embed"]),
             "final_norm": {"scale": leaf(params["final_norm"]["scale"])},

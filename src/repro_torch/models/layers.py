@@ -1,17 +1,21 @@
 """Model building blocks of the dense decoder families, in PyTorch.
 
-Port of the dense part of ``repro.models.layers``: RMSNorm, the RoPE
-variants (1d, chatglm's 2d half, qwen2-vl's M-RoPE), GQA attention (full,
-sliding-window, block-banded, cross) with the ring KV cache, and the gated
-MLP.  ``moe_*`` and ``mamba_*`` wait for later slices.
+Port of ``repro.models.layers`` but Mamba2: RMSNorm, the RoPE variants
+(1d, chatglm's 2d half, qwen2-vl's M-RoPE), GQA attention (full,
+sliding-window, block-banded, cross) with the ring KV cache, the gated
+MLP, and the top-k MoE with capacity buckets (one dispatch group, the
+reference's ``G = 1``: its grouped dispatch over the batch shards comes
+with LM sharding).  ``mamba_*`` waits for a later slice.
 
 Parameters are mappings of tensors (an ``nn.ParameterDict`` in the model)
 with the reference's names and layouts: ``wq`` (d, H, hd), ``wk`` and
 ``wv`` (d, KV, hd), ``wo`` (H, hd, d); ``wi``, ``wg`` (d, ff), ``wo``
-(ff, d); a norm's ``scale`` (d,).  The arithmetic follows the reference
-step for step, in the same types: scores and logits are f32 products of
-the activation-type operands, the probabilities are cast to the
-activation type before P·V, and a bf16 q or k comes out of RoPE in f32.
+(ff, d); a norm's ``scale`` (d,); the MoE's ``router`` (d, E), ``wi`` and
+``wg`` (E, d, f), ``wo`` (E, f, d) and its ``shared`` gated MLP.  The
+arithmetic follows the reference step for step, in the same types:
+scores and logits are f32 products of the activation-type operands, the
+probabilities are cast to the activation type before P·V, and a bf16 q
+or k comes out of RoPE in f32.
 
 Self-attention over a prompt (``s > 1``, no ``kv_x``) on a CUDA tensor
 runs on the hand-written flash kernels (``kernels/flash_attention``) unless
@@ -29,6 +33,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
@@ -327,3 +332,126 @@ def mlp_apply(params, x):
     g = torch.einsum("bsd,df->bsf", x, params["wg"].to(x.dtype))
     h = _silu(g) * h
     return torch.einsum("bsf,fd->bsd", h, params["wo"].to(x.dtype))
+
+
+# ---------------------------------------------------------------- MoE
+
+def moe_init(generator, d, m, device=None) -> dict:
+    """Router (d, E), experts ``wi``, ``wg`` (E, d, f) and ``wo`` (E, f, d)
+    with fan-in on axis 1, and a ``shared`` gated MLP of width
+    ``n_shared * d_ff_shared`` where ``n_shared`` > 0; drawn in that order
+    from ``generator`` on ``device``."""
+    e, f = m.n_experts, m.d_ff_expert
+    p = {"router": _dense_init(generator, (d, e), device=device),
+         "wi": _dense_init(generator, (e, d, f), in_axis=1, device=device),
+         "wg": _dense_init(generator, (e, d, f), in_axis=1, device=device),
+         "wo": _dense_init(generator, (e, f, d), in_axis=1, device=device)}
+    if m.n_shared:
+        fs = m.d_ff_shared or f
+        p["shared"] = mlp_init(generator, d, m.n_shared * fs, device=device)
+    return p
+
+
+def moe_capacity(n_tokens: int, m) -> int:
+    """Slots per expert: the reference's expression, in its order."""
+    return max(int(np.ceil(n_tokens * m.top_k / m.n_experts
+                           * m.capacity_factor)), 4)
+
+
+def moe_router(router, xt, k: int):
+    """f32 gates (T, E) of the tokens ``xt`` (T, d), their softmax, and the
+    top ``k`` probabilities and experts of each token, largest first and
+    the lower expert first among equal ones, as ``lax.top_k`` orders them
+    (a stable descending sort; ``torch.topk`` promises no order on ties).
+    The softmax is the reference's: exp(g - max) over its sum."""
+    gates = torch.einsum("td,de->te", xt.to(torch.float32),
+                         router.to(torch.float32))
+    ex = torch.exp(gates - gates.amax(dim=-1, keepdim=True))
+    probs = ex / ex.sum(dim=-1, keepdim=True)
+    order = torch.sort(probs, dim=-1, descending=True, stable=True).indices
+    topi = order[:, :k]
+    return gates, probs, torch.gather(probs, 1, topi), topi
+
+
+def moe_dispatch(topi, cap: int):
+    """The capacity routes of the top-k experts ``topi`` (T, k): the
+    stable sort of the flat (token, slot) expert ids, each sorted entry's
+    expert and its rank among that expert's entries, ``cap`` where the rank
+    passes the capacity (a dropped slot).  Returns (sort_idx, sorted_e,
+    rank_c), each (T * k,) int64."""
+    flat = topi.reshape(-1)
+    sort_idx = torch.sort(flat, stable=True).indices
+    sorted_e = flat[sort_idx]
+    seg = torch.searchsorted(sorted_e, sorted_e, side="left")
+    rank = torch.arange(flat.numel(), device=flat.device) - seg
+    return sort_idx, sorted_e, torch.where(rank < cap, rank,
+                                           torch.full_like(rank, cap))
+
+
+def moe_experts(params, xt, topw, routes, cap: int):
+    """The routed experts' combined output (T, d) in xt's type, for the
+    tokens ``xt`` (T, d) on ``routes`` (:func:`moe_dispatch`) with their
+    renormalized weights ``topw`` (T, k).  The buckets (E, cap, d) hold
+    each expert's first ``cap`` entries in sorted order (the rest are
+    dropped and give 0); the experts are three batched products of xt's
+    type; each token sums its k rows times their weights.  The combine
+    follows the reference's compiled bf16 form: the weights rounded to
+    xt's type, the k products summed in f32 (f64 for f64 input) in slot
+    order and rounded once."""
+    sort_idx, sorted_e, rank_c = routes
+    t, d = xt.shape
+    k = topw.shape[1]
+    e = params["router"].shape[1]
+    dt = xt.dtype
+    acc_t = torch.promote_types(dt, torch.float32)
+    # buckets with one spare slot per expert for the dropped entries
+    bkt = xt.new_zeros((e, cap + 1, d)).index_put(
+        (sorted_e, rank_c), xt[sort_idx // k])[:, :cap]
+    h = torch.einsum("ecd,edf->ecf", bkt, params["wi"].to(dt))
+    g = torch.einsum("ecd,edf->ecf", bkt, params["wg"].to(dt))
+    h = _silu(g) * h
+    expert_out = torch.einsum("ecf,efd->ecd", h, params["wo"].to(dt))
+
+    # back to (token, slot) order; a dropped slot reads the zero row
+    rows = torch.cat([expert_out, expert_out.new_zeros((e, 1, d))],
+                     dim=1)[sorted_e, rank_c]
+    inv = torch.empty_like(sort_idx)
+    inv[sort_idx] = torch.arange(sort_idx.numel(), device=sort_idx.device)
+    prod = (rows[inv].reshape(t, k, d).to(acc_t)
+            * topw.to(dt).to(acc_t)[..., None])
+    acc = prod[:, 0]
+    for j in range(1, k):
+        acc = acc + prod[:, j]
+    return acc.to(dt)
+
+
+def moe_apply(params, x, m):
+    """Top-k MoE, capacity-bucketed, in one dispatch group (the
+    reference's ``moe_apply`` outside a mesh).  x: (B, S, d).  Returns
+    (out (B, S, d), ``{"moe_lb", "moe_z"}`` f32 0-d).
+
+    Every token of x takes capacity, the padding of a left-padded prompt
+    too, as in the reference.  The shared experts' output is added to the
+    routed experts' in f32 and the sum rounded once, as the reference's
+    compiled bf16 layer does."""
+    b, s, d = x.shape
+    T = b * s
+    dt = x.dtype
+    xt = x.reshape(T, d)
+    e, k = m.n_experts, m.top_k
+    gates, probs, topv, topi = moe_router(params["router"], xt, k)
+    topw = topv / torch.clamp(topv.sum(dim=-1, keepdim=True), min=1e-9)
+    cap = moe_capacity(T, m)
+    out = moe_experts(params, xt, topw, moe_dispatch(topi, cap), cap)
+    if "shared" in params:
+        acc_t = torch.promote_types(dt, torch.float32)
+        sh = mlp_apply(params["shared"], x).reshape(T, d)
+        out = (out.to(acc_t) + sh.to(acc_t)).to(dt)
+
+    # aux losses: load balance (Switch) and the router's z-loss
+    me = probs.sum(dim=0) * (1.0 / T)
+    ce = torch.bincount(topi.reshape(-1), minlength=e).to(torch.float32) \
+        * (1.0 / (T * k))
+    lb = e * torch.sum(me * ce)
+    z = torch.logsumexp(gates, dim=-1).square().mean()
+    return out.reshape(b, s, d), {"moe_lb": lb, "moe_z": m.router_zloss * z}

@@ -19,10 +19,12 @@ period block is recomputed in the backward pass
 (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` with
 ``nothing_saveable`` does.
 
-Served and trained here: the dense decoder families (``"attn"`` and ``"local"``
-layers, gated MLP, text input).  MoE, Mamba, the whisper encoder and the
-vision and audio stubs raise ``NotImplementedError`` when a model is built
-(ROADMAP queue 1, items 4c-4e).
+Served and trained here: the decoder families of ``"attn"`` and
+``"local"`` layers with a gated MLP or a top-k MoE (its aux losses summed
+over the layers into the training loss), on text input.  Mamba, the
+whisper encoder and the vision and audio stubs raise
+``NotImplementedError`` when a model is built (ROADMAP queue 1, items 4d
+and 4e).
 """
 from __future__ import annotations
 
@@ -39,16 +41,17 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
 # parameter groups that are matrices, cast to the activation type at load
-_MATRICES = ("mixer", "mlp")
+# (the MoE's nested ``shared`` group too), and the leaves of those groups
+# that stay f32 (the router: the reference routes on its f32 master)
+_MATRICES = ("mixer", "mlp", "moe")
+_F32_LEAVES = ("router",)
+# the MoE's aux losses, each summed over the layers (``forward_train``)
+MOE_AUX = ("moe_lb", "moe_z")
 
 
 def check_served(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a family this slice does not
     serve, naming the ROADMAP item that will."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers (cfg.moe) are not ported yet (ROADMAP "
-            f"queue 1, item 4c)")
     if "mamba" in cfg.pattern:
         raise NotImplementedError(
             f"{cfg.name}: Mamba2 layers are not ported yet (ROADMAP queue 1, "
@@ -59,15 +62,39 @@ def check_served(cfg: ModelConfig) -> None:
             f"not ported yet (ROADMAP queue 1, item 4e)")
 
 
-def _position_init(generator, cfg: ModelConfig, device) -> dict:
-    """One dense layer's f32 parameters (``_moe_at`` and the Mamba and
-    cross-attention groups come with items 4c-4e)."""
+def _moe_at(cfg: ModelConfig, pos: int) -> bool:
+    if cfg.moe is None:
+        return False
+    return pos % cfg.moe.every == cfg.moe.every - 1
+
+
+def _position_init(generator, cfg: ModelConfig, pos: int, device) -> dict:
+    """One layer's f32 parameters at period position ``pos`` (the Mamba
+    and cross-attention groups come with items 4d and 4e)."""
     p = {"norm1": L.rmsnorm_init(cfg.d_model, device),
          "mixer": L.attention_init(generator, cfg, device)}
-    if cfg.d_ff > 0:
+    if _moe_at(cfg, pos):
+        p["norm2"] = L.rmsnorm_init(cfg.d_model, device)
+        p["moe"] = L.moe_init(generator, cfg.d_model, cfg.moe, device)
+    elif cfg.d_ff > 0:
         p["norm2"] = L.rmsnorm_init(cfg.d_model, device)
         p["mlp"] = L.mlp_init(generator, cfg.d_model, cfg.d_ff, device)
     return p
+
+
+def _leaf_type(group: str, name: str, dtype):
+    """The type a leaf is held in by a model of activation type ``dtype``:
+    the matrices in it, the norms and the router in f32."""
+    if group in _MATRICES and name not in _F32_LEAVES:
+        return dtype
+    return torch.float32
+
+
+def _cast_group(group: str, leaves: dict, fn) -> dict:
+    """``fn(tensor, leaf name)`` on every leaf of one layer group, nested
+    groups (the MoE's ``shared``) included."""
+    return {n: (_cast_group(group, t, fn) if isinstance(t, dict)
+                else fn(t, n)) for n, t in leaves.items()}
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator], *,
@@ -84,10 +111,11 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator], *,
 
     layers = []
     for i in range(cfg.n_layers):
-        p = _position_init(generator, cfg, device)
-        layers.append({g: ({n: cast(t) for n, t in leaves.items()}
-                           if g in _MATRICES else leaves)
-                       for g, leaves in p.items()})
+        p = _position_init(generator, cfg, i % cfg.period, device)
+        layers.append({g: _cast_group(
+            g, leaves, lambda t, n, g=g: t if dtype is None
+            else t.to(_leaf_type(g, n, dtype)))
+            for g, leaves in p.items()})
     params = {"embed": cast(L._embed_init(generator, (cfg.vocab, cfg.d_model),
                                           device)),
               "final_norm": L.rmsnorm_init(cfg.d_model, device),
@@ -103,32 +131,37 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """One layer: norm, attention, norm, gated MLP (the MLP absent where
-    ``d_ff`` is 0)."""
+    """One layer: norm, attention, norm, then a gated MLP or a top-k MoE
+    (neither where ``d_ff`` is 0 and the layer is not an MoE one)."""
 
     def __init__(self, p: dict, cfg: ModelConfig, pos: int, dtype, device):
         super().__init__()
         self.kind = cfg.pattern[pos]
         self.window = cfg.window if self.kind == "local" else 0
 
-        def group(name):
-            if name not in p:
+        def group(name, leaves):
+            if leaves is None:
                 return None
             return nn.ParameterDict({
-                n: _frozen(t.to(device=device, dtype=dtype if name in
-                                _MATRICES else torch.float32))
-                for n, t in p[name].items()})
-        self.norm1 = group("norm1")
-        self.mixer = group("mixer")
-        self.norm2 = group("norm2")
-        self.mlp = group("mlp")
+                n: _frozen(t.to(device=device,
+                                dtype=_leaf_type(name, n, dtype)))
+                for n, t in leaves.items() if not isinstance(t, dict)})
+        self.norm1 = group("norm1", p.get("norm1"))
+        self.mixer = group("mixer", p.get("mixer"))
+        self.norm2 = group("norm2", p.get("norm2"))
+        self.mlp = group("mlp", p.get("mlp"))
+        self.moe = group("moe", p.get("moe"))
+        self.moe_shared = group("moe", p.get("moe", {}).get("shared"))
 
     @property
     def params(self) -> dict:
         """The layer's parameter groups by name, as in the parameter
-        tree."""
-        return {n: g for n in ("norm1", "mixer", "norm2", "mlp")
-                if (g := getattr(self, n)) is not None}
+        tree (the MoE's ``shared`` nested in ``moe``)."""
+        out = {n: g for n in ("norm1", "mixer", "norm2", "mlp", "moe")
+               if (g := getattr(self, n)) is not None}
+        if self.moe_shared is not None:
+            out["moe"] = {**self.moe, "shared": dict(self.moe_shared)}
+        return out
 
 
 class Transformer(nn.Module):
@@ -221,10 +254,10 @@ class Transformer(nn.Module):
 def _apply_position(p: dict, window: int, x, u, positions, cfg: ModelConfig,
                     cache=None, use_kernel: bool = True):
     """One layer with parameter groups ``p`` (``norm1``, ``mixer``, and
-    ``norm2`` and ``mlp`` where ``d_ff`` > 0) and sliding ``window`` (0:
-    global).  ``x`` is its input in the activation type, ``u`` the same
-    value in f32 as the layer's first norm reads it.  Returns both for the
-    layer's output.
+    ``norm2`` with ``moe`` or ``mlp``) and sliding ``window`` (0: global).
+    ``x`` is its input in the activation type, ``u`` the same value in f32
+    as the layer's first norm reads it.  Returns both for the layer's
+    output, and the MoE's aux losses (``{}`` for other layers).
 
     Inside one compiled block the reference's residual sums reach the next
     norm unrounded (its compiler keeps the f32 sum of two bf16 values),
@@ -237,12 +270,17 @@ def _apply_position(p: dict, window: int, x, u, positions, cfg: ModelConfig,
         cfg, window=window, cache=cache, use_kernel=use_kernel)
     u = x.to(torch.float32) + h.to(torch.float32)
     x = u.to(dt)
-    if "mlp" in p:
+    aux = {}
+    if "moe" in p:
+        h, aux = L.moe_apply(p["moe"], L.rmsnorm(p["norm2"], u, cfg.norm_eps)
+                             .to(dt), cfg.moe)
+    elif "mlp" in p:
         h = L.mlp_apply(p["mlp"], L.rmsnorm(p["norm2"], u, cfg.norm_eps)
                         .to(dt))
+    if "moe" in p or "mlp" in p:
         u = x.to(torch.float32) + h.to(torch.float32)
         x = u.to(dt)
-    return x, u
+    return x, u, aux
 
 
 def _stack(model: Transformer, x, positions, caches=None,
@@ -254,9 +292,9 @@ def _stack(model: Transformer, x, positions, caches=None,
     for i, p in enumerate(model.layers):
         if i % cfg.period == 0:
             u = x.to(torch.float32)
-        x, u = _apply_position(p.params, p.window, x, u, positions, cfg,
-                               cache=None if caches is None else caches[i],
-                               use_kernel=use_kernel)
+        x, u, _ = _apply_position(p.params, p.window, x, u, positions, cfg,
+                                  cache=None if caches is None else caches[i],
+                                  use_kernel=use_kernel)
     return x
 
 
@@ -264,14 +302,20 @@ def _window(cfg: ModelConfig, pos: int) -> int:
     return cfg.window if cfg.pattern[pos] == "local" else 0
 
 
-def _period_block(x, positions, layers: list, cfg: ModelConfig):
+def _period_block(x, aux_sum: dict, positions, layers: list,
+                  cfg: ModelConfig):
     """One period block of the training stack: its layers in order, from
     the block's input rounded to the activation type, as the reference's
-    scan carries it."""
+    scan carries it.  Returns the block's output and ``aux_sum`` with each
+    MoE layer's aux losses added in layer order."""
     u = x.to(torch.float32)
+    aux_sum = dict(aux_sum)
     for pos, p in enumerate(layers):
-        x, u = _apply_position(p, _window(cfg, pos), x, u, positions, cfg)
-    return x
+        x, u, aux = _apply_position(p, _window(cfg, pos), x, u, positions,
+                                    cfg)
+        for k, v in aux.items():
+            aux_sum[k] = aux_sum[k] + v
+    return x, aux_sum
 
 
 def forward_train(params: dict, batch: dict, cfg: ModelConfig, *,
@@ -280,8 +324,11 @@ def forward_train(params: dict, batch: dict, cfg: ModelConfig, *,
     port's layout; f32 masters, cast at use).  ``batch``: ``tokens`` and
     ``labels`` (B, S), a label of -1 masked out.  Returns (loss, metrics):
     the mean over the unmasked tokens of logsumexp(logits) minus the gold
-    logit, in f32, and ``{"ce", "ntokens"}``.  ``remat`` recomputes each
-    period block in the backward pass instead of keeping its activations.
+    logit, in f32, and ``{"ce", "ntokens"}``.  An MoE model adds each aux
+    loss summed over its layers (from f32 zeros, layer by layer) over the
+    layer count to the loss, and reports the sums as ``moe_lb`` and
+    ``moe_z``.  ``remat`` recomputes each period block in the backward
+    pass instead of keeping its activations.
     Attention takes the plain route wherever autograd records the forward
     (``layers.kernel_route``)."""
     check_served(cfg)
@@ -292,13 +339,15 @@ def forward_train(params: dict, batch: dict, cfg: ModelConfig, *,
     positions = torch.arange(s, dtype=torch.int32,
                              device=device)[None, :].expand(b, s)
     layers = params["layers"]
+    aux = ({k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in MOE_AUX} if cfg.moe is not None else {})
     for start in range(0, cfg.n_layers, cfg.period):
         block = layers[start:start + cfg.period]
         if remat:
-            x = checkpoint(_period_block, x, positions, block, cfg,
-                           use_reentrant=False)
+            x, aux = checkpoint(_period_block, x, aux, positions, block, cfg,
+                                use_reentrant=False)
         else:
-            x = _period_block(x, positions, block, cfg)
+            x, aux = _period_block(x, aux, positions, block, cfg)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     logits = _lm_logits(head, cfg, x)                        # (B,S,V) f32
@@ -311,7 +360,11 @@ def forward_train(params: dict, batch: dict, cfg: ModelConfig, *,
     ce = (logz - gold) * mask
     ntok = torch.clamp(mask.sum(), min=1.0)
     loss = ce.sum() / ntok
-    return loss, {"ce": loss, "ntokens": ntok}
+    metrics = {"ce": loss, "ntokens": ntok}
+    for k, v in aux.items():
+        loss = loss + v / max(cfg.n_layers, 1)
+        metrics[k] = v
+    return loss, metrics
 
 
 def _tokens(tokens, device) -> torch.Tensor:

@@ -871,12 +871,18 @@ def test_cuda_lm_prefill_refuses_a_head_dim_the_kernels_lack(cuda):
 # every leaf gets a gradient.  f32 smoke train steps on the card against the
 # same step on the CPU, held to the CPU tests' f32 limits (the train-step
 # tests against the reference): the loss within 1e-5 relative, the grad
-# norm within 1e-3 relative, every parameter within 2 * lr; each gradient
-# leaf within 2e-3 of its largest |grad|: the CPU tests hold each of the
-# two within 1e-3 of the reference, so their distance from each other is
-# bounded by twice that (gemma3 smoke's card and CPU gradients part by
-# 1.2e-3).
+# norm within 1e-3 relative, every parameter within 2 * lr, each gradient
+# leaf within 1e-3 of its largest |grad|, an MoE's routes equal.  gemma3
+# smoke's leaves are held to 2e-3: its f32 gradients sit up to 1.66e-3 of
+# a leaf's max from the same step in f64 on the CPU alone (the backward of
+# layer 1's sliding-window attention, where the probabilities are nearly
+# one-hot, multiplies the f32 rounding 3.7-fold; the other families stay
+# under 4.7e-4), and the step in f64 on the card equals the CPU's to f64
+# rounding, so the card's 1.2-1.3e-3 is f32 order, not a port fault
+# (``scripts/lm_grad_probe.py``; ROADMAP queue 3, note m).
 TRAIN_B, TRAIN_S, TRAIN_LR = 2, 24, 1e-3
+TRAIN_ARCHS = LM_ARCHS + ["deepseek-moe-16b", "qwen3-moe-30b-a3b"]
+TRAIN_GRAD_LIMIT = {"gemma3-12b": 2e-3}
 
 
 def _train_batch(vocab):
@@ -908,7 +914,7 @@ def test_cuda_flash_attention_refuses_a_differentiated_call(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", LM_ARCHS)
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_cuda_lm_train_step_gives_every_leaf_a_gradient(cuda, arch):
     from repro_torch.configs import get_config
     from repro_torch.launch import make_train_step
@@ -928,28 +934,119 @@ def test_cuda_lm_train_step_gives_every_leaf_a_gradient(cuda, arch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", LM_ARCHS)
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_cuda_lm_f32_train_step_matches_cpu(cuda, arch):
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.launch import make_train_step
+    from repro_torch.models import layers as lm_layers
     from repro_torch.optim import cosine_schedule, tree_leaves
     cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
     batch = _train_batch(cfg.vocab)
     runs = {}
+    dispatch = lm_layers.moe_dispatch
     for dev in ("cpu", cuda):
-        state = _train_state(cfg, dev)
-        step = make_train_step(cfg, cosine_schedule(TRAIN_LR, 0, 10))
-        loss, metrics, grads = step.loss_and_grads(state, batch)
+        routes = []
+
+        def spy(topi, cap):
+            routes.append(topi.cpu())
+            return dispatch(topi, cap)
+        lm_layers.moe_dispatch = spy
+        try:
+            state = _train_state(cfg, dev)
+            step = make_train_step(cfg, cosine_schedule(TRAIN_LR, 0, 10))
+            loss, metrics, grads = step.loss_and_grads(state, batch)
+        finally:
+            lm_layers.moe_dispatch = dispatch
         g = [t.detach().cpu().clone() for t in tree_leaves(grads)]
         state, m = step.apply(state, grads, loss, metrics)
         runs[str(dev)] = (float(m["loss"]), float(m["grad_norm"]), g,
                           [t.detach().cpu() for t in
-                           tree_leaves(state.params)])
-    (l0, n0, g0, p0), (l1, n1, g1, p1) = runs["cpu"], runs[str(cuda)]
+                           tree_leaves(state.params)], routes)
+    (l0, n0, g0, p0, r0), (l1, n1, g1, p1, r1) = (runs["cpu"],
+                                                  runs[str(cuda)])
+    assert len(r0) == len(r1) == (2 * cfg.n_layers if cfg.moe else 0)
+    assert all(torch.equal(a, b) for a, b in zip(r1, r0))
     assert abs(l1 - l0) <= 1e-5 * abs(l0)
     assert abs(n1 - n0) <= 1e-3 * n0
+    limit = TRAIN_GRAD_LIMIT.get(arch, 1e-3)
     for a, b in zip(g1, g0):
-        assert (a - b).abs().max() <= 2e-3 * b.abs().max()
+        assert (a - b).abs().max() <= limit * b.abs().max()
     for a, b in zip(p1, p0):
         assert (a - b).abs().max() <= 2 * TRAIN_LR
+
+
+# MoE (deepseek-moe and qwen3-moe smoke): the layer on the card against the
+# same layer on the CPU, routes equal (each token's top-k experts, the
+# sort and the clipped ranks) and the output within the f32 tolerance of
+# the layer tests (bf16: one bf16 step of the largest output); a prefill
+# launches the flash kernel once a layer; the f32 train step as the dense
+# families' above
+MOE_ARCHS = ["deepseek-moe-16b", "qwen3-moe-30b-a3b"]
+
+
+def _moe_routes(params, x, m):
+    from repro_torch.models import layers as lm_layers
+    t = x.shape[0] * x.shape[1]
+    _, probs, _, topi = lm_layers.moe_router(params["router"],
+                                             x.reshape(t, -1), m.top_k)
+    cap = lm_layers.moe_capacity(t, m)
+    return [r.cpu() for r in (topi, *lm_layers.moe_dispatch(topi, cap))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity_factor", [8.0, 0.5],
+                         ids=["no-drops", "drops"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_cuda_moe_layer_matches_cpu_with_equal_routes(cuda, arch, dtype,
+                                                      capacity_factor):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as lm_layers
+    cfg = get_config(arch, smoke=True)
+    m = dataclasses.replace(cfg.moe, capacity_factor=capacity_factor)
+    tdt = getattr(torch, dtype)
+    params = lm_layers.moe_init(torch.Generator().manual_seed(3),
+                                cfg.d_model, m)
+    x = torch.randn(3, 40, cfg.d_model,
+                    generator=torch.Generator().manual_seed(4)).to(tdt)
+    on_card = {n: (t.to(cuda) if not isinstance(t, dict) else
+                   {a: b.to(cuda) for a, b in t.items()})
+               for n, t in params.items()}
+    want, want_aux = lm_layers.moe_apply(params, x, m)
+    got, got_aux = lm_layers.moe_apply(on_card, x.to(cuda), m)
+    for a, b in zip(_moe_routes(on_card, x.to(cuda), m),
+                    _moe_routes(params, x, m)):
+        assert torch.equal(a, b)
+    got = got.cpu()
+    assert got.dtype == tdt
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    else:
+        scale = float(want.float().abs().max())
+        assert float((got.float() - want.float()).abs().max()) \
+            <= 2.0 ** -7 * scale
+    for k in want_aux:
+        torch.testing.assert_close(got_aux[k].cpu(), want_aux[k],
+                                   rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_cuda_moe_prefill_launches_the_kernel_once_a_layer(cuda, arch):
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer
+    cfg = get_config(arch, smoke=True)                      # bf16
+    model = Transformer(cfg, device=cuda, seed=5)
+    toks = np.random.default_rng(6).integers(0, cfg.vocab, (3, 40))
+    before = fa_ops.SM90_LAUNCHES
+    logits, cache = model.prefill({"tokens": toks}, 64)
+    torch.cuda.synchronize()
+    assert fa_ops.SM90_LAUNCHES - before == cfg.n_layers
+    assert torch.isfinite(logits).all()
+    logits, _ = model.decode_step(cache, toks[:, :1])
+    torch.cuda.synchronize()
+    assert fa_ops.SM90_LAUNCHES - before == cfg.n_layers
+    assert torch.isfinite(logits).all()

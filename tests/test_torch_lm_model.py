@@ -34,8 +34,7 @@ from repro_torch.configs import get_config
 from repro_torch.models import Transformer, init_params, params_from_jax
 
 DENSE = ["gemma3-12b", "yi-9b", "starcoder2-3b", "chatglm3-6b"]
-UNSERVED = {"qwen3-moe-30b-a3b": "4c", "deepseek-moe-16b": "4c",
-            "jamba-1-5-large-398b": "4c", "mamba2-780m": "4d",
+UNSERVED = {"jamba-1-5-large-398b": "4d", "mamba2-780m": "4d",
             "whisper-large-v3": "4e", "qwen2-vl-2b": "4e"}
 DTYPES = ["float32", "bfloat16"]
 B, PROMPT, STEPS, MAX_SEQ = 2, 20, 8, 64
