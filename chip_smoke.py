@@ -184,7 +184,28 @@ Phases, one JSON line each; any failed check exits non-zero:
      gradients all finite, the experts with an all-zero gradient exactly
      those no token was routed to; both MoE smoke families' f32 step on
      the card against the CPU, routes equal; 0 flash launches;
- 28. the kernels line, then ``{"ok": true, "device": {...}}`` last.
+ 28. slice 17's Mamba2 serving path on mamba2-780m at full width
+     (``SSM_SERVE``: 48 layers, d 1536, 48 SSD heads of 64, d_state 128,
+     chunk 256, vocab 50280; 0.78 B seeded parameters): in f32 on the
+     first 4 layers, each Mamba mixer on its own input of a 4 x 512
+     prefill (two chunks) and one decode step from the cache it leaves,
+     card against CPU (the card's error against an f64 evaluation at most
+     twice the CPU's); at full depth in f32 the 4 x 512 batch in chunks of
+     256 against one chunk of 512, and 12 decode steps after a 500-token
+     prefill against the forward (rtol and atol 1e-3); then
+     ``ServeEngine`` as in 24 in bf16 (no flash launch, asserted; the
+     padded prefill lengths, one not a multiple of 256: the one-chunk
+     fallback), a profile of a prefill and three decode steps
+     (``chiprun_out/profile_ssm.txt``), the 4 x 512 batch in bf16 against
+     f32 (printed); and jamba smoke's serve run (Mamba, attention and MoE
+     layers) in f32 on the card against the CPU, tokens equal, and in
+     bf16, one tensor-core flash launch a prefill (asserted);
+ 29. slice 17's Mamba2 training path on mamba2-780m at full width
+     (``SSM_TRAIN``: ~12.5 GB of state): ``launch.train.main`` for 8 steps
+     of 4 x 512 tokens (losses near ln 50280, step ms split into forward +
+     backward and optimizer, tokens/sec, peak memory); mamba2 and jamba
+     smoke's f32 step on the card against the CPU; 0 flash launches;
+ 30. the kernels line, then ``{"ok": true, "device": {...}}`` last.
 
 Phase 12's sweep also runs the six fleet event goldens and the seven
 single-edge event goldens (all twenty-one goldens), their counters held
@@ -385,6 +406,35 @@ MOE_SERVE = {"arch": "deepseek-moe-16b", "seed": 31, "slots": 4,
 MOE_TRAIN = {"arch": "qwen3-moe-30b-a3b", "n_layers": 4, "steps": 8,
              "batch": 4, "seq": 512, "seed": 31, "loss_band": 2.5,
              "smoke_archs": ("deepseek-moe-16b", "qwen3-moe-30b-a3b")}
+# slice 17: Mamba2 serving on mamba2-780m FULL (configs/mamba2_780m.py: 48
+# layers, d 1536, 48 SSD heads of 64, d_state 128, chunk 256, vocab 50280;
+# 0.78 B seeded parameters, bf16): the serve run as ``LM``'s (its batches
+# pad to lengths that are not multiples of 256, the one-chunk fallback);
+# the Mamba mixers of the first ``f32_layers`` layers in f32 on their own
+# inputs of the 4 x 512 batch (two chunks) and one decode step from the
+# cache that prefill leaves, card against CPU, the card's error against an
+# f64 evaluation at most ``f32_ratio`` times the CPU's, times the largest
+# ratio the two devices' f32 products alone show on the layer's own
+# products where it passes 1; at full depth in f32, the 4 x 512 batch in
+# chunks of 256 against one chunk of 512 and ``decode`` teacher-forced
+# steps after a ``prompt``-token prefill against the forward (the
+# reference's cache test, rtol and atol 1e-3); and jamba smoke's serve
+# run (the example's six requests) in f32 card against CPU, tokens equal,
+# and in bf16, one row-4 launch a prefill
+SSM_SERVE = {"arch": "mamba2-780m", "seed": 32, "slots": 4, "max_seq": 1100,
+             "requests": 8, "prompt": (16, 1000), "new_tokens": 32,
+             "batch": (4, 512), "f32_layers": 4, "f32_ratio": 2.0,
+             "prompt_decode": 500, "decode": 12, "rtol": 1e-3, "atol": 1e-3,
+             "n_decode_prof": 3, "hybrid": "jamba-1-5-large-398b",
+             "hybrid_new_tokens": 12}
+# slice 17: Mamba2 training on mamba2-780m FULL (0.78 B parameters, ~12.5 GB
+# of masters, gradients, m and v): the driver's 8 steps of 4 x 512 tokens
+# (two chunks a sequence), losses within ``loss_band`` of ln(vocab); both
+# Mamba smoke families' f32 step on the card against the CPU at ``TRAIN``'s
+# limits
+SSM_TRAIN = {"arch": "mamba2-780m", "steps": 8, "batch": 4, "seq": 512,
+             "seed": 32, "loss_band": 2.5,
+             "smoke_archs": ("mamba2-780m", "jamba-1-5-large-398b")}
 # a fleet of the main path's kind whose data (134 MB for stream_stats_fleet,
 # 268 MB for polyfit) does not fit in the 50 MB L2: (E, k, N)
 LARGE = (4096, 8, 1024)
@@ -883,14 +933,19 @@ def main() -> int:
     moe_serve = lm_moe_serve_path(torch, card_line)
     moe_train = lm_moe_train_path(torch, card_line)
 
-    # ---- 28. the kernels line and the result -----------------------------
+    # ---- 28.-29. slice 17: Mamba2 serving and training at full width -----
+    ssm_serve = lm_ssm_serve_path(torch, card_line)
+    ssm_train = lm_ssm_train_path(torch, card_line)
+
+    # ---- 30. the kernels line and the result -----------------------------
     # launches: rows 1 and 2 on the runtime paths driven with the counts
     # at 0 (main_path, adaptive_path, chaos_path, event_path, and
     # single_event_path, baseline_path, iid_path and host_engine_path,
     # which launch neither; sharded_path in this process and
     # sharded_path_ranks summed over its two ranks), row 3 on the kernel
-    # entry points, row 4 there and in the LM serve runs, dense and MoE
-    # (and 0 times in the LM training runs, asserted: it has no backward)
+    # entry points, row 4 there and in the LM serve runs, dense, MoE and
+    # the Mamba hybrid's (and 0 times in the LM training runs, asserted: it
+    # has no backward)
     by_path = {n: ({"main_path": launches[n], "adaptive_path": adaptive[n],
                     "chaos_path": chaos[n], "event_path": event[n],
                     "single_event_path": single_event[n],
@@ -904,7 +959,11 @@ def main() -> int:
                                               "lm_moe_serve_path":
                                                   moe_serve[n],
                                               "lm_moe_train_path":
-                                                  moe_train[n]}
+                                                  moe_train[n],
+                                              "lm_ssm_serve_path":
+                                                  ssm_serve[n],
+                                              "lm_ssm_train_path":
+                                                  ssm_train[n]}
                                              if n in lm else {})})
                for n in KERNELS}
     emit({"kernels": [dict(name=n, route="cuda", source=KERNELS[n][0],
@@ -1101,6 +1160,90 @@ def _rms(x) -> float:
     return float(x.float().square().mean().sqrt())
 
 
+def serve_run(torch, cfg, settings: dict, rng, batch: dict, line: dict,
+              spy=contextlib.nullcontext, more=lambda fields: {}):
+    """``ServeEngine`` for ``cfg`` on the card (weights drawn from
+    ``settings["seed"]``), warmed by a 16-token prefill of ``batch``, then
+    ``settings["requests"]`` requests of ``settings["prompt"]`` tokens
+    drawn from ``rng``, ``settings["new_tokens"]`` new tokens each, run
+    inside ``spy()`` with the flash kernels' counts at 0.  Emits ``line``
+    with the run's fields and ``more(fields)``, then raises unless every
+    request got its tokens and every logit was finite.  Returns (the
+    engine, the fields: times, tokens/s, peak memory, the flash launches
+    of the run)."""
+    import numpy as np
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.serving import Request, ServeEngine
+
+    t0 = time.perf_counter()
+    engine = ServeEngine(None, cfg, batch_slots=settings["slots"],
+                         max_seq=settings["max_seq"], device="cuda",
+                         seed=settings["seed"])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model = engine.model
+    model.prefill({"tokens": batch["tokens"][:, :16]},
+                  batch["tokens"].shape[1])                 # warm
+    timed = {"prefill": [], "decode": []}
+    finite, prefill_len = [], []
+
+    def timer(name, fn):
+        def run(*args):
+            if name == "prefill":
+                prefill_len.append(int(np.shape(args[0]["tokens"])[1]))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            timed[name].append(time.perf_counter() - t)
+            finite.append(bool(torch.isfinite(out[0]).all()))
+            return out
+        return run
+    model.prefill = timer("prefill", model.prefill)
+    model.decode_step = timer("decode", model.decode_step)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, int(n))
+                    .tolist(), max_new_tokens=settings["new_tokens"])
+            for i, n in enumerate(rng.integers(settings["prompt"][0],
+                                               settings["prompt"][1] + 1,
+                                               settings["requests"]))]
+    for r in reqs:
+        engine.submit(r)
+    fa_ops.LAUNCHES = 0
+    fa_ops.SM90_LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    with spy():
+        t0 = time.perf_counter()
+        done = engine.run()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+    launches = {"flash_attention": fa_ops.SM90_LAUNCHES,
+                "flash_attention_f32": fa_ops.LAUNCHES - fa_ops.SM90_LAUNCHES}
+    del model.prefill, model.decode_step
+    n_tok = sum(len(r.generated) for r in done)
+    fields = {"params": model.n_params(), "slots": settings["slots"],
+              "max_seq": settings["max_seq"], "requests": len(reqs),
+              "prompt_lengths": [len(r.prompt) for r in reqs],
+              "prefill_lengths": prefill_len, "tokens": n_tok,
+              "seconds": serve_s, "tokens_per_sec": n_tok / serve_s,
+              "prefill_calls": len(timed["prefill"]),
+              "prefill_ms_per_batch": [1e3 * t for t in timed["prefill"]],
+              "decode_steps": len(timed["decode"]),
+              "decode_ms_per_step": 1e3 * statistics.median(timed["decode"]),
+              "decode_ms_mean": 1e3 * statistics.mean(timed["decode"]),
+              "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+              "init_seconds": init_s, "launches": launches}
+    emit({**line, **fields, **more(fields)})
+    if sorted(r.rid for r in done) != list(range(len(reqs))) or any(
+            len(r.generated) != settings["new_tokens"] for r in done):
+        raise AssertionError(f"{line['phase']}: the serve run did not give "
+                             f"every request {settings['new_tokens']} "
+                             f"tokens")
+    if not all(finite):
+        raise AssertionError(f"{line['phase']}: the serve run produced "
+                             f"non-finite logits")
+    return engine, fields
+
+
 def lm_serve_path(torch, results, card_line: str) -> dict:
     """Phase 24: gemma3-12b at full width through ``ServeEngine`` and the
     model's prefill and decode (``LM``).  Every check raises.  Updates
@@ -1110,11 +1253,9 @@ def lm_serve_path(torch, results, card_line: str) -> dict:
 
     import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.models import Transformer, init_cache
     from repro_torch.models import layers as lm_layers
-    from repro_torch.serving import Request, ServeEngine
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
@@ -1241,68 +1382,14 @@ def lm_serve_path(torch, results, card_line: str) -> dict:
     torch.cuda.empty_cache()
 
     # ---- bf16: the serve run -----------------------------------------------
-    t0 = time.perf_counter()
-    engine = ServeEngine(None, cfg16, batch_slots=LM["slots"],
-                         max_seq=LM["max_seq"], device="cuda",
-                         seed=LM["seed"])
-    torch.cuda.synchronize()
-    init16_s = time.perf_counter() - t0
+    engine, run = serve_run(
+        torch, cfg16, LM, rng, batch,
+        {"phase": "lm_serve_path", "nvidia_smi": card_line,
+         "arch": cfg16.name, "dtype": cfg16.dtype, "layers": cfg16.n_layers,
+         "d_model": cfg16.d_model, "head_dim": cfg16.head_dim,
+         "vocab": cfg16.vocab})
     model = engine.model
-    prefill_logits(model, True, {"tokens": batch["tokens"][:, :16]})  # warm
-    timed = {"prefill": [], "decode": []}
-    finite = []
-
-    def timer(name, fn):
-        def run(*args):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*args)
-            torch.cuda.synchronize()
-            timed[name].append(time.perf_counter() - t)
-            finite.append(bool(torch.isfinite(out[0]).all()))
-            return out
-        return run
-    model.prefill = timer("prefill", model.prefill)
-    model.decode_step = timer("decode", model.decode_step)
-    reqs = [Request(rid=i, prompt=rng.integers(0, cfg16.vocab, int(n))
-                    .tolist(), max_new_tokens=LM["new_tokens"])
-            for i, n in enumerate(rng.integers(LM["prompt"][0],
-                                               LM["prompt"][1] + 1,
-                                               LM["requests"]))]
-    for r in reqs:
-        engine.submit(r)
-    fa_ops.LAUNCHES = 0
-    fa_ops.SM90_LAUNCHES = 0
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    done = engine.run()
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
-    launches = {"flash_attention": fa_ops.SM90_LAUNCHES,
-                "flash_attention_f32": fa_ops.LAUNCHES - fa_ops.SM90_LAUNCHES}
-    del model.prefill, model.decode_step
-    n_tok = sum(len(r.generated) for r in done)
-    n_pre = len(timed["prefill"])
-    emit({"phase": "lm_serve_path", "nvidia_smi": card_line,
-          "arch": cfg16.name, "dtype": cfg16.dtype, "layers": cfg16.n_layers,
-          "d_model": cfg16.d_model, "head_dim": cfg16.head_dim,
-          "vocab": cfg16.vocab, "slots": LM["slots"],
-          "max_seq": LM["max_seq"], "requests": len(reqs),
-          "prompt_lengths": [len(r.prompt) for r in reqs],
-          "tokens": n_tok, "seconds": serve_s, "tokens_per_sec":
-              n_tok / serve_s, "prefill_calls": n_pre,
-          "prefill_ms_per_batch": [1e3 * t for t in timed["prefill"]],
-          "decode_steps": len(timed["decode"]),
-          "decode_ms_per_step": 1e3 * statistics.median(timed["decode"]),
-          "decode_ms_mean": 1e3 * statistics.mean(timed["decode"]),
-          "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-          "init_seconds": init16_s, "launches": launches})
-    if sorted(r.rid for r in done) != list(range(len(reqs))) or any(
-            len(r.generated) != LM["new_tokens"] for r in done):
-        raise AssertionError("the serve run did not give every request "
-                             f"{LM['new_tokens']} tokens")
-    if not all(finite):
-        raise AssertionError("the serve run produced non-finite logits")
+    launches, n_pre = run["launches"], run["prefill_calls"]
     if launches != {"flash_attention": cfg16.n_layers * n_pre,
                     "flash_attention_f32": 0}:
         raise AssertionError(f"flash kernel launches in the serve run "
@@ -1710,8 +1797,9 @@ def _moe_f64(lm_layers, params, xt, topi, m):
 
 @contextlib.contextmanager
 def _einsum_tap(mod):
-    """Within, ``mod``'s ``torch.einsum`` calls are recorded as (equation,
-    operands) into the list it yields."""
+    """Within, ``mod``'s ``torch.einsum`` and ``torch.matmul`` calls are
+    recorded as (equation, operands) into the list it yields, a matmul's
+    equation being ``"matmul"`` (``_product`` computes either again)."""
     import torch
     calls = []
 
@@ -1723,11 +1811,40 @@ def _einsum_tap(mod):
         def einsum(eq, *ops):
             calls.append((eq, ops))
             return torch.einsum(eq, *ops)
+
+        @staticmethod
+        def matmul(a, b):
+            calls.append(("matmul", (a, b)))
+            return torch.matmul(a, b)
     mod.torch = Tap()
     try:
         yield calls
     finally:
         mod.torch = torch
+
+
+def _product(eq, ops):
+    """A product ``_einsum_tap`` recorded, computed again on ``ops``."""
+    import torch
+    return torch.matmul(*ops) if eq == "matmul" else torch.einsum(eq, *ops)
+
+
+def _products_yardstick(products) -> list:
+    """Each recorded f32 product on its card operands, on the card and on
+    the CPU, against the same product in f64: the two devices' own f32
+    error on the layer's products."""
+    rows = []
+    for eq, ops in products:
+        p64 = _product(eq, [o.double() for o in ops])
+        e_c = float((_product(eq, ops).double() - p64).abs().max())
+        e_h = float((_product(eq, [o.cpu() for o in ops]).double()
+                     - p64.cpu()).abs().max())
+        rows.append({"product": eq, "shape": [list(o.shape) for o in ops],
+                     "card_err_vs_f64": e_c, "cpu_err_vs_f64": e_h,
+                     "card_over_cpu": e_c / e_h if e_h else
+                     (float("inf") if e_c else 1.0)})
+        del p64
+    return rows
 
 
 @contextlib.contextmanager
@@ -1756,10 +1873,8 @@ def lm_moe_serve_path(torch, card_line: str) -> dict:
 
     import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import Transformer
     from repro_torch.models import layers as lm_layers
-    from repro_torch.serving import Request, ServeEngine
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
@@ -1807,16 +1922,7 @@ def lm_moe_serve_path(torch, card_line: str) -> dict:
         # layer's own products (the router's, the experts' three batched
         # ones, the shared experts' three) on its card operands, on each
         # device against f64
-        gemm = []
-        for eq, ops in products:
-            p64 = torch.einsum(eq, *(o.double() for o in ops))
-            e_c = float((torch.einsum(eq, *ops).double() - p64).abs().max())
-            e_h = float((torch.einsum(eq, *(o.cpu() for o in ops)).double()
-                         - p64.cpu()).abs().max())
-            gemm.append({"product": eq, "shape": [list(o.shape) for o in ops],
-                         "card_err_vs_f64": e_c, "cpu_err_vs_f64": e_h,
-                         "card_over_cpu": e_c / e_h})
-            del p64
+        gemm = _products_yardstick(products)
         gemm_ratio = max(g["card_over_cpu"] for g in gemm)
         del products
         row = {"layer": i, "tokens": xt.shape[0], "cap": cap,
@@ -1847,81 +1953,30 @@ def lm_moe_serve_path(torch, card_line: str) -> dict:
     torch.cuda.empty_cache()
 
     # ---- (b) bf16: the serve run -------------------------------------------
-    t0 = time.perf_counter()
-    engine = ServeEngine(None, cfg16, batch_slots=MOE_SERVE["slots"],
-                         max_seq=MOE_SERVE["max_seq"], device="cuda",
-                         seed=MOE_SERVE["seed"])
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    model = engine.model
-    model.prefill({"tokens": batch["tokens"][:, :16]}, blen)      # warm
-    timed = {"prefill": [], "decode": []}
-    finite = []
-
-    def timer(name, fn):
-        def run(*args):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*args)
-            torch.cuda.synchronize()
-            timed[name].append(time.perf_counter() - t)
-            finite.append(bool(torch.isfinite(out[0]).all()))
-            return out
-        return run
-    model.prefill = timer("prefill", model.prefill)
-    model.decode_step = timer("decode", model.decode_step)
-    reqs = [Request(rid=i, prompt=rng.integers(0, cfg16.vocab, int(n))
-                    .tolist(), max_new_tokens=MOE_SERVE["new_tokens"])
-            for i, n in enumerate(rng.integers(MOE_SERVE["prompt"][0],
-                                               MOE_SERVE["prompt"][1] + 1,
-                                               MOE_SERVE["requests"]))]
-    for r in reqs:
-        engine.submit(r)
     drops = []          # (tokens, cap, dropped entries on the device)
 
     def count_drops(args, out):
         topi, cap = args
         if topi.shape[0] > MOE_SERVE["slots"]:              # a prefill
             drops.append((topi.shape[0], cap, (out[2] == cap).sum()))
-    fa_ops.LAUNCHES = 0
-    fa_ops.SM90_LAUNCHES = 0
-    torch.cuda.reset_peak_memory_stats()
-    with _spied(lm_layers, "moe_dispatch", count_drops):
-        t0 = time.perf_counter()
-        done = engine.run()
-        torch.cuda.synchronize()
-        serve_s = time.perf_counter() - t0
-    launches = {"flash_attention": fa_ops.SM90_LAUNCHES,
-                "flash_attention_f32": fa_ops.LAUNCHES - fa_ops.SM90_LAUNCHES}
-    del model.prefill, model.decode_step
-    n_tok = sum(len(r.generated) for r in done)
-    n_pre = len(timed["prefill"])
-    dropped = [[int(d) for _, _, d in drops[j:j + cfg16.n_layers]]
-               for j in range(0, len(drops), cfg16.n_layers)]
-    emit({"phase": "lm_moe_serve_path", "nvidia_smi": card_line,
-          "arch": cfg16.name, "dtype": cfg16.dtype, "layers": cfg16.n_layers,
-          "d_model": cfg16.d_model, "experts": m.n_experts, "top_k": m.top_k,
-          "shared": m.n_shared, "vocab": cfg16.vocab,
-          "params": model.n_params(), "slots": MOE_SERVE["slots"],
-          "max_seq": MOE_SERVE["max_seq"], "requests": len(reqs),
-          "prompt_lengths": [len(r.prompt) for r in reqs],
-          "tokens": n_tok, "seconds": serve_s,
-          "tokens_per_sec": n_tok / serve_s, "prefill_calls": n_pre,
-          "prefill_ms_per_batch": [1e3 * t for t in timed["prefill"]],
-          "prefill_tokens": [t for t, _, _ in drops[::cfg16.n_layers]],
-          "capacity": [c for _, c, _ in drops[::cfg16.n_layers]],
-          "dropped_slots_per_prefill_layer": dropped,
-          "decode_steps": len(timed["decode"]),
-          "decode_ms_per_step": 1e3 * statistics.median(timed["decode"]),
-          "decode_ms_mean": 1e3 * statistics.mean(timed["decode"]),
-          "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-          "init_seconds": init_s, "launches": launches})
-    if sorted(r.rid for r in done) != list(range(len(reqs))) or any(
-            len(r.generated) != MOE_SERVE["new_tokens"] for r in done):
-        raise AssertionError("the MoE serve run did not give every request "
-                             f"{MOE_SERVE['new_tokens']} tokens")
-    if not all(finite):
-        raise AssertionError("the MoE serve run produced non-finite logits")
+
+    def drop_fields(fields):
+        n = cfg16.n_layers
+        return {"prefill_tokens": [t for t, _, _ in drops[::n]],
+                "capacity": [c for _, c, _ in drops[::n]],
+                "dropped_slots_per_prefill_layer": [
+                    [int(d) for _, _, d in drops[j:j + n]]
+                    for j in range(0, len(drops), n)]}
+    engine, run = serve_run(
+        torch, cfg16, MOE_SERVE, rng, batch,
+        {"phase": "lm_moe_serve_path", "nvidia_smi": card_line,
+         "arch": cfg16.name, "dtype": cfg16.dtype, "layers": cfg16.n_layers,
+         "d_model": cfg16.d_model, "experts": m.n_experts, "top_k": m.top_k,
+         "shared": m.n_shared, "vocab": cfg16.vocab},
+        spy=lambda: _spied(lm_layers, "moe_dispatch", count_drops),
+        more=drop_fields)
+    model = engine.model
+    launches, n_pre = run["launches"], run["prefill_calls"]
     if len(drops) != cfg16.n_layers * n_pre or launches != {
             "flash_attention": cfg16.n_layers * n_pre,
             "flash_attention_f32": 0}:
@@ -2172,6 +2227,389 @@ def lm_moe_train_path(torch, card_line: str) -> dict:
           "seconds": time.perf_counter() - t_phase, "launches": launches})
     if launches != {"flash_attention": 0, "flash_attention_f32": 0}:
         raise AssertionError(f"flash kernel launches in the MoE training "
+                             f"phase {launches}: a training forward takes "
+                             f"the plain attention")
+    return launches
+
+
+def _f64_tree(t):
+    """A parameter tree (nested dicts of tensors) in f64 on the CPU."""
+    import torch
+    return ({n: _f64_tree(v) for n, v in t.items()} if isinstance(t, dict)
+            else t.detach().to("cpu", torch.float64))
+
+
+def _mamba_runs(lm_layers, params, x, cfg, dtype, device):
+    """The Mamba mixer ``params`` on ``x`` (B, S, d) as a prefill with a
+    zero cache in ``dtype`` on ``device``, then one decode step on x's
+    last token: both outputs, the cache after them, and the products the
+    runs computed."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import init_cache
+
+    def moved(t):
+        return ({n: moved(v) for n, v in t.items()} if isinstance(t, dict)
+                else t.detach().to(device, dtype))
+    p = moved(params)
+    cache = init_cache(dataclasses.replace(cfg, n_layers=1), x.shape[0],
+                       x.shape[1], dtype=dtype, device=device)["layers"][0]
+    cache["ssm"] = cache["ssm"].to(torch.promote_types(dtype, torch.float32))
+    xd = x.detach().to(device, dtype)
+    with _einsum_tap(lm_layers) as products:
+        pre, _ = lm_layers.mamba_apply(p, xd, cfg, cache=cache)
+        dec, _ = lm_layers.mamba_apply(p, xd[:, -1:], cfg, cache=cache)
+    return torch.cat([pre, dec], dim=1), cache, products
+
+
+def lm_ssm_serve_path(torch, card_line: str) -> dict:
+    """Phase 28: mamba2-780m at full width (``SSM_SERVE``): the Mamba mixer
+    in f32 card against CPU and f64, the chunked SSD's carry and the decode
+    states at full depth in f32, ``ServeEngine`` in bf16 with a profile,
+    and jamba smoke's serve run (f32 card against CPU; bf16 with its row-4
+    launches), with row 4 on the hybrid's own prefill q, k, v against its
+    plain version.  Every check raises.  Returns the flash kernels'
+    launches in the serve runs."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import Transformer, init_params
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.models import transformer as lm_tf
+    from repro_torch.serving import Request, ServeEngine
+    from repro_torch.serving.__main__ import PROMPTS
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg16 = get_config(SSM_SERVE["arch"])
+    cfg32 = dataclasses.replace(cfg16, dtype="float32")
+    rng = np.random.default_rng(SSM_SERVE["seed"])
+    bsz, blen = SSM_SERVE["batch"]
+    batch = {"tokens": rng.integers(0, cfg16.vocab, (bsz, blen))}
+    launches = {"flash_attention": 0, "flash_attention_f32": 0}
+
+    def count_launches():
+        for name, n in (("flash_attention", fa_ops.SM90_LAUNCHES),
+                        ("flash_attention_f32",
+                         fa_ops.LAUNCHES - fa_ops.SM90_LAUNCHES)):
+            launches[name] += n
+        fa_ops.LAUNCHES = 0
+        fa_ops.SM90_LAUNCHES = 0
+
+    # ---- (a) the Mamba mixer in f32 at full width, card against CPU -------
+    t0 = time.perf_counter()
+    cfg_l = dataclasses.replace(cfg32, n_layers=SSM_SERVE["f32_layers"])
+    model = Transformer(cfg_l, device="cuda", seed=SSM_SERVE["seed"])
+    inputs = []
+    with _spied(lm_layers, "mamba_apply",
+                lambda args, out: inputs.append((args[0], args[1]))):
+        model.prefill(batch, blen)
+    torch.cuda.synchronize()
+    rows = []
+    for i, (params, x) in enumerate(inputs):
+        t1 = time.perf_counter()
+        out_c, cache_c, products = _mamba_runs(lm_layers, params, x, cfg32,
+                                               torch.float32, "cuda")
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t1
+        gemm = _products_yardstick(products)
+        gemm_ratio = max(g["card_over_cpu"] for g in gemm)
+        del products
+        t1 = time.perf_counter()
+        out_h, cache_h, _ = _mamba_runs(lm_layers, params, x, cfg32,
+                                        torch.float32, "cpu")
+        cpu_s = time.perf_counter() - t1
+        exact, cache_x, _ = _mamba_runs(lm_layers, _f64_tree(params), x,
+                                        cfg32, torch.float64, "cpu")
+        err_c = float((out_c.cpu().double() - exact).abs().max())
+        err_h = float((out_h.double() - exact).abs().max())
+        st_c = float((cache_c["ssm"].cpu().double()
+                      - cache_x["ssm"]).abs().max())
+        st_h = float((cache_h["ssm"].double() - cache_x["ssm"]).abs().max())
+        row = {"layer": i, "tokens": list(x.shape[:2]), "chunk":
+               cfg32.ssm.chunk, "card_err_vs_f64": err_c,
+               "cpu_err_vs_f64": err_h, "card_over_cpu": err_c / err_h,
+               "ssm_state_card_err_vs_f64": st_c,
+               "ssm_state_cpu_err_vs_f64": st_h,
+               "products": gemm, "products_card_over_cpu": gemm_ratio,
+               "max_abs_f64": float(exact.abs().max()),
+               "card_s": card_s, "cpu_s": cpu_s}
+        limit = SSM_SERVE["f32_ratio"] * max(1.0, gemm_ratio)
+        row["ok"] = (err_c <= limit * err_h and st_c <= limit * st_h
+                     and bool(torch.isfinite(out_c).all()))
+        rows.append(row)
+        del out_c, out_h, exact, cache_c, cache_h, cache_x
+    emit({"phase": "lm_ssm_f32_layers", "nvidia_smi": card_line,
+          "arch": cfg32.name, "layers": cfg_l.n_layers,
+          "batch": [bsz, blen], "limit_card_over_cpu": SSM_SERVE["f32_ratio"],
+          "rows": rows, "seconds": time.perf_counter() - t0})
+    if len(rows) != cfg_l.n_layers or not all(r["ok"] for r in rows):
+        raise AssertionError(f"Mamba mixers at full width, card against "
+                             f"CPU: {rows}")
+    del model, inputs, params, x
+    torch.cuda.empty_cache()
+
+    # ---- (b) f32 at full depth: the chunks' carry and the decode states ---
+    t0 = time.perf_counter()
+    model = Transformer(cfg32, device="cuda", seed=SSM_SERVE["seed"])
+    # the residual stream after some layers, for the bf16 run in (c)
+    depths = sorted({0, 5, 11, 23, 35, cfg32.n_layers - 1})
+    resid32 = []
+
+    def keep_resid(store):
+        seen = [0]
+
+        def on_call(args, out):
+            if seen[0] in depths:
+                store.append(out[0].detach())
+            seen[0] += 1
+        return on_call
+    with torch.no_grad(), _spied(lm_tf, "_apply_position",
+                                 keep_resid(resid32)):
+        full = model(batch)                                 # chunks of 256
+    with torch.no_grad():
+        model.cfg = dataclasses.replace(cfg32, ssm=dataclasses.replace(
+            cfg32.ssm, chunk=blen))
+        one = model(batch)                                  # one chunk
+        model.cfg = cfg32
+    p, n_dec = SSM_SERVE["prompt_decode"], SSM_SERVE["decode"]
+    _, cache = model.prefill({"tokens": batch["tokens"][:, :p]}, blen)
+    dec_err, dec_ok = 0.0, True
+    for t in range(p, p + n_dec):
+        got, cache = model.decode_step(cache, batch["tokens"][:, t:t + 1])
+        want = full[:, t:t + 1]
+        dec_err = max(dec_err, float((got - want).abs().max()))
+        dec_ok &= bool(torch.allclose(got, want, rtol=SSM_SERVE["rtol"],
+                                      atol=SSM_SERVE["atol"]))
+    torch.cuda.synchronize()
+    chunk_err = float((full - one).abs().max())
+    chunk_ok = bool(torch.allclose(full, one, rtol=SSM_SERVE["rtol"],
+                                   atol=SSM_SERVE["atol"]))
+    l32 = full[:, -1].float().cpu()
+    emit({"phase": "lm_ssm_f32_full_depth", "nvidia_smi": card_line,
+          "arch": cfg32.name, "layers": cfg32.n_layers,
+          "params": model.n_params(), "batch": [bsz, blen],
+          "chunks": [cfg32.ssm.chunk, blen],
+          "chunks_max_abs_diff": chunk_err,
+          "prompt": p, "decode": n_dec, "decode_max_abs_diff": dec_err,
+          "max_abs_logit": float(full.abs().max()),
+          "rtol": SSM_SERVE["rtol"], "atol": SSM_SERVE["atol"],
+          "chunks_ok": chunk_ok, "decode_ok": dec_ok,
+          "finite": bool(torch.isfinite(full).all()),
+          "seconds": time.perf_counter() - t0})
+    if not (chunk_ok and dec_ok and torch.isfinite(full).all()):
+        raise AssertionError(f"mamba2 f32 at full depth: chunks of "
+                             f"{cfg32.ssm.chunk} against one chunk max |diff| "
+                             f"{chunk_err}, decode against the forward "
+                             f"{dec_err}")
+    del model, full, one, cache, got, want
+    torch.cuda.empty_cache()
+
+    # ---- (c) bf16: the serve run -------------------------------------------
+    chunk = cfg16.ssm.chunk
+    engine, run = serve_run(
+        torch, cfg16, SSM_SERVE, rng, batch,
+        {"phase": "lm_ssm_serve_path", "nvidia_smi": card_line,
+         "arch": cfg16.name, "dtype": cfg16.dtype, "layers": cfg16.n_layers,
+         "d_model": cfg16.d_model, "ssm": dataclasses.asdict(cfg16.ssm),
+         "vocab": cfg16.vocab},
+        more=lambda f: {"one_chunk_fallback": [
+            n % chunk != 0 and n > chunk for n in f["prefill_lengths"]]})
+    model = engine.model
+    count_launches()
+    if any(run["launches"].values()) or not any(
+            n % chunk for n in run["prefill_lengths"]):
+        raise AssertionError(f"the Mamba serve run launched flash kernels "
+                             f"{run['launches']} (want none), prefill "
+                             f"lengths {run['prefill_lengths']} (want one "
+                             f"that is not a multiple of {chunk})")
+    profile_lm(model, batch, blen, torch, card_line,
+               n_decode=SSM_SERVE["n_decode_prof"],
+               out_name="profile_ssm.txt")
+    resid16 = []
+    with _spied(lm_tf, "_apply_position", keep_resid(resid16)):
+        lk, _ = model.prefill(batch, blen)                  # two chunks
+    lk = lk[:, -1].float().cpu()
+    emit({"phase": "lm_ssm_bf16_vs_f32", "nvidia_smi": card_line,
+          "layers": cfg16.n_layers, "batch": [bsz, blen],
+          "rms_bf16_minus_f32_over_rms_after_layer": {
+              str(d + 1): _rms(a.float() - b) / _rms(b)
+              for d, a, b in zip(depths, resid16, resid32)},
+          "rms_bf16_minus_f32_over_rms": _rms(lk - l32) / _rms(l32),
+          "argmax_agree": float((lk.argmax(-1) == l32.argmax(-1))
+                                .float().mean()),
+          "finite": bool(torch.isfinite(lk).all())})
+    if not torch.isfinite(lk).all():
+        raise AssertionError("mamba2 bf16 prefill logits not finite")
+    del engine, model, resid16, resid32
+    torch.cuda.empty_cache()
+
+    # ---- (d) the jamba hybrid at smoke size: f32 card against CPU, bf16 ---
+    hybrid = {}
+    for dtype in ("float32", "bfloat16"):
+        hcfg = dataclasses.replace(get_config(SSM_SERVE["hybrid"],
+                                              smoke=True), dtype=dtype)
+        # one f32 draw on the CPU for both devices (a generator on the card
+        # draws other numbers)
+        hparams = init_params(hcfg, torch.Generator().manual_seed(
+            SSM_SERVE["seed"]))
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            eng = ServeEngine(hparams, hcfg, batch_slots=4, max_seq=96,
+                              device=dev)
+            n_pre = []
+            eng.model.prefill = (lambda fn: lambda *a: n_pre.append(1)
+                                 or fn(*a))(eng.model.prefill)
+            for i, prompt in enumerate(PROMPTS):
+                eng.submit(Request(rid=i, prompt=prompt, max_new_tokens=
+                                   SSM_SERVE["hybrid_new_tokens"]))
+            fa_ops.LAUNCHES = 0
+            fa_ops.SM90_LAUNCHES = 0
+            done = eng.run()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                got = (fa_ops.SM90_LAUNCHES,
+                       fa_ops.LAUNCHES - fa_ops.SM90_LAUNCHES)
+                count_launches()
+            runs[dev] = ([(r.rid, r.generated) for r in done], len(n_pre))
+        # the first batch's prefill logits on both devices, the card's on
+        # both attention routes; on the kernel route the attention layer's
+        # q, k, v and output
+        first = np.zeros((4, 4), np.int64)
+        for i, prompt in enumerate(PROMPTS[:4]):
+            first[i, 4 - len(prompt):] = prompt
+        logits, seen = {}, []
+        for dev, route in (("cpu", False), ("cuda", True), ("cuda", False)):
+            m = Transformer(hcfg, hparams, device=dev, use_kernel=route)
+            with (_attention_spy(lm_layers, lambda i, *a: seen.append(a))
+                  if route else contextlib.nullcontext()):
+                logits[(dev, route)] = m.prefill({"tokens": first},
+                                                 96)[0].cpu()
+        attn = sum(k != "mamba" for k in hcfg.pattern) * hcfg.n_blocks
+        if len(seen) != attn:
+            raise AssertionError(f"jamba smoke prefill in {dtype}: "
+                                 f"{len(seen)} attention calls, want {attn}")
+        # row 4 against its plain version on those q, k, v: f32 within its
+        # tolerance, bf16 through row4_check_and_time (which raises)
+        q, k, v, kw, out = seen[0]
+        if dtype == "float32":
+            err = float((out - flash_attention_ref(q, k, v, **kw))
+                        .abs().max())
+            row4 = {"max_abs_err": err, **ATTENTION_TOL["float32"],
+                    "ok": err <= ATTENTION_TOL["float32"]["atol"]}
+        else:
+            err, times = row4_check_and_time(
+                torch, q, k, v, kw, "jamba_smoke_prefill", card_line)
+            row4 = {"max_abs_err": err, **times, "ok": True}
+        row4 = {"shape": list(q.shape), "kv_shape": list(k.shape), **kw,
+                **row4}
+        fa_ops.LAUNCHES = 0                     # checks, not the serve run
+        fa_ops.SM90_LAUNCHES = 0
+        del seen, q, k, v, out
+        n_pre = runs["cuda"][1]
+        same = runs["cuda"][0] == runs["cpu"][0]
+        agree = float(np.mean([a == b for (_, ga), (_, gb) in
+                               zip(runs["cuda"][0], runs["cpu"][0])
+                               for a, b in zip(ga, gb)]))
+        ref = logits[("cpu", False)]
+        hybrid[dtype] = {"prefills": n_pre, "attention_layers": attn,
+                         "launches_sm90_f32": list(got),
+                         "tokens_equal_cpu": same,
+                         "token_agreement_cpu": agree,
+                         "first_prefill_max_abs_logit": float(
+                             ref.abs().max()),
+                         "first_prefill_kernel_minus_cpu": float(
+                             (logits[("cuda", True)] - ref).abs().max()),
+                         "first_prefill_plain_minus_cpu": float(
+                             (logits[("cuda", False)] - ref).abs().max()),
+                         "row4": row4}
+    emit({"phase": "lm_ssm_hybrid_serve", "nvidia_smi": card_line,
+          "arch": SSM_SERVE["hybrid"], "smoke": True, "requests": len(PROMPTS),
+          **hybrid})
+    for dtype, h in hybrid.items():
+        attn, n_pre = h["attention_layers"], h["prefills"]
+        want = [attn * n_pre, 0] if dtype == "bfloat16" else [0, attn * n_pre]
+        if h["launches_sm90_f32"] != want or not h["row4"]["ok"] or (
+                dtype == "float32" and not h["tokens_equal_cpu"]):
+            raise AssertionError(f"jamba smoke serve run in {dtype}: row-4 "
+                                 f"launches {h['launches_sm90_f32']} (want "
+                                 f"{want}), row 4 against its plain version "
+                                 f"{h['row4']}, tokens equal to the CPU's: "
+                                 f"{h['tokens_equal_cpu']}")
+    emit({"phase": "lm_ssm_serve_path_seconds",
+          "seconds": time.perf_counter() - t_phase, "launches": launches})
+    return launches
+
+
+def lm_ssm_train_path(torch, card_line: str) -> dict:
+    """Phase 29: mamba2-780m at full width through the driver
+    (``SSM_TRAIN``), and both Mamba smoke families' f32 step card against
+    CPU.  Every check raises.  Returns the flash kernels' launches in the
+    phase, asserted 0."""
+    import gc
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import train as train_mod
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa_ops.LAUNCHES = 0
+    fa_ops.SM90_LAUNCHES = 0
+    cfg = get_config(SSM_TRAIN["arch"])
+    bsz, seq = SSM_TRAIN["batch"], SSM_TRAIN["seq"]
+    ln_v = math.log(cfg.vocab)
+
+    # ---- (a) the driver at full width -------------------------------------
+    stats = {}
+    t0 = time.perf_counter()
+    losses = train_mod.main(
+        ["--arch", SSM_TRAIN["arch"], "--full", "--steps",
+         str(SSM_TRAIN["steps"]), "--batch", str(bsz), "--seq", str(seq),
+         "--log-every", "1", "--seed", str(SSM_TRAIN["seed"]),
+         "--device", "cuda"], stats=stats)
+    run_s = time.perf_counter() - t0
+    emit({"phase": "lm_ssm_train_driver", "nvidia_smi": card_line,
+          "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "ssm": {"heads": cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim,
+                  "head_dim": cfg.ssm.head_dim, "d_state": cfg.ssm.d_state,
+                  "chunk": cfg.ssm.chunk},
+          "vocab": cfg.vocab, "params": stats["params"],
+          "state_bytes": 16 * stats["params"], "batch": [bsz, seq],
+          "tokens_per_step": stats["tokens_per_step"],
+          "steps": stats["step"], "losses": stats["loss"], "ln_vocab": ln_v,
+          "grad_norms": stats["grad_norm"],
+          "fwd_bwd_ms": stats["fwd_bwd_ms"], "opt_ms": stats["opt_ms"],
+          "median_step_ms": stats["median_step_ms"],
+          "median_fwd_bwd_ms": stats["median_fwd_bwd_ms"],
+          "median_opt_ms": stats["median_opt_ms"],
+          "tokens_per_sec": stats["tokens_per_sec"],
+          "peak_mem_bytes": stats["peak_mem_bytes"], "seconds": run_s})
+    if len(stats["loss"]) != SSM_TRAIN["steps"] \
+            or len(losses) != SSM_TRAIN["steps"] \
+            or not _finite(stats["loss"] + stats["grad_norm"]) \
+            or not all(abs(v - ln_v) <= SSM_TRAIN["loss_band"]
+                       for v in stats["loss"]):
+        raise AssertionError(f"the Mamba driver's run: {stats}")
+    del stats
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) both Mamba smoke families' f32 step, card against CPU --------
+    smoke_card_vs_cpu(torch, SSM_TRAIN["smoke_archs"], card_line,
+                      phase="lm_ssm_train_smoke_card_vs_cpu")
+    launches = {"flash_attention": fa_ops.SM90_LAUNCHES,
+                "flash_attention_f32": fa_ops.LAUNCHES - fa_ops.SM90_LAUNCHES}
+    emit({"phase": "lm_ssm_train_path_seconds",
+          "seconds": time.perf_counter() - t_phase, "launches": launches})
+    if launches != {"flash_attention": 0, "flash_attention_f32": 0}:
+        raise AssertionError(f"flash kernel launches in the Mamba training "
                              f"phase {launches}: a training forward takes "
                              f"the plain attention")
     return launches

@@ -3,8 +3,9 @@ point behind ``examples/train_lm.py``).
 
     python -m repro_torch.launch.train [--arch starcoder2-3b] [--full] ...
 
-Trains any dense or MoE architecture of the zoo (smoke or full config) on the
-synthetic Markov token stream, on one device: the GPU by default
+Trains any dense, MoE, Mamba2 or hybrid (jamba) architecture of the zoo
+(smoke or full config) on the synthetic Markov token stream, on one
+device: the GPU by default
 (``--device cpu`` for the CPU).  With no arguments it runs the example's
 default: starcoder2 smoke, 150 steps of 8 x 64 tokens at lr 8e-3.
 

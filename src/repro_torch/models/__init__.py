@@ -1,5 +1,6 @@
-"""The dense decoder families (port of ``repro.models``): configs, layers,
-the decoder stack with its ring-cache prefill and decode and its training
+"""The decoder families, dense, MoE, Mamba2 and the jamba hybrid (port of
+``repro.models``): configs, layers, the decoder stack with its cached
+prefill and decode (KV rings, Mamba conv and SSM states) and its training
 forward, and the weight and state carry-over from the reference."""
 from repro_torch.models.config import (EncoderConfig, ModelConfig, MoEConfig,
                                        SSMConfig)

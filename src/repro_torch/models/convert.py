@@ -33,7 +33,7 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 def _unstack(stacked: dict, i: int) -> dict:
     """Block ``i`` of a tree of stacked leaves, nested groups (the MoE's
-    ``shared``) included."""
+    ``shared``, a Mamba mixer's ``norm``) included."""
     return {n: (_unstack(a, i) if isinstance(a, dict)
                 else _tensor(np.asarray(a)[i])) for n, a in stacked.items()}
 

@@ -1,17 +1,19 @@
 """Model building blocks of the dense decoder families, in PyTorch.
 
-Port of ``repro.models.layers`` but Mamba2: RMSNorm, the RoPE variants
-(1d, chatglm's 2d half, qwen2-vl's M-RoPE), GQA attention (full,
+Port of ``repro.models.layers``: RMSNorm, the RoPE variants (1d,
+chatglm's 2d half, qwen2-vl's M-RoPE), GQA attention (full,
 sliding-window, block-banded, cross) with the ring KV cache, the gated
-MLP, and the top-k MoE with capacity buckets (one dispatch group, the
+MLP, the top-k MoE with capacity buckets (one dispatch group, the
 reference's ``G = 1``: its grouped dispatch over the batch shards comes
-with LM sharding).  ``mamba_*`` waits for a later slice.
+with LM sharding), and the Mamba2 mixer (the chunked SSD over a prompt,
+the single-step recurrence from its conv and SSM states in decode).
 
 Parameters are mappings of tensors (an ``nn.ParameterDict`` in the model)
 with the reference's names and layouts: ``wq`` (d, H, hd), ``wk`` and
 ``wv`` (d, KV, hd), ``wo`` (H, hd, d); ``wi``, ``wg`` (d, ff), ``wo``
 (ff, d); a norm's ``scale`` (d,); the MoE's ``router`` (d, E), ``wi`` and
-``wg`` (E, d, f), ``wo`` (E, f, d) and its ``shared`` gated MLP.  The
+``wg`` (E, d, f), ``wo`` (E, f, d) and its ``shared`` gated MLP; the Mamba
+mixer's leaves (``mamba_init``).  The
 arithmetic follows the reference step for step, in the same types:
 scores and logits are f32 products of the activation-type operands, the
 probabilities are cast to the activation type before P·V, and a bf16 q
@@ -455,3 +457,255 @@ def moe_apply(params, x, m):
     lb = e * torch.sum(me * ce)
     z = torch.logsumexp(gates, dim=-1).square().mean()
     return out.reshape(b, s, d), {"moe_lb": lb, "moe_z": m.router_zloss * z}
+
+
+# ---------------------------------------------------------------- Mamba2 SSD
+
+# XLA:CPU rewrites a cumulative sum longer than this into blocks of it
+# (``_cumsum``)
+_SCAN_BASE = 16
+
+
+def mamba_init(generator, cfg: ModelConfig, device=None) -> dict:
+    """One Mamba2 mixer's f32 parameters, drawn from ``generator`` in the
+    order ``in_proj``, ``conv_w``, ``dt_bias``, ``out_proj``: ``in_proj``
+    (d, 2 d_in + 2 g n + nh) giving [z, x, B, C, dt], the depthwise
+    ``conv_w`` (cw, ch) with fan-in on axis 0 and its bias, ``A_log`` =
+    log(1..nh), ``D`` ones, ``dt_bias`` the inverse softplus of a uniform
+    draw on [1e-3, 0.1], the gated norm over d_in and ``out_proj``
+    (d_in, d)."""
+    s = cfg.ssm
+    d = cfg.d_model
+    d_in = s.expand * d
+    nh = d_in // s.head_dim
+    gn = s.n_groups * s.d_state
+    in_proj = _dense_init(generator, (d, 2 * d_in + 2 * gn + nh),
+                          device=device)
+    conv_w = _dense_init(generator, (s.conv_width, d_in + 2 * gn), in_axis=0,
+                         device=device)
+    u = torch.empty((nh,), dtype=torch.float32, device=device).uniform_(
+        1e-3, 0.1, generator=generator)
+    return {
+        "in_proj": in_proj,
+        "conv_w": conv_w,
+        "conv_b": torch.zeros((d_in + 2 * gn,), dtype=torch.float32,
+                              device=device),
+        "A_log": torch.log(torch.arange(1, nh + 1, dtype=torch.float32,
+                                        device=device)),
+        "D": torch.ones((nh,), dtype=torch.float32, device=device),
+        "dt_bias": torch.log(torch.expm1(torch.clamp(u, min=1e-4))),
+        "norm": rmsnorm_init(d_in, device),
+        "out_proj": _dense_init(generator, (d_in, d), device=device),
+    }
+
+
+def _seq_cumsum(a):
+    """Cumulative sums along the last axis, added one element at a time
+    in a's type."""
+    out = [a[..., 0]]
+    for j in range(1, a.shape[-1]):
+        out.append(out[-1] + a[..., j])
+    return torch.stack(out, dim=-1)
+
+
+def _cumsum(a):
+    """``jnp.cumsum`` along the last axis as the reference's compiler
+    evaluates it: in blocks of ``_SCAN_BASE`` (the last one padded), each
+    summed element by element in a's type, then each block plus the
+    exclusive prefix of the block totals, found the same way.  In bf16
+    every addition rounds to bf16; ``torch.cumsum`` sums in another order
+    (in f64 or f32 on the CPU), and ``_segsum``'s ``exp`` magnifies the
+    difference: with it in this one's place, half the outputs of a bf16
+    SSD at smoke width (4,103 of 8,192) differ from the reference's,
+    against 0 to 2 of 8,192-16,384 here.  f32 holds its tolerance either
+    way."""
+    q = a.shape[-1]
+    if q <= _SCAN_BASE:
+        return _seq_cumsum(a)
+    nb = -(-q // _SCAN_BASE)
+    if nb * _SCAN_BASE > q:
+        a = torch.nn.functional.pad(a, (0, nb * _SCAN_BASE - q))
+    blocks = _seq_cumsum(a.reshape(*a.shape[:-1], nb, _SCAN_BASE))
+    before = _cumsum(blocks[..., -1])
+    before = torch.cat([torch.zeros_like(before[..., :1]), before[..., :-1]],
+                       dim=-1)
+    out = (blocks + before[..., None]).reshape(*a.shape[:-1],
+                                               nb * _SCAN_BASE)
+    return out[..., :q]
+
+
+def _segsum(a, cs=None):
+    """a: (..., Q) -> (..., Q, Q): ``cs[i] - cs[j]`` for j <= i and -inf
+    above the diagonal, cs the cumulative sums of a (``_cumsum``; pass
+    them as ``cs`` when they are at hand).  Its exp is the SSD's decay
+    matrix; the -inf entries give exact zeros and zero gradients."""
+    q = a.shape[-1]
+    if cs is None:
+        cs = _cumsum(a)
+    diff = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones((q, q), dtype=torch.bool, device=a.device).tril()
+    return torch.where(mask, diff, torch.tensor(float("-inf"),
+                                                dtype=diff.dtype,
+                                                device=diff.device))
+
+
+def _ssd_chunked(x, dt, A, B, C, chunk: int, init_state=None):
+    """The state-space dual (Mamba2 §6) in chunks of ``chunk`` tokens.
+
+    x (b,s,h,p), dt (b,s,h) (softplus'd), A (h,) < 0, B and C (b,s,g,n)
+    shared by the h // g heads of a group.  Returns (y (b,s,h,p), the final
+    state (b,h,p,n)), both in x's type; ``init_state`` (b,h,p,n) is the
+    state before the first token (zeros when None).
+
+    The reference's three einsums are written as the pairwise products its
+    compiler makes of them, in its order, each rounded to x's type: the
+    diagonal blocks C·B over n, times the decay matrix, times x·dt over the
+    chunk's tokens; each chunk's state as decay·(x·dt) times B over the
+    tokens; the carried-in part as the previous state times C over n,
+    times the decay from the chunk's start.  The chunks' states are
+    carried in order, ``new = carry * decay + state``."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    nc = s // chunk
+    xc = x.reshape(b, nc, chunk, h, p)
+    dtc = dt.reshape(b, nc, chunk, h)
+    # (b,c,h,q,n): each head reads its group's B and C
+    Bh = torch.repeat_interleave(B.reshape(b, nc, chunk, g, n), rep,
+                                 dim=3).transpose(2, 3)
+    Ch = torch.repeat_interleave(C.reshape(b, nc, chunk, g, n), rep,
+                                 dim=3).transpose(2, 3)
+
+    a = (dtc * A).transpose(2, 3)                            # (b,c,h,q)
+    a_cum = _cumsum(a)
+    L = torch.exp(_segsum(a, a_cum))                         # (b,c,h,q,k)
+    xdt = (xc * dtc[..., None]).transpose(2, 3)              # (b,c,h,k,p)
+
+    y_diag = torch.matmul(torch.matmul(Ch, Bh.transpose(-1, -2)) * L, xdt)
+
+    decay_states = torch.exp(a_cum[..., -1:] - a_cum)        # (b,c,h,q)
+    states = torch.matmul((decay_states[..., None] * xdt).transpose(-1, -2),
+                          Bh)                                # (b,c,h,p,n)
+    chunk_decay = torch.exp(a_cum[..., -1])                  # (b,c,h)
+
+    carry = (x.new_zeros((b, h, p, n)) if init_state is None
+             else init_state.to(x.dtype))
+    prev = []
+    for c in range(nc):
+        prev.append(carry)
+        carry = carry * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev_states = torch.stack(prev, dim=1)                   # (b,c,h,p,n)
+
+    state_decay = torch.exp(a_cum)                           # (b,c,h,q)
+    y_off = (torch.matmul(prev_states, Ch.transpose(-1, -2)).transpose(-1, -2)
+             * state_decay[..., None])                       # (b,c,h,q,p)
+    y = (y_diag + y_off).transpose(2, 3).reshape(b, s, h, p)
+    return y, carry
+
+
+def _softplus(x):
+    """``jax.nn.softplus``: logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|)),
+    NaN kept (``F.softplus`` is log1p(exp(x)) below a threshold and rounds
+    differently)."""
+    out = torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-x.abs()))
+    return torch.where(torch.isnan(x), x, out)
+
+
+def _depthwise_conv(ctx, w, s: int):
+    """out[t] = sum over i of ctx[t + i] * w[i] for t < s: the f32 (f64
+    for f64 input) sum of the cw products in order, rounded once to ctx's
+    type.  ctx (B, s + cw - 1, ch), w (cw, ch) in ctx's type."""
+    acc_t = torch.promote_types(ctx.dtype, torch.float32)
+    acc = None
+    for i in range(w.shape[0]):
+        t = ctx[:, i:i + s].to(acc_t) * w[i].to(acc_t)
+        acc = t if acc is None else acc + t
+    return acc.to(ctx.dtype)
+
+
+def mamba_apply(params, x, cfg: ModelConfig, cache: Optional[dict] = None):
+    """One Mamba2 mixer.  x (B, S, d).  Returns (out (B, S, d), cache).
+
+    ``cache`` ``{"conv": (B, cw-1, ch), "ssm": (B, nh, p, n)}``: with S == 1
+    a single recurrence step from it; with S > 1 a prefill, which runs the
+    chunked SSD from the cached SSM state and leaves the final state and
+    the last cw - 1 conv inputs in it.  The cache's tensors are written in
+    place and the same dict returned (None without a cache).  The SSM state
+    is carried in f32 across decode steps and in x's type inside a prefill,
+    as in the reference.
+
+    As the reference: the chunk is ``cfg.ssm.chunk`` (at most S), and the
+    whole sequence when S is not a multiple of it; a left-padded prompt's
+    pads run through the conv and the state like any token; and a prefill
+    of fewer than cw - 1 tokens has no conv state to hand over (the
+    reference's is None and fails), which raises ``ValueError`` here.
+
+    The arithmetic follows the reference's compiled layer: every op in x's
+    type, rounded at each step (``_cumsum``, ``_silu``), the products
+    f32-accumulated and rounded once, ``A = -exp(A_log)`` in A_log's type
+    and then cast, dt's softplus in f32 on the f32 bias, and the gate's
+    product ``y * silu(z)`` reaching the norm unrounded."""
+    s_cfg = cfg.ssm
+    b, s, d = x.shape
+    dt_ = x.dtype
+    acc_t = torch.promote_types(dt_, torch.float32)
+    d_in = s_cfg.expand * d
+    nh = d_in // s_cfg.head_dim
+    g, n = s_cfg.n_groups, s_cfg.d_state
+    gn = g * n
+    cw = s_cfg.conv_width
+    proj = torch.einsum("bsd,de->bse", x, params["in_proj"].to(dt_))
+    z, xs, Bm, Cm, dt = torch.split(proj, [d_in, d_in, gn, gn, nh], dim=-1)
+    conv_in = torch.cat([xs, Bm, Cm], dim=-1)                # (B,S,ch)
+    w = params["conv_w"].to(dt_)
+    decode = cache is not None and s == 1
+    if decode:
+        ctx = torch.cat([cache["conv"].to(dt_), conv_in], dim=1)
+        conv_out = _depthwise_conv(ctx[:, -cw:], w, 1)
+        new_conv = ctx[:, -(cw - 1):]
+    else:
+        if cache is not None and s < cw - 1:
+            raise ValueError(
+                f"a Mamba prefill of {s} tokens is shorter than conv_width - "
+                f"1 = {cw - 1}: there is no conv state to hand to decode (the "
+                f"reference's is None there and fails)")
+        pad = torch.nn.functional.pad(conv_in, (0, 0, cw - 1, 0))
+        conv_out = _depthwise_conv(pad, w, s)
+        new_conv = pad[:, -(cw - 1):]
+    conv_out = _silu(conv_out + params["conv_b"].to(dt_))
+    xs, Bm, Cm = torch.split(conv_out, [d_in, gn, gn], dim=-1)
+    xs = xs.reshape(b, s, nh, s_cfg.head_dim)
+    Bm = Bm.reshape(b, s, g, n)
+    Cm = Cm.reshape(b, s, g, n)
+    dt = _softplus(dt.to(acc_t) + params["dt_bias"]).to(dt_)   # (B,S,nh)
+    A = -torch.exp(params["A_log"]).to(dt_)                  # (nh,)
+    D = params["D"].to(dt_)[None, None, :, None]
+
+    if decode:
+        st = cache["ssm"].to(acc_t)
+        dtq = dt[:, 0]                                       # (B,nh)
+        # exp(dt * A) and x * dt are each cast to f32 at once: the
+        # reference's compiler leaves them unrounded (dt * A is rounded)
+        dA = torch.exp((dtq * A).to(acc_t))
+        Bq = torch.repeat_interleave(Bm[:, 0], nh // g, dim=1).to(acc_t)
+        Cq = torch.repeat_interleave(Cm[:, 0], nh // g, dim=1).to(acc_t)
+        xq = xs[:, 0].to(acc_t) * dtq.to(acc_t)[..., None]   # (B,nh,p)
+        st = st * dA[..., None, None] + xq[..., :, None] * Bq[..., None, :]
+        y = torch.matmul(st, Cq[..., None])[..., 0]          # (B,nh,p)
+        y = y.to(dt_)[:, None] + D * xs
+        final = st
+    else:
+        chunk = min(s_cfg.chunk, s)
+        if s % chunk:
+            chunk = s                      # the reference's one-chunk fallback
+        init_state = cache["ssm"] if cache is not None else None
+        y, final = _ssd_chunked(xs, dt, A, Bm, Cm, chunk,
+                                init_state=init_state)
+        y = y + D * xs
+    if cache is not None:
+        cache["conv"].copy_(new_conv)
+        cache["ssm"].copy_(final)
+    y = y.reshape(b, s, d_in)
+    y = rmsnorm(params["norm"], y.to(acc_t) * _silu(z).to(acc_t)).to(dt_)
+    out = torch.einsum("bse,ed->bsd", y, params["out_proj"].to(dt_))
+    return out, cache

@@ -19,12 +19,14 @@ period block is recomputed in the backward pass
 (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` with
 ``nothing_saveable`` does.
 
-Served and trained here: the decoder families of ``"attn"`` and
-``"local"`` layers with a gated MLP or a top-k MoE (its aux losses summed
-over the layers into the training loss), on text input.  Mamba, the
-whisper encoder and the vision and audio stubs raise
-``NotImplementedError`` when a model is built (ROADMAP queue 1, items 4d
-and 4e).
+Served and trained here: the decoder families of ``"attn"``, ``"local"``
+and ``"mamba"`` layers (Mamba2 SSD mixers: mamba2, and jamba's hybrid of
+both) with a gated MLP or a top-k MoE (its aux losses summed over the
+layers into the training loss), on text input.  A Mamba layer's cache is
+its conv window and its SSM state (``{"conv", "ssm"}``) where an attention
+layer has its ring.  The whisper encoder and the vision and audio stubs
+raise ``NotImplementedError`` when a model is built (ROADMAP queue 1,
+item 4e).
 """
 from __future__ import annotations
 
@@ -42,9 +44,14 @@ from repro_torch.models.config import ModelConfig
 
 # parameter groups that are matrices, cast to the activation type at load
 # (the MoE's nested ``shared`` group too), and the leaves of those groups
-# that stay f32 (the router: the reference routes on its f32 master)
+# that stay f32: the router (the reference routes on its f32 master), a
+# Mamba mixer's ``A_log`` and ``dt_bias`` (the reference exponentiates the
+# one and adds the other in f32) and its nested norm's ``scale``
 _MATRICES = ("mixer", "mlp", "moe")
-_F32_LEAVES = ("router",)
+_F32_LEAVES = ("router", "A_log", "dt_bias", "scale")
+# nested groups a layer group may hold: the MoE's shared experts, a Mamba
+# mixer's gated norm
+_NESTED = {"moe": "shared", "mixer": "norm"}
 # the MoE's aux losses, each summed over the layers (``forward_train``)
 MOE_AUX = ("moe_lb", "moe_z")
 
@@ -52,10 +59,6 @@ MOE_AUX = ("moe_lb", "moe_z")
 def check_served(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a family this slice does not
     serve, naming the ROADMAP item that will."""
-    if "mamba" in cfg.pattern:
-        raise NotImplementedError(
-            f"{cfg.name}: Mamba2 layers are not ported yet (ROADMAP queue 1, "
-            f"item 4d)")
     if cfg.encoder is not None or cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: the encoder and the {cfg.frontend!r} frontend are "
@@ -69,10 +72,13 @@ def _moe_at(cfg: ModelConfig, pos: int) -> bool:
 
 
 def _position_init(generator, cfg: ModelConfig, pos: int, device) -> dict:
-    """One layer's f32 parameters at period position ``pos`` (the Mamba
-    and cross-attention groups come with items 4d and 4e)."""
+    """One layer's f32 parameters at period position ``pos``: a Mamba2
+    mixer at a ``"mamba"`` position, attention elsewhere (the
+    cross-attention group comes with item 4e)."""
     p = {"norm1": L.rmsnorm_init(cfg.d_model, device),
-         "mixer": L.attention_init(generator, cfg, device)}
+         "mixer": (L.mamba_init(generator, cfg, device)
+                   if cfg.pattern[pos] == "mamba"
+                   else L.attention_init(generator, cfg, device))}
     if _moe_at(cfg, pos):
         p["norm2"] = L.rmsnorm_init(cfg.d_model, device)
         p["moe"] = L.moe_init(generator, cfg.d_model, cfg.moe, device)
@@ -84,7 +90,8 @@ def _position_init(generator, cfg: ModelConfig, pos: int, device) -> dict:
 
 def _leaf_type(group: str, name: str, dtype):
     """The type a leaf is held in by a model of activation type ``dtype``:
-    the matrices in it, the norms and the router in f32."""
+    the matrices in it, the norms, the router and a Mamba mixer's
+    ``A_log`` and ``dt_bias`` in f32."""
     if group in _MATRICES and name not in _F32_LEAVES:
         return dtype
     return torch.float32
@@ -92,7 +99,7 @@ def _leaf_type(group: str, name: str, dtype):
 
 def _cast_group(group: str, leaves: dict, fn) -> dict:
     """``fn(tensor, leaf name)`` on every leaf of one layer group, nested
-    groups (the MoE's ``shared``) included."""
+    groups (the MoE's ``shared``, a Mamba mixer's ``norm``) included."""
     return {n: (_cast_group(group, t, fn) if isinstance(t, dict)
                 else fn(t, n)) for n, t in leaves.items()}
 
@@ -131,8 +138,9 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """One layer: norm, attention, norm, then a gated MLP or a top-k MoE
-    (neither where ``d_ff`` is 0 and the layer is not an MoE one)."""
+    """One layer: norm, attention or a Mamba2 mixer, norm, then a gated
+    MLP or a top-k MoE (neither where ``d_ff`` is 0 and the layer is not
+    an MoE one)."""
 
     def __init__(self, p: dict, cfg: ModelConfig, pos: int, dtype, device):
         super().__init__()
@@ -151,16 +159,21 @@ class Block(nn.Module):
         self.norm2 = group("norm2", p.get("norm2"))
         self.mlp = group("mlp", p.get("mlp"))
         self.moe = group("moe", p.get("moe"))
+        # nested groups, held flat beside their parents
         self.moe_shared = group("moe", p.get("moe", {}).get("shared"))
+        self.mixer_norm = group("mixer", p.get("mixer", {}).get("norm"))
 
     @property
     def params(self) -> dict:
         """The layer's parameter groups by name, as in the parameter
-        tree (the MoE's ``shared`` nested in ``moe``)."""
+        tree (the MoE's ``shared`` nested in ``moe``, a Mamba mixer's
+        ``norm`` in ``mixer``)."""
         out = {n: g for n in ("norm1", "mixer", "norm2", "mlp", "moe")
                if (g := getattr(self, n)) is not None}
-        if self.moe_shared is not None:
-            out["moe"] = {**self.moe, "shared": dict(self.moe_shared)}
+        for name, sub in _NESTED.items():
+            nested = getattr(self, f"{name}_{sub}")
+            if nested is not None:
+                out[name] = {**out[name], sub: dict(nested)}
         return out
 
 
@@ -251,13 +264,16 @@ class Transformer(nn.Module):
 
 # ---------------------------------------------------------------- blocks
 
-def _apply_position(p: dict, window: int, x, u, positions, cfg: ModelConfig,
-                    cache=None, use_kernel: bool = True):
-    """One layer with parameter groups ``p`` (``norm1``, ``mixer``, and
-    ``norm2`` with ``moe`` or ``mlp``) and sliding ``window`` (0: global).
-    ``x`` is its input in the activation type, ``u`` the same value in f32
-    as the layer's first norm reads it.  Returns both for the layer's
-    output, and the MoE's aux losses (``{}`` for other layers).
+def _apply_position(p: dict, kind: str, window: int, x, u, positions,
+                    cfg: ModelConfig, cache=None, use_kernel: bool = True):
+    """One layer of ``kind`` (``"attn"``, ``"local"`` or ``"mamba"``) with
+    parameter groups ``p`` (``norm1``, ``mixer``, and ``norm2`` with
+    ``moe`` or ``mlp``) and sliding ``window`` (0: global).  ``cache``: the
+    layer's ring, or its conv and SSM states for a Mamba layer; it is
+    written in place.  ``x`` is its input in the activation type, ``u``
+    the same value in f32 as the layer's first norm reads it.  Returns
+    both for the layer's output, and the MoE's aux losses (``{}`` for
+    other layers).
 
     Inside one compiled block the reference's residual sums reach the next
     norm unrounded (its compiler keeps the f32 sum of two bf16 values),
@@ -265,9 +281,13 @@ def _apply_position(p: dict, window: int, x, u, positions, cfg: ModelConfig,
     carries the unrounded sum.  In f32 ``u`` and ``x`` hold the same
     values."""
     dt = x.dtype
-    h, _ = L.attention_apply(
-        p["mixer"], L.rmsnorm(p["norm1"], u, cfg.norm_eps).to(dt), positions,
-        cfg, window=window, cache=cache, use_kernel=use_kernel)
+    normed = L.rmsnorm(p["norm1"], u, cfg.norm_eps).to(dt)
+    if kind == "mamba":
+        h, _ = L.mamba_apply(p["mixer"], normed, cfg, cache=cache)
+    else:
+        h, _ = L.attention_apply(p["mixer"], normed, positions, cfg,
+                                 window=window, cache=cache,
+                                 use_kernel=use_kernel)
     u = x.to(torch.float32) + h.to(torch.float32)
     x = u.to(dt)
     aux = {}
@@ -292,7 +312,8 @@ def _stack(model: Transformer, x, positions, caches=None,
     for i, p in enumerate(model.layers):
         if i % cfg.period == 0:
             u = x.to(torch.float32)
-        x, u, _ = _apply_position(p.params, p.window, x, u, positions, cfg,
+        x, u, _ = _apply_position(p.params, p.kind, p.window, x, u,
+                                  positions, cfg,
                                   cache=None if caches is None else caches[i],
                                   use_kernel=use_kernel)
     return x
@@ -311,8 +332,8 @@ def _period_block(x, aux_sum: dict, positions, layers: list,
     u = x.to(torch.float32)
     aux_sum = dict(aux_sum)
     for pos, p in enumerate(layers):
-        x, u, aux = _apply_position(p, _window(cfg, pos), x, u, positions,
-                                    cfg)
+        x, u, aux = _apply_position(p, cfg.pattern[pos], _window(cfg, pos),
+                                    x, u, positions, cfg)
         for k, v in aux.items():
             aux_sum[k] = aux_sum[k] + v
     return x, aux_sum
@@ -415,11 +436,24 @@ def ring_size(cfg: ModelConfig, pos: int, max_seq: int) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device=None) -> dict:
-    """Allocate the decode cache: a KV ring per layer, every slot empty
-    (``pos`` -1)."""
+    """Allocate the decode cache: a KV ring per attention layer, every slot
+    empty (``pos`` -1), and a Mamba layer's conv window (B, cw - 1, ch) in
+    ``dtype`` and SSM state (B, nh, p, n) in f32, zeros."""
     dtype = dtype or cfg.activation_dtype
     layers = []
     for i in range(cfg.n_layers):
+        if cfg.pattern[i % cfg.period] == "mamba":
+            s = cfg.ssm
+            d_in = s.expand * cfg.d_model
+            layers.append({
+                "conv": torch.zeros(
+                    (batch, s.conv_width - 1,
+                     d_in + 2 * s.n_groups * s.d_state), dtype=dtype,
+                    device=device),
+                "ssm": torch.zeros((batch, d_in // s.head_dim, s.head_dim,
+                                    s.d_state), dtype=torch.float32,
+                                   device=device)})
+            continue
         eff = ring_size(cfg, i % cfg.period, max_seq)
         shape = (batch, eff, cfg.n_kv, cfg.head_dim)
         layers.append({
@@ -433,7 +467,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
 
 
 def _with_write_idx(layer_caches: list, pos_scalar: int) -> list:
-    """Set each layer's ring write index to len % ring."""
+    """Set each attention layer's ring write index to len % ring (a Mamba
+    layer has no ring)."""
     for c in layer_caches:
-        c["write_idx"] = pos_scalar % c["k"].shape[1]
+        if "k" in c:
+            c["write_idx"] = pos_scalar % c["k"].shape[1]
     return layer_caches

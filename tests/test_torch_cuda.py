@@ -881,7 +881,8 @@ def test_cuda_lm_prefill_refuses_a_head_dim_the_kernels_lack(cuda):
 # rounding, so the card's 1.2-1.3e-3 is f32 order, not a port fault
 # (``scripts/lm_grad_probe.py``; ROADMAP queue 3, note m).
 TRAIN_B, TRAIN_S, TRAIN_LR = 2, 24, 1e-3
-TRAIN_ARCHS = LM_ARCHS + ["deepseek-moe-16b", "qwen3-moe-30b-a3b"]
+TRAIN_ARCHS = LM_ARCHS + ["deepseek-moe-16b", "qwen3-moe-30b-a3b",
+                          "mamba2-780m", "jamba-1-5-large-398b"]
 TRAIN_GRAD_LIMIT = {"gemma3-12b": 2e-3}
 
 
@@ -965,7 +966,9 @@ def test_cuda_lm_f32_train_step_matches_cpu(cuda, arch):
                            tree_leaves(state.params)], routes)
     (l0, n0, g0, p0, r0), (l1, n1, g1, p1, r1) = (runs["cpu"],
                                                   runs[str(cuda)])
-    assert len(r0) == len(r1) == (2 * cfg.n_layers if cfg.moe else 0)
+    n_moe = (sum(i % cfg.moe.every == cfg.moe.every - 1
+                 for i in range(cfg.n_layers)) if cfg.moe else 0)
+    assert len(r0) == len(r1) == 2 * n_moe      # forward and recomputation
     assert all(torch.equal(a, b) for a, b in zip(r1, r0))
     assert abs(l1 - l0) <= 1e-5 * abs(l0)
     assert abs(n1 - n0) <= 1e-3 * n0
@@ -1050,3 +1053,102 @@ def test_cuda_moe_prefill_launches_the_kernel_once_a_layer(cuda, arch):
     torch.cuda.synchronize()
     assert fa_ops.SM90_LAUNCHES - before == cfg.n_layers
     assert torch.isfinite(logits).all()
+
+
+# Mamba2 (mamba2 and jamba smoke): the mixer on the card against the same
+# mixer on the CPU, a 64-token prefill (two chunks of 32) with a cache and
+# three decode steps: f32 within the MoE layer's card tolerance (rtol
+# 1e-4, atol 1e-5), bf16 within one bf16 step of the largest |output|, the
+# conv and SSM states handed on likewise; jamba smoke's one attention
+# layer takes the tensor-core flash kernel once a prefill, within row 4's
+# bf16 tolerance of its plain version on that layer's q, k, v, and decode
+# and the Mamba layers launch none.  The f32 train steps are in
+# ``TRAIN_ARCHS`` above.
+MAMBA_ARCHS = ["mamba2-780m", "jamba-1-5-large-398b"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", MAMBA_ARCHS)
+def test_cuda_mamba_mixer_matches_cpu(cuda, arch, dtype):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.models.transformer import init_cache
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=dtype,
+                              n_layers=len(get_config(arch).pattern))
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(8)
+    params = lm_layers.mamba_init(gen, cfg)
+    params["D"] = torch.randn(params["D"].shape, generator=gen)
+    params["conv_b"] = torch.randn(params["conv_b"].shape, generator=gen) / 10
+    on_card = {n: (t.to(cuda) if not isinstance(t, dict) else
+                   {a: b.to(cuda) for a, b in t.items()})
+               for n, t in params.items()}
+    xs = [torch.randn(3, n, cfg.d_model, generator=gen).to(tdt)
+          for n in (64, 1, 1, 1)]
+    caches = {dev: init_cache(cfg, 3, 16, device=dev)["layers"][0]
+              for dev in ("cpu", cuda)}
+
+    def close(got, want):
+        got = got.cpu()
+        assert got.dtype == want.dtype
+        if dtype == "float32" or want.dtype == torch.float32:
+            torch.testing.assert_close(got.float(), want.float(), rtol=1e-4,
+                                       atol=1e-5 if dtype == "float32"
+                                       else 2.0 ** -7 * float(
+                                           want.abs().max()))
+        else:
+            assert float((got.float() - want.float()).abs().max()) \
+                <= 2.0 ** -7 * float(want.float().abs().max())
+    before = fa_ops.LAUNCHES
+    for x in xs:
+        want, _ = lm_layers.mamba_apply(params, x, cfg, cache=caches["cpu"])
+        got, _ = lm_layers.mamba_apply(on_card, x.to(cuda), cfg,
+                                       cache=caches[cuda])
+        torch.cuda.synchronize()
+        close(got, want)
+        close(caches[cuda]["conv"], caches["cpu"]["conv"])
+        close(caches[cuda]["ssm"], caches["cpu"]["ssm"])
+    assert fa_ops.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", MAMBA_ARCHS)
+def test_cuda_mamba_prefill_launches_row4_once_per_attention_layer(cuda,
+                                                                  arch):
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer
+    from repro_torch.models import layers as lm_layers
+    cfg = get_config(arch, smoke=True)                      # bf16
+    model = Transformer(cfg, device=cuda, seed=5)
+    n_attn = sum(k != "mamba" for k in cfg.pattern) * cfg.n_blocks
+    assert n_attn == (1 if arch.startswith("jamba") else 0)
+    toks = np.random.default_rng(6).integers(0, cfg.vocab, (3, 40))
+    seen = []
+    kernel = lm_layers.flash_attention
+
+    def spy(q, k, v, **kw):
+        out = kernel(q, k, v, **kw)
+        seen.append((q, k, v, kw, out))
+        return out
+    before = (fa_ops.LAUNCHES, fa_ops.SM90_LAUNCHES)
+    lm_layers.flash_attention = spy
+    try:
+        logits, cache = model.prefill({"tokens": toks}, 64)
+    finally:
+        lm_layers.flash_attention = kernel
+    torch.cuda.synchronize()
+    assert (fa_ops.LAUNCHES - before[0],
+            fa_ops.SM90_LAUNCHES - before[1]) == (n_attn, n_attn)
+    assert torch.isfinite(logits).all() and len(seen) == n_attn
+    # the kernel against its plain version on the hybrid's own q, k, v
+    for q, k, v, kw, out in seen:
+        assert q.dtype == k.dtype == v.dtype == torch.bfloat16
+        _assert_bf16_close(out, flash_attention_ref(q, k, v, **kw))
+    for _ in range(3):
+        logits, cache = model.decode_step(cache, toks[:, :1])
+    torch.cuda.synchronize()
+    assert fa_ops.SM90_LAUNCHES - before[1] == n_attn
+    assert torch.isfinite(logits).all() and cache["len"] == 43

@@ -369,8 +369,73 @@ def test_served_moe_keeps_the_router_in_f32():
 
 
 def test_jamba_still_raises_naming_the_mamba_item():
-    cfg = get_config("jamba-1-5-large-398b", smoke=True)
-    with pytest.raises(NotImplementedError, match="item 4d"):
-        Transformer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4d"):
-        init_params(cfg, torch.Generator().manual_seed(0))
+    """jamba smoke in the hybrid (its name is from before ROADMAP item 4d,
+    when jamba raised naming it): a 20-token f32 prefill routes each token
+    as the reference's prefill does in all four MoE layers (every other
+    layer, after Mamba and attention mixers): the top-k experts in order,
+    the stable sort of the flat expert ids and the clipped ranks bitwise,
+    read out of the reference's jitted prefill as it runs; the logits
+    within the model tolerance."""
+    rc = dataclasses.replace(ref_config("jamba-1-5-large-398b", smoke=True),
+                             dtype="float32")
+    pc = dataclasses.replace(get_config("jamba-1-5-large-398b", smoke=True),
+                             dtype="float32")
+    tree = jax.tree.map(np.asarray, ref_init_params(jax.random.PRNGKey(0),
+                                                    rc))
+    toks = np.random.default_rng(8).integers(0, rc.vocab, (B, 20)) \
+        .astype(np.int32)
+    record = {"topi": [], "sort_idx": [], "seg": []}
+    top_k, argsort, searchsorted = (jax.lax.top_k, jnp.argsort,
+                                    jnp.searchsorted)
+
+    def keep(name, v):
+        jax.debug.callback(lambda a: record[name].append(np.asarray(a)), v,
+                           ordered=True)
+
+    def rec_top_k(a, k):
+        v, i = top_k(a, k)
+        keep("topi", i)
+        return v, i
+
+    def rec_argsort(a, **kw):
+        i = argsort(a, **kw)
+        keep("sort_idx", i)
+        return i
+
+    def rec_searchsorted(a, v, **kw):
+        i = searchsorted(a, v, **kw)
+        keep("seg", i)
+        return i
+    jax.lax.top_k, jnp.argsort, jnp.searchsorted = (rec_top_k, rec_argsort,
+                                                    rec_searchsorted)
+    try:
+        want, _ = jax.jit(lambda p, b: RT.prefill(p, b, rc, 32))(
+            tree, {"tokens": jnp.asarray(toks)})
+        jax.effects_barrier()
+    finally:
+        jax.lax.top_k, jnp.argsort, jnp.searchsorted = (top_k, argsort,
+                                                        searchsorted)
+    got_routes = []
+    dispatch = PL.moe_dispatch
+
+    def spy(topi, cap):
+        out = dispatch(topi, cap)
+        got_routes.append((topi, *out, cap))
+        return out
+    PL.moe_dispatch = spy
+    try:
+        model = Transformer(pc, params_from_jax(tree, pc), device="cpu")
+        got, _ = model.prefill({"tokens": toks}, 32)
+    finally:
+        PL.moe_dispatch = dispatch
+    assert len(got_routes) == len(record["topi"]) == 4
+    k = pc.moe.top_k
+    for (topi, sort_idx, _, rank_c, cap), w_topi, w_sort, w_seg in zip(
+            got_routes, record["topi"], record["sort_idx"], record["seg"]):
+        np.testing.assert_array_equal(topi.numpy(), w_topi.reshape(-1, k))
+        np.testing.assert_array_equal(sort_idx.numpy(), w_sort.reshape(-1))
+        seg = w_seg.reshape(-1)
+        rank = np.arange(seg.size) - seg
+        np.testing.assert_array_equal(rank_c.numpy(),
+                                      np.where(rank < cap, rank, cap))
+    _assert_model_close(got, want, "float32")
