@@ -158,16 +158,17 @@ Phases, one JSON line each; any failed check exits non-zero:
      a constant lr of 1e-4 for 8 steps (every leaf a finite, nonzero
      gradient after step 1; the loss after step 8 below step 0's); the
      four dense smoke families' f32 step on the card against the CPU; the
-     driver's smoke run failed at step 25 and resumed from its step-20
-     checkpoint against the uninterrupted run (losses to 1e-5 relative,
+     driver's smoke run failed at step 15 and resumed from its step-10
+     checkpoint (25 and 20 of 30 steps before slice 18) against the
+     uninterrupted run (losses to 1e-5 relative,
      and whether bitwise).  The flash kernels launch 0 times (asserted):
      a training forward takes the plain attention, as the reference's
      does;
  26. slice 16's MoE serving path on deepseek-moe-16b at full width
      (``MOE_SERVE``: 28 layers, d 2048, 16 heads of 128, 64 routed
      experts top-6 and 2 shared, vocab 102400; 16.9 B seeded parameters):
-     in f32 on the first 4 layers, each layer's MoE on its own input of a
-     4 x 512 prefill, card against CPU (routes equal but at near ties,
+     in f32 on the first 2 layers (4 before slice 18), each layer's MoE
+     on its own input of a 4 x 512 prefill, card against CPU (routes equal but at near ties,
      the card's error against an f64 evaluation of the same routes at
      most twice the CPU's); then ``ServeEngine`` as in 24 in bf16 (28
      tensor-core flash launches a prefill, asserted; the dropped slots of
@@ -187,8 +188,8 @@ Phases, one JSON line each; any failed check exits non-zero:
  28. slice 17's Mamba2 serving path on mamba2-780m at full width
      (``SSM_SERVE``: 48 layers, d 1536, 48 SSD heads of 64, d_state 128,
      chunk 256, vocab 50280; 0.78 B seeded parameters): in f32 on the
-     first 4 layers, each Mamba mixer on its own input of a 4 x 512
-     prefill (two chunks) and one decode step from the cache it leaves,
+     first 2 layers (4 before slice 18), each Mamba mixer on its own input
+     of a 4 x 512 prefill (two chunks) and one decode step from the cache it leaves,
      card against CPU (the card's error against an f64 evaluation at most
      twice the CPU's); at full depth in f32 the 4 x 512 batch in chunks of
      256 against one chunk of 512, and 12 decode steps after a 500-token
@@ -205,7 +206,34 @@ Phases, one JSON line each; any failed check exits non-zero:
      of 4 x 512 tokens (losses near ln 50280, step ms split into forward +
      backward and optimizer, tokens/sec, peak memory); mamba2 and jamba
      smoke's f32 step on the card against the CPU; 0 flash launches;
- 30. the kernels line, then ``{"ok": true, "device": {...}}`` last.
+ 30. slice 18's encoder serve path on whisper-large-v3 at full width
+     (``ENC_SERVE``: 32 decoder layers with cross-attention, a 32-layer
+     encoder over 1500 frames, d 1280, 20 heads of 64, vocab 51866; 2.02
+     B seeded bf16 parameters) through ``launch.make_prefill`` and
+     ``make_decode_step`` (``ServeEngine`` refuses the stubs): one prefill
+     of 4 x 64 tokens over 4 x 1500 seeded normal frames and 32 greedy
+     steps (prefill ms, decode ms a step, tokens/sec, peak memory), row 4
+     counted by site (32 encoder, 32 self, 32 cross launches, asserted;
+     none in decode), a profile (``chiprun_out/profile_enc.txt``), row 4
+     on the model's own q, k, v at the encoder and cross shapes against
+     its plain version and timed beside its bound and SDPA, and the f32
+     model at one layer on the card against the CPU (tokens equal, logits
+     within 1e-3) and its decode against its forward;
+ 31. slice 18's vision-stub serve path on qwen2-vl-2b at full width
+     (``VLM_SERVE``: 28 layers, d 1536, 12 heads of 128 over 2 kv heads,
+     vocab 151936; 256 seeded normal patches before 4 x 512 tokens, the
+     model's own M-RoPE positions): as 30, 28 launches a prefill, row 4
+     held and timed at (4, 768, 12, 2, 128), profile in
+     ``chiprun_out/profile_vlm.txt``;
+ 32.-33. slice 18's training paths (``ENC_TRAIN``, ``VLM_TRAIN``): both
+     families at full width through ``launch.train.main`` (4 steps of 4 x
+     448 tokens over zero frames; 4 x 512 tokens after zero patches; the
+     reference driver's inputs, on which both packages' grad norms are
+     NaN at this depth, asserted), a fixed batch with seeded normal stub
+     inputs through ``make_train_step`` (every loss finite and near
+     ln(vocab)), and the smoke family's f32 step on the card against the
+     CPU; no flash launch (asserted);
+ 34. the kernels line, then ``{"ok": true, "device": {...}}`` last.
 
 Phase 12's sweep also runs the six fleet event goldens and the seven
 single-edge event goldens (all twenty-one goldens), their counters held
@@ -250,7 +278,7 @@ SINGLE = {"k": 8, "window": 4096, "pool": 4, "T": 50, "T_plain": 5}
 ADAPTIVE_REF = {"wan_bytes": 21096, "planner_invocations": 6,
                 "plans_reused": 6, "drift_fires": 7}
 ADAPTIVE = {"n_regions": 4, "sites_per_region": 256, "k": 8, "window": 256,
-            "T": 24, "strength": [0.9, 0.65, 0.4, 0.15]}
+            "T": 12, "strength": [0.9, 0.65, 0.4, 0.15]}
 # slice 9: the chaos goldens' live reference (CPU, jax 0.9), on its CPU
 # path and, for the region golden, on its kernel path (Pallas in interpret
 # mode, the fused fit), which the kernels' path is held to; the committed
@@ -345,7 +373,7 @@ SHARDED = {"T": 10, "T_ranks": 4, "T_event": 2, "world": 2,
 # main-width payload takes ~490 ms, every retry timer fires before its
 # first copy lands, and each window ships four copies, more than the raw
 # tuples.  A fixed rule zeroes ~1% of the (site, stream) counts a window.
-EVENT = {"T": 8, "T_parity": 8, "T_plain": 4, "n_prof": 3,
+EVENT = {"T": 8, "T_parity": 4, "T_plain": 4, "n_prof": 3,
          "wan": {"latency_scale": 1.0, "jitter_ms": 30.0, "drop_prob": 0.1,
                  "bandwidth_bytes_per_ms": 40.0, "hetero_links": True},
          "transport": {"window_period_ms": 100.0,
@@ -378,7 +406,7 @@ TRAIN = {"arch": "starcoder2-3b", "steps": 8, "batch": 4, "seq": 512,
                          "gemma3-12b"),
          "smoke_batch": (2, 24), "smoke_lr": 1e-3, "loss_rtol": 1e-5,
          "gnorm_rtol": 1e-3, "grad_limit": 1e-3, "grad_limit_gemma3": 2e-3,
-         "resume": {"steps": 30, "every": 10, "fail": 25, "batch": 4,
+         "resume": {"steps": 20, "every": 10, "fail": 15, "batch": 4,
                     "seq": 32}, "resume_rtol": 1e-5}
 # slice 16: MoE serving on deepseek-moe-16b FULL (configs/deepseek_moe_16b.py:
 # 28 layers, d 2048, 16 heads of 128, 64 routed experts top-6 and 2 shared,
@@ -393,7 +421,7 @@ TRAIN = {"arch": "starcoder2-3b", "steps": 8, "batch": 4, "seq": 512,
 # f32 products alone show on the layer's own products, where it passes 1
 MOE_SERVE = {"arch": "deepseek-moe-16b", "seed": 31, "slots": 4,
              "max_seq": 1100, "requests": 8, "prompt": (16, 1000),
-             "new_tokens": 32, "batch": (4, 512), "f32_layers": 4,
+             "new_tokens": 32, "batch": (4, 512), "f32_layers": 2,
              "near_tie": 1e-6, "f32_ratio": 2.0, "n_decode_prof": 3}
 # slice 16: MoE training on qwen3-moe-30b-a3b at full width (128 experts
 # top-8, d 2048, 32 heads of 128, 4 kv heads, vocab 151936), cut to 4 of
@@ -423,7 +451,7 @@ MOE_TRAIN = {"arch": "qwen3-moe-30b-a3b", "n_layers": 4, "steps": 8,
 # and in bf16, one row-4 launch a prefill
 SSM_SERVE = {"arch": "mamba2-780m", "seed": 32, "slots": 4, "max_seq": 1100,
              "requests": 8, "prompt": (16, 1000), "new_tokens": 32,
-             "batch": (4, 512), "f32_layers": 4, "f32_ratio": 2.0,
+             "batch": (4, 512), "f32_layers": 2, "f32_ratio": 2.0,
              "prompt_decode": 500, "decode": 12, "rtol": 1e-3, "atol": 1e-3,
              "n_decode_prof": 3, "hybrid": "jamba-1-5-large-398b",
              "hybrid_new_tokens": 12}
@@ -435,6 +463,61 @@ SSM_SERVE = {"arch": "mamba2-780m", "seed": 32, "slots": 4, "max_seq": 1100,
 SSM_TRAIN = {"arch": "mamba2-780m", "steps": 8, "batch": 4, "seq": 512,
              "seed": 32, "loss_band": 2.5,
              "smoke_archs": ("mamba2-780m", "jamba-1-5-large-398b")}
+# slice 18: the modality stubs at full width, served through
+# ``launch.make_prefill`` and ``make_decode_step`` (``ServeEngine`` passes
+# tokens only and refuses them, as the reference's fails on them): seeded
+# bf16 weights, ``batch`` rows of ``prompt`` seeded tokens with the stub's
+# seeded normal inputs (whisper-large-v3: 1500 frames of d 1280 a row;
+# qwen2-vl-2b: 256 patches of d 1536 before the tokens, the model's own
+# M-RoPE positions), then ``new_tokens`` greedy decode steps; row 4 held
+# against its plain version and timed on the model's own q, k, v at the
+# prefill calls ``row4_calls`` names (one call at each of the path's
+# sites: whisper's first encoder layer, its first decoder layer's
+# self-attention, causal, and cross-attention); and the f32 model cut to
+# ``f32_layers`` layer (whisper's encoder too), ``f32_batch`` rows of
+# ``f32_prompt`` tokens and ``f32_decode`` greedy steps, on the card (the
+# flash kernels) against the CPU (plain), tokens equal and logits within
+# ``rtol`` and ``atol``, and the card's decode against its full forward at
+# those positions (the reference's cache test).  One layer: at these random
+# weights whisper's logits at 2 layers move by 3.2e-2 (0.7% of the largest)
+# when the frames move by one f32 step, at 1 layer by 1.6e-4, so two f32
+# orders can be held to 1e-3 at one layer only (measured on the CPU at
+# these seeds; the phase prints the same yardstick)
+ENC_SERVE = {"arch": "whisper-large-v3", "seed": 33, "batch": 4,
+             "prompt": 64, "new_tokens": 32, "max_seq": 128,
+             "row4_calls": {"whisper_encoder": 0, "whisper_self": 32,
+                            "whisper_cross": 33},
+             "f32_layers": 1, "f32_batch": 2, "f32_prompt": 16,
+             "f32_decode": 8, "rtol": 1e-3, "atol": 1e-3,
+             "out": "profile_enc.txt"}
+VLM_SERVE = {"arch": "qwen2-vl-2b", "seed": 33, "batch": 4, "prompt": 512,
+             "new_tokens": 32, "max_seq": 832,
+             "row4_calls": {"qwen2_vl_prefill": 0},
+             "f32_layers": 1, "f32_batch": 2, "f32_prompt": 16,
+             "f32_decode": 8, "rtol": 1e-3, "atol": 1e-3,
+             "out": "profile_vlm.txt"}
+# slice 18: training the stubs at full width through ``launch.train.main``
+# (whisper-large-v3 2.0 B parameters, ~32 GB of state, at the decoder's
+# 448-token context against 1500 zero frames a row, the driver's extras as
+# in the reference; qwen2-vl-2b 1.8 B, ~29 GB, 512 tokens after 256 zero
+# patches): the first loss within ``loss_band`` of ln(vocab), and every
+# grad norm NaN, as the reference's are at this depth on the zero inputs
+# (ROADMAP queue 3, note o); then ``make_train_step`` at full width on one
+# fixed batch with seeded normal stub inputs at a constant lr of
+# ``fixed_lr`` for ``fixed_steps`` steps (the first step's update
+# recomputed on a sample of every leaf from its gradient, within 2 f32
+# steps of the parameter; every loss and grad norm finite,
+# every loss, and the loss after the last step, within ``loss_band`` of
+# ln(vocab): at random init these models' gradients grow several-fold a
+# layer towards the input, so a fixed-batch loss need not fall in a few
+# sign-like Adam steps); and the smoke family's f32 step on the card against the CPU
+# on seeded normal stub inputs, at ``TRAIN``'s limits
+ENC_TRAIN = {"arch": "whisper-large-v3", "steps": 4, "batch": 4, "seq": 448,
+             "seed": 33, "loss_band": 2.5, "fixed_lr": 1e-4,
+             "fixed_steps": 4}
+VLM_TRAIN = {"arch": "qwen2-vl-2b", "steps": 4, "batch": 4, "seq": 512,
+             "seed": 33, "loss_band": 2.5, "fixed_lr": 1e-4,
+             "fixed_steps": 4}
 # a fleet of the main path's kind whose data (134 MB for stream_stats_fleet,
 # 268 MB for polyfit) does not fit in the 50 MB L2: (E, k, N)
 LARGE = (4096, 8, 1024)
@@ -937,7 +1020,20 @@ def main() -> int:
     ssm_serve = lm_ssm_serve_path(torch, card_line)
     ssm_train = lm_ssm_train_path(torch, card_line)
 
-    # ---- 30. the kernels line and the result -----------------------------
+    # ---- 30.-33. slice 18: the encoder and the vision stub at full width --
+    stub_paths = {}
+    for settings, phase in ((ENC_SERVE, "lm_enc_serve_path"),
+                            (VLM_SERVE, "lm_vlm_serve_path")):
+        for n, by in stub_serve_path(torch, settings, phase, results,
+                                     card_line).items():
+            stub_paths.setdefault(n, {}).update(by)
+    for settings, phase in ((ENC_TRAIN, "lm_enc_train_path"),
+                            (VLM_TRAIN, "lm_vlm_train_path")):
+        for n, count in stub_train_path(torch, settings, phase,
+                                        card_line).items():
+            stub_paths.setdefault(n, {})[phase] = count
+
+    # ---- 34. the kernels line and the result -----------------------------
     # launches: rows 1 and 2 on the runtime paths driven with the counts
     # at 0 (main_path, adaptive_path, chaos_path, event_path, and
     # single_event_path, baseline_path, iid_path and host_engine_path,
@@ -945,7 +1041,8 @@ def main() -> int:
     # sharded_path_ranks summed over its two ranks), row 3 on the kernel
     # entry points, row 4 there and in the LM serve runs, dense, MoE and
     # the Mamba hybrid's (and 0 times in the LM training runs, asserted: it
-    # has no backward)
+    # has no backward), and in the stubs' serve runs (whisper's encoder,
+    # cross-attention and decoder self-attention apart; qwen2-vl's prefill)
     by_path = {n: ({"main_path": launches[n], "adaptive_path": adaptive[n],
                     "chaos_path": chaos[n], "event_path": event[n],
                     "single_event_path": single_event[n],
@@ -963,7 +1060,8 @@ def main() -> int:
                                               "lm_ssm_serve_path":
                                                   ssm_serve[n],
                                               "lm_ssm_train_path":
-                                                  ssm_train[n]}
+                                                  ssm_train[n],
+                                              **stub_paths[n]}
                                              if n in lm else {})})
                for n in KERNELS}
     emit({"kernels": [dict(name=n, route="cuda", source=KERNELS[n][0],
@@ -1253,7 +1351,8 @@ def lm_serve_path(torch, results, card_line: str) -> dict:
 
     import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.flash_attention.ref import (attention_f64,
+                                                         flash_attention_ref)
     from repro_torch.models import Transformer, init_cache
     from repro_torch.models import layers as lm_layers
 
@@ -1286,7 +1385,7 @@ def lm_serve_path(torch, results, card_line: str) -> dict:
         # against the same attention in f64: the kernel's error and the
         # plain version's f32 error (each score sums 240 products of ~260,
         # so two f32 orders differ by ~1e-4 in a score at these weights)
-        exact = _attention_f64(q, k, v, **kw)
+        exact = attention_f64(q, k, v, **kw)
         plain = flash_attention_ref(q, k, v, **kw)
         layer_err.append((float((out - exact).abs().max()),
                           float((plain - exact).abs().max()),
@@ -1458,7 +1557,8 @@ def row4_check_and_time(torch, q, k, v, kw, case: str, card_line: str):
     version and SDPA.  Returns (max |err|, the kernels line's times)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.flash_attention.ref import (attention_f64,
+                                                         flash_attention_ref)
     tol = ATTENTION_TOL["bfloat16"]
     out = fa_ops.flash_attention_cuda(q, k, v, **kw)
     want = flash_attention_ref(q, k, v, **kw)
@@ -1474,7 +1574,7 @@ def row4_check_and_time(torch, q, k, v, kw, case: str, card_line: str):
     # against the attention in f64, the kernel at most
     # ``f32_layer_ratio`` times as far off as the plain version (which
     # also rounds its output to bf16), beside row 4's RMS bound
-    exact = _attention_f64(q, k, v, **kw)
+    exact = attention_f64(q, k, v, **kw)
     err_k = float((out.double() - exact).abs().max())
     err_p = float((want.double() - exact).abs().max())
     ok = (err_k <= LM["f32_layer_ratio"] * err_p and rms <= tol["rms"]
@@ -1494,7 +1594,7 @@ def row4_check_and_time(torch, q, k, v, kw, case: str, card_line: str):
 
     # ---- row 4 timed at the prefill shape -------------------------------
     B, S, H, hd = q.shape
-    KV = k.shape[2]
+    T, KV = k.shape[1], k.shape[2]
     window, causal = kw["window"], kw["causal"]
     ms = time_cuda(lambda: fa_ops.flash_attention_cuda(q, k, v, **kw),
                    torch, 20, 5)
@@ -1511,18 +1611,18 @@ def row4_check_and_time(torch, q, k, v, kw, case: str, card_line: str):
 
     def sdpa():
         return F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
             enable_gqa=H != KV)
     lib = time_cuda(sdpa, torch, 20, 5)
     lib_diff = float((sdpa().transpose(1, 2).float() - out.float())
                      .abs().max())
     nbytes = 2 * q.numel() * q.element_size() \
         + 2 * k.numel() * k.element_size()
-    flops = 4 * B * H * hd * live_pairs(S, S, causal, window)
+    flops = 4 * B * H * hd * live_pairs(S, T, causal, window)
     b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
     emit({"phase": "kernel_time", "kernel": "flash_attention",
           "case": f"prefill_{case}", "nvidia_smi": card_line,
-          "shape": [B, S, S, H, KV, hd], "causal": causal,
+          "shape": [B, S, T, H, KV, hd], "causal": causal,
           "window": window, "dtype": "bfloat16", "kernel_ms": ms,
           "kernel_device_ms": dev_ms, "plain_ms": plain,
           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
@@ -1693,6 +1793,7 @@ def smoke_card_vs_cpu(torch, archs, card_line: str,
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.launch import make_train_step
+    from repro_torch.launch.train import random_stub_inputs
     from repro_torch.models import init_params
     from repro_torch.models import layers as lm_layers
     from repro_torch.optim import adamw_init, cosine_schedule, tree_leaves, \
@@ -1708,6 +1809,7 @@ def smoke_card_vs_cpu(torch, archs, card_line: str,
                   "labels": rng.integers(0, scfg.vocab, (sb, ss))}
         sbatch["labels"][0, :5] = -1
         sbatch["labels"][1, -3:] = -1
+        sbatch.update(random_stub_inputs(scfg, sb, rng))
         runs = {}
         for dev in ("cpu", "cuda"):
             routes = []
@@ -2615,6 +2717,409 @@ def lm_ssm_train_path(torch, card_line: str) -> dict:
     return launches
 
 
+def _row4_sites(cfg) -> list:
+    """Which flash-kernel call of a prefill serves which site: whisper's
+    encoder layers (not causal), then in each decoder layer its
+    self-attention (causal) and its cross-attention onto the encoder's
+    output (not causal); one self-attention a layer elsewhere."""
+    if cfg.encoder is None:
+        return ["self"] * cfg.n_layers
+    return ["encoder"] * cfg.encoder.n_layers + ["self", "cross"] * cfg.n_layers
+
+
+def stub_serve_path(torch, settings: dict, phase: str, results,
+                    card_line: str) -> dict:
+    """Phases 30 and 31: a modality-stub family at full width in bf16
+    through ``launch.make_prefill`` and ``make_decode_step``
+    (``settings``: ``ENC_SERVE`` or ``VLM_SERVE``): one prefill of the
+    seeded batch and its stub inputs, then greedy decode steps, inside the
+    flash kernels' counts at 0 (row 4 on every prefill attention: the
+    encoder's, cross-attention's and the decoder's own); a profile; row 4
+    on the model's own q, k, v at the settings' calls, against its plain
+    version and timed (into ``results["flash_attention"]["shapes"]``);
+    then the f32 model at reduced depth, card against CPU and decode
+    against the forward.  Every check raises.  Returns the serve run's
+    flash launches by site."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import make_decode_step, make_prefill
+    from repro_torch.launch.train import random_stub_inputs
+    from repro_torch.models import Transformer, init_params
+    from repro_torch.models import layers as lm_layers
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(settings["arch"])
+    bsz, plen, new = (settings["batch"], settings["prompt"],
+                      settings["new_tokens"])
+    max_seq = settings["max_seq"]
+    rng = np.random.default_rng(settings["seed"])
+    stub = {k: torch.as_tensor(v, device="cuda")
+            for k, v in random_stub_inputs(cfg, bsz, rng).items()}
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab, (bsz, plen)), device="cuda"), **stub}
+    n_pre = cfg.n_patches if cfg.frontend == "vision_stub" else 0
+
+    # ---- (a) bf16 at full width: prefill and greedy decode -----------------
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device="cuda", seed=settings["seed"])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prefill, decode = make_prefill(cfg, max_seq), make_decode_step(cfg)
+    _, warm = prefill(model, {**batch, "tokens": batch["tokens"][:, :16]})
+    decode(model, warm, {"tokens": batch["tokens"][:, :1]})
+    del warm
+    sites = _row4_sites(cfg)
+    by_site = {}
+
+    def count(i, q, k, v, kw, out):
+        by_site[sites[i]] = by_site.get(sites[i], 0) + 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.LAUNCHES = 0
+    fa_ops.SM90_LAUNCHES = 0
+    with _attention_spy(lm_layers, count):
+        t0 = time.perf_counter()
+        logits, cache = prefill(model, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        finite = [bool(torch.isfinite(logits).all())]
+        toks, dec_s = [], []
+        for _ in range(new):
+            nxt = logits[:, -1].argmax(-1, keepdim=True)
+            toks.append(nxt)
+            t0 = time.perf_counter()
+            logits, cache = decode(model, cache, {"tokens": nxt})
+            torch.cuda.synchronize()
+            dec_s.append(time.perf_counter() - t0)
+            finite.append(bool(torch.isfinite(logits).all()))
+    launches = {"flash_attention": fa_ops.SM90_LAUNCHES,
+                "flash_attention_f32": fa_ops.LAUNCHES - fa_ops.SM90_LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    toks = torch.cat(toks, 1).cpu()
+    want_sites = {}
+    for name in sites:
+        want_sites[name] = want_sites.get(name, 0) + 1
+    fields = {"phase": phase, "nvidia_smi": card_line, "arch": cfg.name,
+              "dtype": cfg.dtype, "layers": cfg.n_layers,
+              "encoder_layers": (cfg.encoder.n_layers if cfg.encoder
+                                 else 0),
+              "d_model": cfg.d_model, "vocab": cfg.vocab,
+              "params": model.n_params(), "param_count": cfg.param_count(),
+              "init_seconds": init_s, "batch": [bsz, plen],
+              "stub_inputs": {k: list(v.shape) for k, v in stub.items()},
+              "prefill_len": n_pre + plen, "new_tokens": new,
+              "prefill_ms": 1e3 * prefill_s,
+              "decode_ms_per_step": 1e3 * statistics.median(dec_s),
+              "decode_ms_mean": 1e3 * statistics.mean(dec_s),
+              "tokens_per_sec": bsz * new / (prefill_s + sum(dec_s)),
+              "peak_mem_bytes": peak, "cache_len": cache["len"],
+              "launches": launches, "launches_by_site": by_site,
+              "launches_by_site_want": want_sites,
+              "finite": all(finite),
+              "tokens_in_vocab": bool(((toks >= 0) & (toks < cfg.vocab))
+                                      .all())}
+    emit(fields)
+    if not (all(finite) and fields["tokens_in_vocab"]
+            and cache["len"] == n_pre + plen + new
+            and by_site == want_sites
+            and launches == {"flash_attention": len(sites),
+                             "flash_attention_f32": 0}):
+        raise AssertionError(f"{phase}: the serve run {fields}")
+    del cache, logits
+
+    profile_lm(model, batch, max_seq, torch, card_line,
+               out_name=settings["out"])
+
+    # ---- (b) row 4 on the model's own q, k, v at the prefill shapes -------
+    captured = {}
+    calls = {i: name for name, i in settings["row4_calls"].items()}
+
+    def capture(i, q, k, v, kw, out):
+        if i in calls:
+            captured[calls[i]] = (q, k, v, kw)
+    with _attention_spy(lm_layers, capture):
+        model.prefill(batch, max_seq)
+    torch.cuda.synchronize()
+    shapes = results["flash_attention"].setdefault("shapes", {})
+    for name, (q, k, v, kw) in captured.items():
+        err, line = row4_check_and_time(torch, q, k, v, kw, name, card_line)
+        shapes[name] = {"shape": [*q.shape[:2], k.shape[1], q.shape[2],
+                                  k.shape[2], q.shape[3]],
+                        "causal": kw["causal"], "max_abs_err": err, **line}
+    if sorted(captured) != sorted(settings["row4_calls"]):
+        raise AssertionError(f"{phase}: row 4's calls {sorted(captured)}")
+    fa_ops.LAUNCHES = 0                         # checks, not the serve run
+    fa_ops.SM90_LAUNCHES = 0
+    del model, captured, batch, stub
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (c) f32 at reduced depth: card against CPU, decode against the
+    # forward
+    t0 = time.perf_counter()
+    nl = settings["f32_layers"]
+    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=nl)
+    if cfg.encoder is not None:
+        cfg32 = dataclasses.replace(cfg32, encoder=dataclasses.replace(
+            cfg.encoder, n_layers=nl))
+    params = init_params(cfg32, torch.Generator().manual_seed(
+        settings["seed"]))
+    fb, fp, fd = (settings["f32_batch"], settings["f32_prompt"],
+                  settings["f32_decode"])
+    frng = np.random.default_rng(settings["seed"] + 1)
+    fbatch = {"tokens": frng.integers(0, cfg.vocab, (fb, fp)),
+              **random_stub_inputs(cfg32, fb, frng)}
+    prefill, decode = (make_prefill(cfg32, n_pre + fp + fd),
+                       make_decode_step(cfg32))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        m = Transformer(cfg32, params, device=dev)
+        t1 = time.perf_counter()
+        lg, c = prefill(m, fbatch)
+        out, seq = [lg[:, -1].float().cpu()], []
+        for _ in range(fd):
+            nxt = lg[:, -1].argmax(-1, keepdim=True)
+            seq.append(nxt.cpu())
+            lg, c = decode(m, c, {"tokens": nxt})
+            out.append(lg[:, -1].float().cpu())
+        runs[dev] = (torch.cat(seq, 1), torch.stack(out, 1), m,
+                     time.perf_counter() - t1)
+    (t_h, l_h, m_h, cpu_s), (t_c, l_c, m, card_s) = (runs["cpu"],
+                                                     runs["cuda"])
+    # the yardstick: how far the CPU's last prefill logits move when the
+    # stub's inputs move by one f32 step
+    name = "encoder_embeds" if cfg.encoder is not None else "patch_embeds"
+    with torch.no_grad():
+        moved = prefill(m_h, {**fbatch, name: fbatch[name]
+                              * np.float32(1 + 2 ** -23)})[0][:, -1]
+    one_step = float((moved.float() - l_h[:, 0]).abs().max())
+    del m_h, moved
+    # the card's decode against its own forward over prompt and tokens
+    full = m({**fbatch, "tokens": np.concatenate(
+        [fbatch["tokens"], t_c.numpy()], 1)})[:, fp - 1:].float().cpu()
+    row = {"phase": f"{phase}_f32", "nvidia_smi": card_line,
+           "layers": nl, "batch": [fb, fp], "decode": fd,
+           "tokens_equal_cpu": bool(torch.equal(t_c, t_h)),
+           "card_minus_cpu_max_abs": float((l_c - l_h).abs().max()),
+           "decode_minus_forward_max_abs": float((l_c - full).abs().max()),
+           "max_abs_logit": float(l_h.abs().max()),
+           "cpu_logits_move_at_one_f32_step_of_inputs": one_step,
+           "rtol": settings["rtol"], "atol": settings["atol"],
+           "card_s": card_s, "cpu_s": cpu_s,
+           "seconds": time.perf_counter() - t0}
+    row["ok"] = (row["tokens_equal_cpu"]
+                 and bool(torch.allclose(l_c, l_h, rtol=settings["rtol"],
+                                         atol=settings["atol"]))
+                 and bool(torch.allclose(l_c, full, rtol=settings["rtol"],
+                                         atol=settings["atol"])))
+    emit(row)
+    fa_ops.LAUNCHES = 0                         # checks, not the serve run
+    fa_ops.SM90_LAUNCHES = 0
+    if not row["ok"]:
+        raise AssertionError(f"{phase}: the f32 model at {nl} layers: {row}")
+    del runs, m, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": f"{phase}_seconds",
+          "seconds": time.perf_counter() - t_phase, "launches": launches,
+          "launches_by_site": by_site})
+    return {"flash_attention": {f"{phase}/{k}": n for k, n in by_site.items()},
+            "flash_attention_f32": {phase: 0}}
+
+
+def stub_train_path(torch, settings: dict, phase: str,
+                    card_line: str) -> dict:
+    """Phases 32 and 33: a modality-stub family at full width through the
+    driver (``settings``: ``ENC_TRAIN`` or ``VLM_TRAIN``; the driver's
+    zero stub inputs, as the reference's, on which both packages' grad
+    norms are NaN at this depth), the train step at full width on a fixed
+    batch with seeded normal stub inputs (its first update held against
+    AdamW recomputed on a sample of every leaf), and its smoke family's
+    f32 step
+    on the card against the CPU on seeded normal stub inputs.  Every check
+    raises.  Returns the flash kernels' launches in the phase, asserted
+    0."""
+    import gc
+    import math
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import make_train_step
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import forward_train, init_params
+    from repro_torch.optim import adamw_init
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa_ops.LAUNCHES = 0
+    fa_ops.SM90_LAUNCHES = 0
+    cfg = get_config(settings["arch"])
+    bsz, seq = settings["batch"], settings["seq"]
+    ln_v = math.log(cfg.vocab)
+    stats = {}
+    t0 = time.perf_counter()
+    losses = train_mod.main(
+        ["--arch", settings["arch"], "--full", "--steps",
+         str(settings["steps"]), "--batch", str(bsz), "--seq", str(seq),
+         "--log-every", "1", "--seed", str(settings["seed"]),
+         "--device", "cuda"], stats=stats)
+    run_s = time.perf_counter() - t0
+    emit({"phase": f"{phase}_driver", "nvidia_smi": card_line,
+          "arch": cfg.name, "layers": cfg.n_layers,
+          "encoder_layers": cfg.encoder.n_layers if cfg.encoder else 0,
+          "d_model": cfg.d_model, "vocab": cfg.vocab,
+          "stub_extras": {k: list(v[0]) for k, v in
+                          train_mod.stub_extras(cfg).items()},
+          "params": stats["params"], "state_bytes": 16 * stats["params"],
+          "batch": [bsz, seq], "tokens_per_step": stats["tokens_per_step"],
+          "steps": stats["step"], "losses": stats["loss"], "ln_vocab": ln_v,
+          "grad_norms": stats["grad_norm"],
+          "fwd_bwd_ms": stats["fwd_bwd_ms"], "opt_ms": stats["opt_ms"],
+          "median_step_ms": stats["median_step_ms"],
+          "median_fwd_bwd_ms": stats["median_fwd_bwd_ms"],
+          "median_opt_ms": stats["median_opt_ms"],
+          "tokens_per_sec": stats["tokens_per_sec"],
+          "peak_mem_bytes": stats["peak_mem_bytes"], "seconds": run_s})
+    if len(stats["loss"]) != settings["steps"] \
+            or len(losses) != settings["steps"] \
+            or not abs(stats["loss"][0] - ln_v) <= settings["loss_band"] \
+            or any(math.isfinite(g) for g in stats["grad_norm"]):
+        raise AssertionError(f"{phase}: the driver's run on zero stub "
+                             f"inputs, want the first loss near ln(vocab) "
+                             f"and NaN grad norms (note o): {stats}")
+    del stats
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- one fixed batch with seeded normal stub inputs ------------------
+    rng = np.random.default_rng(settings["seed"])
+    toks = rng.integers(0, cfg.vocab, (bsz, seq + 1))
+    batch = {"tokens": torch.as_tensor(toks[:, :-1], device="cuda"),
+             "labels": torch.as_tensor(toks[:, 1:], device="cuda"),
+             **{k: torch.as_tensor(v, device="cuda")
+                for k, v in train_mod.random_stub_inputs(
+                    cfg, bsz, rng).items()}}
+    gen = torch.Generator(device="cuda").manual_seed(settings["seed"])
+    state = adamw_init(init_params(cfg, gen, device="cuda"))
+    step = make_train_step(cfg, lambda _: settings["fixed_lr"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fixed, step_ms = [], []
+    for i in range(settings["fixed_steps"]):
+        t0 = time.perf_counter()
+        if i:
+            state, m = step(state, batch)
+        else:
+            loss, metrics, grads = step.loss_and_grads(state, batch)
+            before = _update_sample(state.params, grads)
+            state, m = step.apply(state, grads, loss, metrics)
+            del grads
+        fixed.append((float(m["loss"]), float(m["grad_norm"])))
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        if not i:
+            update = _check_first_update(before, state.params, m["grad_norm"],
+                                         settings["fixed_lr"])
+            del before
+    # an evaluation, not a training step: off autograd it may take the
+    # flash kernels, which the phase's count leaves out
+    counts = (fa_ops.LAUNCHES, fa_ops.SM90_LAUNCHES)
+    with torch.no_grad():
+        after = float(forward_train(state.params, batch, cfg,
+                                    remat=False)[0])
+    fa_ops.LAUNCHES, fa_ops.SM90_LAUNCHES = counts
+    line = {"phase": f"{phase}_fixed_batch", "nvidia_smi": card_line,
+            "lr": settings["fixed_lr"],
+            "stub_inputs": {k: list(v.shape) for k, v in batch.items()
+                            if k not in ("tokens", "labels")},
+            "losses": [a for a, _ in fixed], "loss_after": after,
+            "grad_norms": [b for _, b in fixed], "step_ms": step_ms,
+            "first_update": update,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    emit(line)
+    if not update["ok"] \
+            or not _finite(line["losses"] + line["grad_norms"] + [after]) \
+            or not all(abs(v - ln_v) <= settings["loss_band"]
+                       for v in line["losses"] + [after]):
+        raise AssertionError(f"{phase}: the fixed batch at full width: "
+                             f"{line}")
+    del state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    smoke_card_vs_cpu(torch, (settings["arch"],), card_line,
+                      phase=f"{phase}_smoke_card_vs_cpu")
+    launches = {"flash_attention": fa_ops.SM90_LAUNCHES,
+                "flash_attention_f32": fa_ops.LAUNCHES - fa_ops.SM90_LAUNCHES}
+    emit({"phase": f"{phase}_seconds",
+          "seconds": time.perf_counter() - t_phase, "launches": launches})
+    if launches != {"flash_attention": 0, "flash_attention_f32": 0}:
+        raise AssertionError(f"flash kernel launches in {phase} {launches}: "
+                             f"a training forward takes the plain "
+                             f"attention")
+    return launches
+
+
+def _update_sample(params, grads, n: int = 4096) -> list:
+    """About ``n`` evenly spaced elements of every parameter leaf and of
+    its gradient, before the update (the update scales the gradients in
+    place): (index, params, grads) a leaf."""
+    import torch
+    from repro_torch.optim import tree_leaves
+    out = []
+    for p, g in zip(tree_leaves(params), tree_leaves(grads)):
+        idx = torch.arange(0, p.numel(), max(1, p.numel() // n),
+                           device=p.device)
+        out.append((idx, p.detach().reshape(-1)[idx].clone(),
+                    g.reshape(-1)[idx].float()))
+    return out
+
+
+def _check_first_update(before, params, grad_norm, lr: float,
+                        b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
+                        clip_norm=1.0) -> dict:
+    """Every leaf's sampled elements after the first AdamW step against
+    that step recomputed from the sample (``_update_sample``): the clip
+    scale from the step's grad norm, zero moments, the bias corrections
+    of step 1, the decoupled decay, the same f32 operations as
+    ``optim.adamw_update``; within 2 f32 steps of the parameter, and some
+    leaf moving by more.  A step that left a leaf as it was, or gave it
+    another leaf's gradient, or none, misses by up to ~lr an element (the
+    decay alone moves one by ``lr * weight_decay`` of itself, ~80 f32
+    steps at lr 1e-4)."""
+    import numpy as np
+    import torch
+    from repro_torch.optim import tree_leaves
+    scale = torch.clamp(clip_norm / torch.clamp(grad_norm, min=1e-9),
+                        max=1.0)
+    bc1 = float(np.float32(1.0) - np.float32(b1))
+    bc2 = float(np.float32(1.0) - np.float32(b2))
+    lr = float(np.float32(lr))
+    worst, moved, leaves = 0.0, 0, 0
+    for (idx, p0, g), p in zip(before, tree_leaves(params)):
+        g = g * scale
+        m = torch.zeros_like(g).mul_(b1).add_(g, alpha=1 - b1)
+        v = torch.zeros_like(g).mul_(b2).addcmul_(g, g, value=1 - b2)
+        delta = torch.div(m, bc1).div_(torch.div(v, bc2).sqrt_().add_(eps))
+        want = p0 - delta.add_(p0, alpha=weight_decay).mul_(lr)
+        got = p.detach().reshape(-1)[idx]
+        ulp = torch.finfo(torch.float32).eps * torch.maximum(p0.abs(),
+                                                             want.abs())
+        worst = max(worst, float(((got - want).abs() / (2 * ulp)
+                                  .clamp(min=1e-45)).max()))
+        moved += bool(((want - p0).abs() > 2 * ulp).any())
+        leaves += 1
+    return {"leaves": leaves, "leaves_that_move": moved,
+            "worst_err_over_2_f32_steps": worst,
+            "ok": worst <= 1.0 and moved > 0}
+
+
 def profile_train_step(step, state, batch, torch, card_line: str,
                        out_name: str = "profile_train.txt"):
     """One train step under torch.profiler (table in chiprun_out/<out_name>):
@@ -2665,26 +3170,6 @@ def profile_train_step(step, state, batch, torch, card_line: str,
           "top": [{"name": e.key[:70], "count": e.count, "ms": _dev_ms(e)}
                   for e in top]})
     return state, metrics
-
-
-def _attention_f64(q, k, v, *, causal: bool, window: int):
-    """The plain version's attention (q (B,S,H,hd), k/v (B,T,KV,hd), keys
-    at positions 0..T-1) evaluated in f64."""
-    import torch
-    s, t, hd = q.shape[1], k.shape[1], q.shape[3]
-    rep = q.shape[2] // k.shape[2]
-    k = k.double().repeat_interleave(rep, dim=2)
-    v = v.double().repeat_interleave(rep, dim=2)
-    scores = torch.einsum("bshk,bthk->bhst", q.double(), k) / hd ** 0.5
-    qp = torch.arange(s, device=q.device)[:, None]
-    kp = torch.arange(t, device=q.device)[None, :]
-    keep = torch.ones((s, t), dtype=torch.bool, device=q.device)
-    if causal:
-        keep &= kp <= qp
-    if window > 0:
-        keep &= qp - kp < window
-    scores = scores.masked_fill(~keep, float("-inf"))
-    return torch.einsum("bhst,bthk->bshk", torch.softmax(scores, dim=-1), v)
 
 
 def profile_lm(model, batch, max_seq: int, torch, card_line: str,

@@ -47,11 +47,15 @@ def make_train_step(cfg: ModelConfig, lr_fn: Callable, *, microbatches: int = 1,
     microbatched step reports; the reference's reports none).
     ``cast_params_bf16``: the f32 leaves that have two or more dims in
     the reference's stacked layout (the matrices, the embedding and head,
-    and the layers' norm scales, which the reference stacks over blocks;
-    not the final norm's) are cast to bf16 once per step, outside the
-    microbatch loop, and the gradients are taken with respect to those
-    copies, as the reference takes them with respect to its cast tree;
-    the update casts them to f32.
+    and the norm scales of the decoder's and the encoder's layers, which
+    the reference stacks over blocks; not the final norms') are cast to
+    bf16 once per step, outside the microbatch loop, and the gradients are
+    taken with respect to those copies, as the reference takes them with
+    respect to its cast tree; the update casts them to f32.
+
+    The batch's entries besides ``tokens`` and ``labels`` (the modality
+    stubs' ``encoder_embeds``, ``patch_embeds``, ``positions``) go into
+    ``forward_train`` with them, cut into the microbatches alike.
     """
     if grad_exchange is not None or n_pods > 1:
         raise NotImplementedError(
@@ -65,14 +69,19 @@ def make_train_step(cfg: ModelConfig, lr_fn: Callable, *, microbatches: int = 1,
             return p.detach().to(torch.bfloat16).requires_grad_()
         return p
 
-    def fwd_tree(params):
-        if not cast_params_bf16:
-            return params
-        return {k: tree_map(lambda p: bf16(p, k == "layers"), v)
-                for k, v in params.items()}
+    def fwd_tree(tree, stacked: bool = False):
+        # the leaves under a ``layers`` list, the decoder's and the
+        # encoder's, are stacked over blocks in the reference's layout
+        if isinstance(tree, dict):
+            return {k: fwd_tree(v, stacked or k == "layers")
+                    for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(fwd_tree(t, stacked) for t in tree)
+        return bf16(tree, stacked)
 
     def loss_and_grads(state: TrainState, batch: dict):
-        params = fwd_tree(state.params)
+        params = (fwd_tree(state.params) if cast_params_bf16
+                  else state.params)
         leaves = tree_leaves(params)
         for p in leaves:
             if not p.requires_grad:
@@ -127,13 +136,10 @@ def make_prefill(cfg: ModelConfig, max_seq: int):
 
 def make_decode_step(cfg: ModelConfig):
     """``decode(model, cache, batch) -> (logits, cache)``: one decode step
-    of ``batch["tokens"]`` (B, 1).  Other batch entries (the encoder's
-    frames) come with ROADMAP queue 1, item 4e."""
+    of ``batch["tokens"]`` (B, 1); the batch's other entries (the
+    encoder's frames) go to the model's decode step as its
+    ``batch_extras``, as in the reference."""
     def decode(model, cache, batch):
-        extras = sorted(k for k in batch if k != "tokens")
-        if extras:
-            raise NotImplementedError(
-                f"decode inputs {extras} are not ported yet (ROADMAP queue "
-                f"1, item 4e)")
-        return model.decode_step(cache, batch["tokens"])
+        extras = {k: v for k, v in batch.items() if k != "tokens"} or None
+        return model.decode_step(cache, batch["tokens"], batch_extras=extras)
     return decode

@@ -3,9 +3,8 @@ point behind ``examples/train_lm.py``).
 
     python -m repro_torch.launch.train [--arch starcoder2-3b] [--full] ...
 
-Trains any dense, MoE, Mamba2 or hybrid (jamba) architecture of the zoo
-(smoke or full config) on the synthetic Markov token stream, on one
-device: the GPU by default
+Trains any architecture of the zoo (smoke or full config) on the
+synthetic Markov token stream, on one device: the GPU by default
 (``--device cpu`` for the CPU).  With no arguments it runs the example's
 default: starcoder2 smoke, 150 steps of 8 x 64 tokens at lr 8e-3.
 
@@ -19,7 +18,11 @@ default: starcoder2 smoke, 150 steps of 8 x 64 tokens at lr 8e-3.
   * fault injection: ``--fail-at-step N`` raises before step N;
     rerunning with ``--restore`` continues from the last checkpoint;
   * ``--d-model`` and ``--n-layers`` override the config's width and
-    depth, as in the reference.
+    depth, as in the reference;
+  * the modality stubs (whisper's frames, qwen2-vl's patches) are fed
+    zeros, as the reference's driver feeds them (:func:`stub_extras`);
+    at those families' full depth the zero rows' gradients overflow to
+    NaN in both packages (ROADMAP queue 3, note o).
 
 The mesh flags (``--host-devices``, ``--pods``, ``--model-parallel``) and
 the paper's gradient exchange (``--edge-exchange``) need LM sharding
@@ -102,6 +105,30 @@ def config_from_args(args):
     return cfg
 
 
+def stub_extras(cfg) -> dict:
+    """The modality stubs' inputs the driver feeds, as the reference's
+    does: zero arrays (``LMBatcher``'s ``extras``) of the patch
+    embeddings (n_patches, d) or the encoder's frame embeddings
+    (encoder.seq_len, d), f32, per row."""
+    import numpy as np
+    extras = {}
+    if cfg.frontend == "vision_stub":
+        extras["patch_embeds"] = ((cfg.n_patches, cfg.d_model), np.float32)
+    if cfg.frontend == "audio_stub":
+        extras["encoder_embeds"] = ((cfg.encoder.seq_len, cfg.d_model),
+                                    np.float32)
+    return extras
+
+
+def random_stub_inputs(cfg, rows: int, rng) -> dict:
+    """Seeded normal stub inputs for ``rows`` rows, numpy f32 of
+    :func:`stub_extras`' shapes: the frames or patches that parity checks
+    feed, where the driver's zeros would leave whisper's encoder silent
+    (a text-only family gets none, and ``rng`` is not drawn from)."""
+    return {k: rng.normal(0, 1, (rows, *shape)).astype(dtype)
+            for k, (shape, dtype) in stub_extras(cfg).items()}
+
+
 def main(argv=None, stats: Optional[dict] = None):
     """Train as ``argv`` says (None: ``sys.argv[1:]``; empty: the
     example's default) and return the logged losses.  ``stats``, when
@@ -156,7 +183,8 @@ def main(argv=None, stats: Optional[dict] = None):
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
 
-    data = LMBatcher(cfg.vocab, args.batch, args.seq, seed=args.seed)
+    data = LMBatcher(cfg.vocab, args.batch, args.seq, seed=args.seed,
+                     extras=stub_extras(cfg))
     record = {"step": [], "loss": [], "grad_norm": [], "fwd_bwd_ms": [],
               "opt_ms": []}
     losses = []

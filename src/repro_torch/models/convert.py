@@ -5,7 +5,9 @@ parameters over blocks (``blocks[pos][group][leaf]`` has a leading axis of
 ``n_blocks``); the port keeps one dict per layer.  :func:`params_from_jax`
 unstacks block ``i`` of position ``pos`` into layer ``i * period + pos``,
 so that both packages compute the same function; :func:`params_to_jax`
-stacks them back.  :func:`train_state_from_jax` and
+stacks them back.  The whisper encoder's layers, which the reference
+stacks over ``encoder.n_layers`` (``encoder["blocks"]``), become the
+port's ``encoder["layers"]`` list the same way.  :func:`train_state_from_jax` and
 :func:`train_state_to_jax` do the same for an AdamW state (params, m, v,
 step), which is also the layout a training checkpoint is saved in, so
 that either package restores the other's.  Everything here reads and
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import check_served, init_params
+from repro_torch.models.transformer import init_params
 from repro_torch.optim.adamw import TrainState
 
 
@@ -38,26 +40,35 @@ def _unstack(stacked: dict, i: int) -> dict:
                 else _tensor(np.asarray(a)[i])) for n, a in stacked.items()}
 
 
+def _norm(tree: dict, leaf) -> dict:
+    return {"scale": leaf(tree["scale"])}
+
+
 def params_from_jax(tree: dict, cfg: ModelConfig) -> dict:
     """The reference's parameter tree -> the port's (f32 CPU tensors):
-    ``{"embed", "final_norm", "layers": [...], "lm_head"?}``."""
-    check_served(cfg)
+    ``{"embed", "final_norm", "layers": [...], "lm_head"?, "encoder"?}``,
+    the encoder's ``{"layers": [...], "final_norm"}``."""
     layers = [None] * cfg.n_layers
     for pos, stacked in enumerate(tree["blocks"]):
         for i in range(cfg.n_blocks):
             layers[i * cfg.period + pos] = _unstack(stacked, i)
     params = {"embed": _tensor(tree["embed"]),
-              "final_norm": {"scale": _tensor(tree["final_norm"]["scale"])},
+              "final_norm": _norm(tree["final_norm"], _tensor),
               "layers": layers}
     if "lm_head" in tree:
         params["lm_head"] = _tensor(tree["lm_head"])
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        params["encoder"] = {
+            "layers": [_unstack(enc["blocks"], i)
+                       for i in range(cfg.encoder.n_layers)],
+            "final_norm": _norm(enc["final_norm"], _tensor)}
     return params
 
 
 def _stacked(params: dict, cfg: ModelConfig, leaf, stack) -> dict:
     """The port's tree in the reference's layout: ``leaf`` maps each
     tensor, ``stack`` a list of one position's layers over the blocks."""
-    check_served(cfg)
     layers = params["layers"]
     if len(layers) != cfg.n_layers:
         raise ValueError(f"{cfg.name}: {len(layers)} layers given, the "
@@ -73,10 +84,18 @@ def _stacked(params: dict, cfg: ModelConfig, leaf, stack) -> dict:
                      for i in range(cfg.n_blocks)])
         for pos in range(cfg.period))
     tree = {"embed": leaf(params["embed"]),
-            "final_norm": {"scale": leaf(params["final_norm"]["scale"])},
+            "final_norm": _norm(params["final_norm"], leaf),
             "blocks": blocks}
     if "lm_head" in params:
         tree["lm_head"] = leaf(params["lm_head"])
+    if "encoder" in params:
+        enc = params["encoder"]
+        if len(enc["layers"]) != cfg.encoder.n_layers:
+            raise ValueError(f"{cfg.name}: {len(enc['layers'])} encoder "
+                             f"layers given, the config has "
+                             f"{cfg.encoder.n_layers}")
+        tree["encoder"] = {"blocks": over_blocks(enc["layers"]),
+                           "final_norm": _norm(enc["final_norm"], leaf)}
     return tree
 
 

@@ -19,12 +19,15 @@ scores and logits are f32 products of the activation-type operands, the
 probabilities are cast to the activation type before P·V, and a bf16 q
 or k comes out of RoPE in f32.
 
-Self-attention over a prompt (``s > 1``, no ``kv_x``) on a CUDA tensor
-runs on the hand-written flash kernels (``kernels/flash_attention``) unless
-the caller passes ``use_kernel=False``; decode, cross-attention and the CPU
-stay plain torch, as the reference computes them outside any Pallas
-kernel, and so does a training forward (the kernels have no backward; the
-reference trains through the plain attention too).
+Attention over a prompt on a CUDA tensor, self-attention (causal or
+not: the whisper encoder's is not) and cross-attention onto the encoder's
+output alike, runs on the hand-written flash kernels
+(``kernels/flash_attention``) unless the caller passes ``use_kernel=False``
+or ``index_positions=False`` (positions other than 0..s-1); a decode
+step (its self- and cross-attention) and the CPU stay plain torch, as the
+reference computes them outside any Pallas kernel, and so does a
+training forward (the kernels have no backward; the reference trains
+through the plain attention too).
 
 Every matrix is cast to the activation type where it is used, so the
 same functions run the serving model's pre-cast weights and the f32
@@ -207,22 +210,23 @@ def is_differentiated(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def kernel_route(*, use_kernel: bool, on_gpu: bool, cross: bool,
+def kernel_route(*, use_kernel: bool, on_gpu: bool, index_positions: bool,
                  decode: bool, differentiated: bool) -> bool:
-    """Whether self-attention runs on the flash kernels: over a prompt
-    (not a decode step, not cross-attention) on the GPU, when the caller
-    allows it, and only when the forward is not being differentiated.  The
-    kernels have no backward (nor has the reference's Pallas kernel: the
-    reference trains through the plain attention), so a training forward
-    takes the plain route on the GPU too."""
-    return (use_kernel and on_gpu and not cross and not decode
+    """Whether attention runs on the flash kernels: over a prompt (not a
+    decode step) on the GPU, when the caller allows it, when its positions
+    are the indices 0..s-1 (the kernels mask by index; the reference masks
+    by position), and only when the forward is not being differentiated.
+    The kernels have no backward (nor has the reference's Pallas kernel:
+    the reference trains through the plain attention), so a training
+    forward takes the plain route on the GPU too."""
+    return (use_kernel and on_gpu and index_positions and not decode
             and not differentiated)
 
 
 def attention_apply(params, x, positions, cfg: ModelConfig, *, window: int = 0,
                     kv_x: Optional[torch.Tensor] = None, causal: bool = True,
                     cache: Optional[dict] = None, rope: bool = True,
-                    use_kernel: bool = True):
+                    use_kernel: bool = True, index_positions: bool = True):
     """Full/sliding/cross attention with optional KV cache.
 
     window > 0  => sliding-window causal mask (gemma3 local layers).
@@ -233,12 +237,21 @@ def attention_apply(params, x, positions, cfg: ModelConfig, *, window: int = 0,
       the new token(s); decode is s==1 and writes slot ``write_idx``,
       prefill writes the last T positions to slots 0..  The port writes
       the cache's tensors in place and returns the same dict.
-    use_kernel  => self-attention over the s > 1 tokens of x, whose
-      positions must be 0..s-1 (a prompt, as the model gives them), runs
-      on the flash kernels when x is on the GPU: bf16 on the tensor-core
-      kernel, f32 on the CUDA-core one, with q and k after RoPE cast to
-      x's type.  A forward that autograd records stays on the plain route
-      (:func:`kernel_route`).
+    use_kernel  => attention over the s > 1 tokens of x runs on the flash
+      kernels when x is on the GPU: bf16 on the tensor-core kernel, f32 on
+      the CUDA-core one, with q and k after RoPE cast to x's type.  That
+      covers self-attention, causal or not, and cross-attention onto
+      ``kv_x`` (``causal=False``: the kernel masks nothing then).  A
+      decode step (s == 1: its ring attention, and its cross-attention
+      onto ``kv_x``) and a forward that autograd records stay on the plain
+      route (:func:`kernel_route`).
+    index_positions => ``positions`` are 0..s-1, as the model gives them to
+      a prompt.  The kernels mask by index where the reference masks by
+      ``positions[..., 0]``, so positions a caller gives (qwen2-vl's
+      M-RoPE positions, which may repeat or skip) take the plain route,
+      which masks by them as the reference does.  This is a route by
+      meaning, not a fallback: on the kernel route a failed build or
+      launch raises.
     """
     b, s, d = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
@@ -271,7 +284,9 @@ def attention_apply(params, x, positions, cfg: ModelConfig, *, window: int = 0,
 
     wo = params["wo"].to(x.dtype)
     if kernel_route(use_kernel=use_kernel, on_gpu=x.is_cuda,
-                    cross=kv_x is not None, decode=slot_pos is not None,
+                    index_positions=index_positions,
+                    decode=slot_pos is not None or (kv_x is not None
+                                                    and s == 1),
                     differentiated=is_differentiated(q, k, v)):
         out = flash_attention(q.to(x.dtype).contiguous(),
                               k.to(x.dtype).contiguous(), v.contiguous(),

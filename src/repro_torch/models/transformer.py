@@ -1,6 +1,6 @@
-"""The decoder stack of the dense families: serving and training.
+"""The decoder stack (and the whisper encoder): serving and training.
 
-Port of ``repro.models.transformer`` for the dense families.  The reference
+Port of ``repro.models.transformer``.  The reference
 stacks each period position's parameters over blocks and scans; the port
 keeps one :class:`Block` per layer (layer ``i`` is block ``i // period``,
 position ``i % period``) and loops over them.  Its cache holds one ring
@@ -22,11 +22,21 @@ period block is recomputed in the backward pass
 Served and trained here: the decoder families of ``"attn"``, ``"local"``
 and ``"mamba"`` layers (Mamba2 SSD mixers: mamba2, and jamba's hybrid of
 both) with a gated MLP or a top-k MoE (its aux losses summed over the
-layers into the training loss), on text input.  A Mamba layer's cache is
-its conv window and its SSM state (``{"conv", "ssm"}``) where an attention
-layer has its ring.  The whisper encoder and the vision and audio stubs
-raise ``NotImplementedError`` when a model is built (ROADMAP queue 1,
-item 4e).
+layers into the training loss).  A Mamba layer's cache is its conv window
+and its SSM state (``{"conv", "ssm"}``) where an attention layer has its
+ring.  Besides text, the two modality stubs:
+
+* ``"audio_stub"`` (whisper): a bidirectional encoder over the batch's
+  precomputed frame embeddings (``encoder_embeds``, (B, T, d)), one layer
+  at a time (:func:`_encode`), whose output every decoder layer reads by
+  cross-attention after its self-attention.  Prefill stores it in the
+  cache (``enc_out``) and each decode step attends to it again, its K and
+  V projected anew in every layer at every step, as the reference does.
+* ``"vision_stub"`` (qwen2-vl): the batch's patch embeddings
+  (``patch_embeds``, (B, P, d)) go before the tokens; positions are the
+  caller's M-RoPE positions (``positions``, (B, P + S, 3)) or 0..P+S-1 on
+  all three sections.  Logits cover the tokens only, and the cache's
+  ``len`` counts the patches too.
 """
 from __future__ import annotations
 
@@ -43,26 +53,20 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
 # parameter groups that are matrices, cast to the activation type at load
-# (the MoE's nested ``shared`` group too), and the leaves of those groups
+# (the MoE's nested ``shared`` group too; ``cross``: a decoder layer's
+# cross-attention onto the encoder), and the leaves of those groups
 # that stay f32: the router (the reference routes on its f32 master), a
 # Mamba mixer's ``A_log`` and ``dt_bias`` (the reference exponentiates the
 # one and adds the other in f32) and its nested norm's ``scale``
-_MATRICES = ("mixer", "mlp", "moe")
+_MATRICES = ("mixer", "cross", "mlp", "moe")
 _F32_LEAVES = ("router", "A_log", "dt_bias", "scale")
 # nested groups a layer group may hold: the MoE's shared experts, a Mamba
 # mixer's gated norm
 _NESTED = {"moe": "shared", "mixer": "norm"}
 # the MoE's aux losses, each summed over the layers (``forward_train``)
 MOE_AUX = ("moe_lb", "moe_z")
-
-
-def check_served(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family this slice does not
-    serve, naming the ROADMAP item that will."""
-    if cfg.encoder is not None or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder and the {cfg.frontend!r} frontend are "
-            f"not ported yet (ROADMAP queue 1, item 4e)")
+# a layer's parameter groups, in the order the model holds them
+_GROUPS = ("norm1", "mixer", "norm_cross", "cross", "norm2", "mlp", "moe")
 
 
 def _moe_at(cfg: ModelConfig, pos: int) -> bool:
@@ -73,12 +77,15 @@ def _moe_at(cfg: ModelConfig, pos: int) -> bool:
 
 def _position_init(generator, cfg: ModelConfig, pos: int, device) -> dict:
     """One layer's f32 parameters at period position ``pos``: a Mamba2
-    mixer at a ``"mamba"`` position, attention elsewhere (the
-    cross-attention group comes with item 4e)."""
+    mixer at a ``"mamba"`` position, attention elsewhere, then (in an
+    encoder-decoder model) the cross-attention and its norm."""
     p = {"norm1": L.rmsnorm_init(cfg.d_model, device),
          "mixer": (L.mamba_init(generator, cfg, device)
                    if cfg.pattern[pos] == "mamba"
                    else L.attention_init(generator, cfg, device))}
+    if cfg.encoder is not None:
+        p["norm_cross"] = L.rmsnorm_init(cfg.d_model, device)
+        p["cross"] = L.attention_init(generator, cfg, device)
     if _moe_at(cfg, pos):
         p["norm2"] = L.rmsnorm_init(cfg.d_model, device)
         p["moe"] = L.moe_init(generator, cfg.d_model, cfg.moe, device)
@@ -86,6 +93,15 @@ def _position_init(generator, cfg: ModelConfig, pos: int, device) -> dict:
         p["norm2"] = L.rmsnorm_init(cfg.d_model, device)
         p["mlp"] = L.mlp_init(generator, cfg.d_model, cfg.d_ff, device)
     return p
+
+
+def _encoder_layer_init(generator, cfg: ModelConfig, device) -> dict:
+    """One encoder layer's f32 parameters: norm, attention, norm, gated
+    MLP."""
+    return {"norm1": L.rmsnorm_init(cfg.d_model, device),
+            "mixer": L.attention_init(generator, cfg, device),
+            "norm2": L.rmsnorm_init(cfg.d_model, device),
+            "mlp": L.mlp_init(generator, cfg.d_model, cfg.d_ff, device)}
 
 
 def _leaf_type(group: str, name: str, dtype):
@@ -107,22 +123,23 @@ def _cast_group(group: str, leaves: dict, fn) -> dict:
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator], *,
                 device=None, dtype: Optional[torch.dtype] = None) -> dict:
     """Random parameters from ``generator`` (on ``device``; None: torch's
-    default generator), drawn in f32 layer by layer: ``{"embed", "final_norm", "layers": [...],
-    "lm_head"?}``.  With ``dtype`` each matrix is cast to it as soon as it
-    is drawn (the norms stay f32), so a bf16 model never holds its f32
-    weights whole; the values are those of the f32 draw, cast."""
-    check_served(cfg)
-
+    default generator), drawn in f32 layer by layer: ``{"embed",
+    "final_norm", "layers": [...], "lm_head"?, "encoder"?}``, the encoder's
+    ``{"layers": [...], "final_norm"}`` drawn last.  With ``dtype`` each
+    matrix is cast to it as soon as it is drawn (the norms stay f32), so a
+    bf16 model never holds its f32 weights whole; the values are those of
+    the f32 draw, cast."""
     def cast(t):
         return t if dtype is None else t.to(dtype)
 
-    layers = []
-    for i in range(cfg.n_layers):
-        p = _position_init(generator, cfg, i % cfg.period, device)
-        layers.append({g: _cast_group(
-            g, leaves, lambda t, n, g=g: t if dtype is None
-            else t.to(_leaf_type(g, n, dtype)))
-            for g, leaves in p.items()})
+    def cast_layer(p):
+        return {g: _cast_group(g, leaves, lambda t, n, g=g: t if dtype is None
+                               else t.to(_leaf_type(g, n, dtype)))
+                for g, leaves in p.items()}
+
+    layers = [cast_layer(_position_init(generator, cfg, i % cfg.period,
+                                        device))
+              for i in range(cfg.n_layers)]
     params = {"embed": cast(L._embed_init(generator, (cfg.vocab, cfg.d_model),
                                           device)),
               "final_norm": L.rmsnorm_init(cfg.d_model, device),
@@ -130,6 +147,11 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator], *,
     if not cfg.tie_embeddings:
         params["lm_head"] = cast(L._dense_init(
             generator, (cfg.vocab, cfg.d_model), in_axis=-1, device=device))
+    if cfg.encoder is not None:
+        params["encoder"] = {
+            "layers": [cast_layer(_encoder_layer_init(generator, cfg, device))
+                       for _ in range(cfg.encoder.n_layers)],
+            "final_norm": L.rmsnorm_init(cfg.d_model, device)}
     return params
 
 
@@ -138,9 +160,11 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """One layer: norm, attention or a Mamba2 mixer, norm, then a gated
+    """One layer: norm, attention or a Mamba2 mixer, (in an
+    encoder-decoder model) norm and cross-attention, norm, then a gated
     MLP or a top-k MoE (neither where ``d_ff`` is 0 and the layer is not
-    an MoE one)."""
+    an MoE one).  An encoder layer is a Block of norm, attention, norm and
+    MLP."""
 
     def __init__(self, p: dict, cfg: ModelConfig, pos: int, dtype, device):
         super().__init__()
@@ -154,11 +178,8 @@ class Block(nn.Module):
                 n: _frozen(t.to(device=device,
                                 dtype=_leaf_type(name, n, dtype)))
                 for n, t in leaves.items() if not isinstance(t, dict)})
-        self.norm1 = group("norm1", p.get("norm1"))
-        self.mixer = group("mixer", p.get("mixer"))
-        self.norm2 = group("norm2", p.get("norm2"))
-        self.mlp = group("mlp", p.get("mlp"))
-        self.moe = group("moe", p.get("moe"))
+        for name in _GROUPS:
+            setattr(self, name, group(name, p.get(name)))
         # nested groups, held flat beside their parents
         self.moe_shared = group("moe", p.get("moe", {}).get("shared"))
         self.mixer_norm = group("mixer", p.get("mixer", {}).get("norm"))
@@ -168,8 +189,7 @@ class Block(nn.Module):
         """The layer's parameter groups by name, as in the parameter
         tree (the MoE's ``shared`` nested in ``moe``, a Mamba mixer's
         ``norm`` in ``mixer``)."""
-        out = {n: g for n in ("norm1", "mixer", "norm2", "mlp", "moe")
-               if (g := getattr(self, n)) is not None}
+        out = {n: g for n in _GROUPS if (g := getattr(self, n)) is not None}
         for name, sub in _NESTED.items():
             nested = getattr(self, f"{name}_{sub}")
             if nested is not None:
@@ -178,7 +198,8 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """A dense decoder on one device, in ``cfg.activation_dtype``.
+    """A decoder (with whisper's encoder) on one device, in
+    ``cfg.activation_dtype``.
 
     ``params``: the port's parameter tree (:func:`init_params`, or
     :func:`repro_torch.models.convert.params_from_jax` for the reference's
@@ -186,12 +207,15 @@ class Transformer(nn.Module):
     seeded with ``seed`` on the device.  ``device=None`` is the GPU (and
     raises without one).  ``use_kernel=False`` keeps prefill's attention
     on the plain route on the GPU too.
+
+    A batch is ``{"tokens": (B, S)}`` plus the modality stub's inputs:
+    ``encoder_embeds`` (B, T, d) for whisper, ``patch_embeds`` (B, P, d)
+    and optionally ``positions`` (B, P + S, 3) for qwen2-vl.
     """
 
     def __init__(self, cfg: ModelConfig, params: Optional[dict] = None, *,
                  device=None, seed: int = 0, use_kernel: bool = True):
         super().__init__()
-        check_served(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.use_kernel = use_kernel
@@ -200,8 +224,7 @@ class Transformer(nn.Module):
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_params(cfg, gen, device=self.device, dtype=dt)
         self.embed = _frozen(params["embed"].to(device=self.device, dtype=dt))
-        self.final_norm = nn.ParameterDict({"scale": _frozen(
-            params["final_norm"]["scale"].to(self.device, torch.float32))})
+        self.final_norm = _norm(params["final_norm"], self.device)
         self.lm_head = (None if cfg.tie_embeddings else _frozen(
             params["lm_head"].to(device=self.device, dtype=dt)))
         self.layers = nn.ModuleList(
@@ -210,6 +233,16 @@ class Transformer(nn.Module):
         if len(self.layers) != cfg.n_layers:
             raise ValueError(f"{cfg.name}: {len(self.layers)} layers given, "
                              f"the config has {cfg.n_layers}")
+        self.encoder = self.encoder_norm = None
+        if cfg.encoder is not None:
+            enc = params["encoder"]
+            self.encoder = nn.ModuleList(Block(p, cfg, 0, dt, self.device)
+                                         for p in enc["layers"])
+            self.encoder_norm = _norm(enc["final_norm"], self.device)
+            if len(self.encoder) != cfg.encoder.n_layers:
+                raise ValueError(
+                    f"{cfg.name}: {len(self.encoder)} encoder layers given, "
+                    f"the config has {cfg.encoder.n_layers}")
 
     @property
     def head(self) -> torch.Tensor:
@@ -219,32 +252,51 @@ class Transformer(nn.Module):
     def n_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
+    def encode(self, embeds) -> torch.Tensor:
+        """The encoder's output (B, T, d) in the activation type for frame
+        embeddings ``embeds`` (B, T, d)."""
+        return _encode([b.params for b in self.encoder], self.encoder_norm,
+                       self.cfg, _floats(embeds, self.device),
+                       use_kernel=self.use_kernel)
+
+    def _inputs(self, batch: dict):
+        return _prepare_inputs(self.embed, self.cfg, batch, self.device,
+                               self.encode)
+
     def forward(self, batch: dict) -> torch.Tensor:
-        """Logits (B, S, V) in f32 at every position of ``batch["tokens"]``:
-        the full forward the reference's cache tests compare with."""
-        x, positions = _prepare_inputs(self, self.cfg, batch)
-        x = _stack(self, x, positions, use_kernel=self.use_kernel)
+        """Logits (B, S, V) in f32 at every position of ``batch["tokens"]``
+        (the patches' positions left out): the full forward the
+        reference's cache tests compare with."""
+        x, positions, enc_out, pad, own = self._inputs(batch)
+        x = _stack(self, x, positions, enc_out=enc_out,
+                   use_kernel=self.use_kernel, index_positions=own)
         x = L.rmsnorm(self.final_norm, x, self.cfg.norm_eps)
-        return _lm_logits(self.head, self.cfg, x)
+        return _lm_logits(self.head, self.cfg, x[:, pad:])
 
     def prefill(self, batch: dict, max_seq: int):
-        """Run the prompt through the stack, returning (last_logits (B,1,V)
-        f32, cache)."""
+        """Run the prompt (and the patches before it) through the stack,
+        returning (last_logits (B,1,V) f32, cache); an encoder-decoder
+        model's cache also holds the encoder's output."""
         cfg = self.cfg
-        x, positions = _prepare_inputs(self, cfg, batch)
+        x, positions, enc_out, _, own = self._inputs(batch)
         b, s = x.shape[0], x.shape[1]
         cache = init_cache(cfg, b, max_seq, device=self.device)
         layer_caches = _with_write_idx(cache["layers"], 0)
-        x = _stack(self, x, positions, caches=layer_caches,
-                   use_kernel=self.use_kernel)
+        x = _stack(self, x, positions, enc_out=enc_out, caches=layer_caches,
+                   use_kernel=self.use_kernel, index_positions=own)
         x = L.rmsnorm(self.final_norm, x, cfg.norm_eps)
         logits = _lm_logits(self.head, cfg, x[:, -1:, :])
         cache["len"] = s
+        if enc_out is not None:
+            cache["enc_out"] = enc_out.to(cfg.activation_dtype)
         return logits, cache
 
-    def decode_step(self, cache: dict, tokens):
+    def decode_step(self, cache: dict, tokens,
+                    batch_extras: Optional[dict] = None):
         """One decode step: tokens (B, 1).  Returns (logits (B,1,V) f32,
-        cache), the cache updated in place."""
+        cache), the cache updated in place.  An encoder-decoder model
+        attends to the cache's ``enc_out``, or where the cache has none to
+        the encoding of ``batch_extras["encoder_embeds"]``."""
         cfg = self.cfg
         tokens = _tokens(tokens, self.device)
         b = tokens.shape[0]
@@ -253,8 +305,14 @@ class Transformer(nn.Module):
         shape = (b, 1, 3) if cfg.rope == "mrope" else (b, 1)
         positions = torch.full(shape, pos_scalar, dtype=torch.int32,
                                device=self.device)
+        enc_out = None
+        if cfg.frontend == "audio_stub":
+            if "enc_out" in cache:      # stored at prefill (no re-encode)
+                enc_out = cache["enc_out"]
+            elif batch_extras is not None:
+                enc_out = self.encode(batch_extras["encoder_embeds"])
         layer_caches = _with_write_idx(cache["layers"], pos_scalar)
-        x = _stack(self, x, positions, caches=layer_caches,
+        x = _stack(self, x, positions, enc_out=enc_out, caches=layer_caches,
                    use_kernel=self.use_kernel)
         x = L.rmsnorm(self.final_norm, x, cfg.norm_eps)
         logits = _lm_logits(self.head, cfg, x)
@@ -262,18 +320,30 @@ class Transformer(nn.Module):
         return logits, cache
 
 
+def _norm(leaves: dict, device) -> nn.ParameterDict:
+    return nn.ParameterDict({"scale": _frozen(
+        leaves["scale"].to(device, torch.float32))})
+
+
 # ---------------------------------------------------------------- blocks
 
 def _apply_position(p: dict, kind: str, window: int, x, u, positions,
-                    cfg: ModelConfig, cache=None, use_kernel: bool = True):
+                    cfg: ModelConfig, cache=None, use_kernel: bool = True,
+                    enc_out=None, causal: bool = True,
+                    index_positions: bool = True):
     """One layer of ``kind`` (``"attn"``, ``"local"`` or ``"mamba"``) with
-    parameter groups ``p`` (``norm1``, ``mixer``, and ``norm2`` with
-    ``moe`` or ``mlp``) and sliding ``window`` (0: global).  ``cache``: the
-    layer's ring, or its conv and SSM states for a Mamba layer; it is
-    written in place.  ``x`` is its input in the activation type, ``u``
-    the same value in f32 as the layer's first norm reads it.  Returns
-    both for the layer's output, and the MoE's aux losses (``{}`` for
-    other layers).
+    parameter groups ``p`` (``norm1``, ``mixer``, ``norm_cross`` and
+    ``cross`` in a decoder layer of an encoder-decoder model, and
+    ``norm2`` with ``moe`` or ``mlp``) and sliding ``window`` (0: global).
+    ``cache``: the layer's ring, or its conv and SSM states for a Mamba
+    layer; it is written in place.  ``enc_out``: the encoder's output,
+    which the ``cross`` group attends to after the self-attention, with no
+    mask and no RoPE.  ``causal=False``: the encoder's bidirectional
+    self-attention.  ``index_positions``: the positions are 0..s-1
+    (:func:`layers.attention_apply`).  ``x`` is its input in the
+    activation type, ``u`` the same value in f32 as the layer's first norm
+    reads it.  Returns both for the layer's output, and the MoE's aux
+    losses (``{}`` for other layers).
 
     Inside one compiled block the reference's residual sums reach the next
     norm unrounded (its compiler keeps the f32 sum of two bf16 values),
@@ -286,10 +356,17 @@ def _apply_position(p: dict, kind: str, window: int, x, u, positions,
         h, _ = L.mamba_apply(p["mixer"], normed, cfg, cache=cache)
     else:
         h, _ = L.attention_apply(p["mixer"], normed, positions, cfg,
-                                 window=window, cache=cache,
-                                 use_kernel=use_kernel)
+                                 window=window, cache=cache, causal=causal,
+                                 use_kernel=use_kernel,
+                                 index_positions=index_positions)
     u = x.to(torch.float32) + h.to(torch.float32)
     x = u.to(dt)
+    if enc_out is not None and "cross" in p:
+        h, _ = L.attention_apply(
+            p["cross"], L.rmsnorm(p["norm_cross"], u, cfg.norm_eps).to(dt),
+            positions, cfg, kv_x=enc_out, causal=False, use_kernel=use_kernel)
+        u = x.to(torch.float32) + h.to(torch.float32)
+        x = u.to(dt)
     aux = {}
     if "moe" in p:
         h, aux = L.moe_apply(p["moe"], L.rmsnorm(p["norm2"], u, cfg.norm_eps)
@@ -303,8 +380,8 @@ def _apply_position(p: dict, kind: str, window: int, x, u, positions,
     return x, u, aux
 
 
-def _stack(model: Transformer, x, positions, caches=None,
-           use_kernel: bool = True):
+def _stack(model: Transformer, x, positions, enc_out=None, caches=None,
+           use_kernel: bool = True, index_positions: bool = True):
     """Every layer in order.  ``caches``: one ring per layer (written in
     place), or None.  A period block starts from its input rounded to the
     activation type, as the reference's scan carries it."""
@@ -315,15 +392,47 @@ def _stack(model: Transformer, x, positions, caches=None,
         x, u, _ = _apply_position(p.params, p.kind, p.window, x, u,
                                   positions, cfg,
                                   cache=None if caches is None else caches[i],
-                                  use_kernel=use_kernel)
+                                  use_kernel=use_kernel, enc_out=enc_out,
+                                  index_positions=index_positions)
     return x
+
+
+def _encoder_layer(x, positions, p: dict, cfg: ModelConfig,
+                   use_kernel: bool = True):
+    """One encoder layer: bidirectional self-attention and the gated MLP,
+    from its input in the activation type (the reference's scan carries
+    it rounded at every layer)."""
+    x, _, _ = _apply_position(p, "attn", 0, x, x.to(torch.float32),
+                              positions, cfg, use_kernel=use_kernel,
+                              causal=False)
+    return x
+
+
+def _encode(layers: list, final_norm, cfg: ModelConfig, embeds, *,
+            use_kernel: bool = True, remat: bool = False):
+    """The bidirectional (whisper) encoder over precomputed frame
+    embeddings ``embeds`` (B, T, d), cast to the activation type: each
+    layer in turn at positions 0..T-1, then the final norm.  ``remat``
+    recomputes each layer in the backward pass (see
+    :func:`forward_train`)."""
+    x = embeds.to(cfg.activation_dtype)
+    b, t = x.shape[:2]
+    positions = torch.arange(t, dtype=torch.int32,
+                             device=x.device)[None, :].expand(b, t)
+    for p in layers:
+        if remat:
+            x = checkpoint(_encoder_layer, x, positions, p, cfg,
+                           use_reentrant=False)
+        else:
+            x = _encoder_layer(x, positions, p, cfg, use_kernel)
+    return L.rmsnorm(final_norm, x, cfg.norm_eps)
 
 
 def _window(cfg: ModelConfig, pos: int) -> int:
     return cfg.window if cfg.pattern[pos] == "local" else 0
 
 
-def _period_block(x, aux_sum: dict, positions, layers: list,
+def _period_block(x, aux_sum: dict, positions, enc_out, layers: list,
                   cfg: ModelConfig):
     """One period block of the training stack: its layers in order, from
     the block's input rounded to the activation type, as the reference's
@@ -333,7 +442,7 @@ def _period_block(x, aux_sum: dict, positions, layers: list,
     aux_sum = dict(aux_sum)
     for pos, p in enumerate(layers):
         x, u, aux = _apply_position(p, cfg.pattern[pos], _window(cfg, pos),
-                                    x, u, positions, cfg)
+                                    x, u, positions, cfg, enc_out=enc_out)
         for k, v in aux.items():
             aux_sum[k] = aux_sum[k] + v
     return x, aux_sum
@@ -343,35 +452,44 @@ def forward_train(params: dict, batch: dict, cfg: ModelConfig, *,
                   remat: bool = True):
     """Next-token cross-entropy of the parameter tree ``params`` (the
     port's layout; f32 masters, cast at use).  ``batch``: ``tokens`` and
-    ``labels`` (B, S), a label of -1 masked out.  Returns (loss, metrics):
-    the mean over the unmasked tokens of logsumexp(logits) minus the gold
-    logit, in f32, and ``{"ce", "ntokens"}``.  An MoE model adds each aux
-    loss summed over its layers (from f32 zeros, layer by layer) over the
-    layer count to the loss, and reports the sums as ``moe_lb`` and
-    ``moe_z``.  ``remat`` recomputes each period block in the backward
-    pass instead of keeping its activations.
-    Attention takes the plain route wherever autograd records the forward
-    (``layers.kernel_route``)."""
-    check_served(cfg)
+    ``labels`` (B, S), a label of -1 masked out, and the modality stub's
+    inputs (``encoder_embeds``; ``patch_embeds`` and optionally
+    ``positions``).  Returns (loss, metrics): the mean over the unmasked
+    tokens of logsumexp(logits) minus the gold logit, in f32, over the
+    tokens' positions only (the patches' are left out), and ``{"ce",
+    "ntokens"}``.  An MoE model adds each aux loss summed over its layers
+    (from f32 zeros, layer by layer) over the layer count to the loss, and
+    reports the sums as ``moe_lb`` and ``moe_z``.
+
+    ``remat`` recomputes each period block in the backward pass instead of
+    keeping its activations, as the reference's ``jax.checkpoint`` does,
+    and each encoder layer too, where the reference's encoder scan keeps
+    its activations: at whisper-large-v3's 4 x 1500 frames the plain
+    attention's f32 scores and probabilities would keep ~2.5 GB a layer
+    for the backward pass, ~80 GB over 32 layers.  Recomputation changes
+    no number.  Attention takes the plain route wherever autograd records
+    the forward (``layers.kernel_route``)."""
     device = params["embed"].device
-    tokens = _tokens(batch["tokens"], device)
-    x = _embed_tokens(params["embed"], cfg, tokens)
-    b, s = tokens.shape
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=device)[None, :].expand(b, s)
+    enc = params.get("encoder")
+
+    def encode(embeds):
+        return _encode(enc["layers"], enc["final_norm"], cfg,
+                       _floats(embeds, device), remat=remat)
+    x, positions, enc_out, pad, _ = _prepare_inputs(params["embed"], cfg,
+                                                    batch, device, encode)
     layers = params["layers"]
     aux = ({k: torch.zeros((), dtype=torch.float32, device=device)
             for k in MOE_AUX} if cfg.moe is not None else {})
     for start in range(0, cfg.n_layers, cfg.period):
         block = layers[start:start + cfg.period]
         if remat:
-            x, aux = checkpoint(_period_block, x, aux, positions, block, cfg,
-                                use_reentrant=False)
+            x, aux = checkpoint(_period_block, x, aux, positions, enc_out,
+                                block, cfg, use_reentrant=False)
         else:
-            x, aux = _period_block(x, aux, positions, block, cfg)
+            x, aux = _period_block(x, aux, positions, enc_out, block, cfg)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    logits = _lm_logits(head, cfg, x)                        # (B,S,V) f32
+    logits = _lm_logits(head, cfg, x[:, pad:])               # (B,S,V) f32
 
     labels = _tokens(batch["labels"], device)
     mask = (labels >= 0).to(torch.float32)
@@ -395,6 +513,14 @@ def _tokens(tokens, device) -> torch.Tensor:
     return tokens.to(device=device, dtype=torch.int64)
 
 
+def _floats(a, device) -> torch.Tensor:
+    """Embeddings (a tensor, or any array ``np.asarray`` takes, bf16 ones
+    included) on ``device``, f32 unless a tensor of another float type."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.as_tensor(np.asarray(a, dtype=np.float32))
+    return a.to(device)
+
+
 def _embed_tokens(embed, cfg: ModelConfig, tokens):
     """The embedding cast to the activation type, then gathered."""
     x = embed.to(cfg.activation_dtype)[tokens]
@@ -416,14 +542,33 @@ def _lm_logits(head, cfg: ModelConfig, x):
     return logits
 
 
-def _prepare_inputs(model: Transformer, cfg: ModelConfig, batch: dict):
-    """Token embeds and their positions 0..S-1 (text input only)."""
-    tokens = _tokens(batch["tokens"], model.device)
-    x = _embed_tokens(model.embed, cfg, tokens)
+def _prepare_inputs(embed, cfg: ModelConfig, batch: dict, device, encode):
+    """Token embeds and the modality stubs -> (x, positions, enc_out, pad,
+    own): the patches (vision stub) before the tokens, ``pad`` of them;
+    the encoder's output ``encode(batch["encoder_embeds"])`` (audio stub;
+    else None); the batch's ``positions``, or 0..len-1 (on all three
+    M-RoPE sections under the vision stub), ``own`` telling which."""
+    tokens = _tokens(batch["tokens"], device)
+    x = _embed_tokens(embed, cfg, tokens)
     b, s = tokens.shape
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=model.device)[None, :].expand(b, s)
-    return x, positions
+    positions = batch.get("positions")
+    enc_out, pad = None, 0
+    if cfg.frontend == "vision_stub":
+        patches = _floats(batch["patch_embeds"], device).to(x.dtype)
+        x = torch.cat([patches, x], dim=1)
+        pad = patches.shape[1]
+    elif cfg.frontend == "audio_stub":
+        enc_out = encode(batch["encoder_embeds"])
+    own = positions is None
+    if own:
+        n = x.shape[1]
+        positions = torch.arange(n, dtype=torch.int32, device=device)
+        positions = (positions[None, :, None].expand(b, n, 3)
+                     if cfg.frontend == "vision_stub"
+                     else positions[None, :].expand(b, n))
+    else:
+        positions = _tokens(positions, device).to(torch.int32)
+    return x, positions, enc_out, pad, own
 
 
 # ---------------------------------------------------------------- serving
@@ -438,8 +583,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device=None) -> dict:
     """Allocate the decode cache: a KV ring per attention layer, every slot
     empty (``pos`` -1), and a Mamba layer's conv window (B, cw - 1, ch) in
-    ``dtype`` and SSM state (B, nh, p, n) in f32, zeros."""
+    ``dtype`` and SSM state (B, nh, p, n) in f32, zeros; under the audio
+    stub the encoder's output (B, T, d), zeros until prefill writes it."""
     dtype = dtype or cfg.activation_dtype
+    extra = {}
+    if cfg.frontend == "audio_stub":
+        extra["enc_out"] = torch.zeros(
+            (batch, cfg.encoder.seq_len, cfg.d_model), dtype=dtype,
+            device=device)
     layers = []
     for i in range(cfg.n_layers):
         if cfg.pattern[i % cfg.period] == "mamba":
@@ -463,7 +614,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                               device=device),
             "write_idx": 0,
         })
-    return {"layers": layers, "len": 0}
+    return {"layers": layers, "len": 0, **extra}
 
 
 def _with_write_idx(layer_caches: list, pos_scalar: int) -> list:

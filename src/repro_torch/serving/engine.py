@@ -37,12 +37,25 @@ class ServeEngine:
     """Serve ``cfg`` with the port's parameter tree ``params`` (None: weights
     drawn from a generator seeded with ``seed``).  The model is built on
     ``device`` (None: the GPU, raising without one); ``use_kernel=False``
-    keeps prefill's attention off the flash kernels."""
+    keeps prefill's attention off the flash kernels.
+
+    The engine passes tokens only, as the reference's does, so it refuses
+    a config with a modality stub (whisper's encoder frames, qwen2-vl's
+    patches) with a ``ValueError``: the reference's engine would fail in
+    its first prefill with a ``KeyError``.  Serve those through
+    ``repro_torch.launch.make_prefill`` and ``make_decode_step``."""
 
     def __init__(self, params: Optional[dict], cfg: ModelConfig,
                  batch_slots: int = 4, max_seq: int = 256,
                  greedy: bool = True, *, device=None, use_kernel: bool = True,
                  seed: int = 0):
+        if cfg.frontend != "none":
+            needs = ("encoder_embeds" if cfg.frontend == "audio_stub"
+                     else "patch_embeds")
+            raise ValueError(
+                f"{cfg.name}: ServeEngine passes tokens only, and the "
+                f"{cfg.frontend!r} frontend needs {needs}; serve it through "
+                f"repro_torch.launch.make_prefill and make_decode_step")
         self.model = Transformer(cfg, params, device=device, seed=seed,
                                  use_kernel=use_kernel)
         self.B = batch_slots

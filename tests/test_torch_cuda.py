@@ -8,12 +8,14 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_f64,
+                                                     flash_attention_ref)
 from repro_torch.kernels.polyfit import ops as poly_ops
 from repro_torch.kernels.polyfit.ref import polyfit_ref
 from repro_torch.kernels.stream_stats import ops as ss_ops
 from repro_torch.kernels.stream_stats.ref import (fleet_stats_ref,
                                                   stream_stats_ref)
+from repro_torch.launch.train import random_stub_inputs
 
 # the one-window kernel's Gram f32 tolerance, as in
 # tests/test_kernel_stream_stats.py; it holds for bf16 input too, since
@@ -879,21 +881,24 @@ def test_cuda_lm_prefill_refuses_a_head_dim_the_kernels_lack(cuda):
 # one-hot, multiplies the f32 rounding 3.7-fold; the other families stay
 # under 4.7e-4), and the step in f64 on the card equals the CPU's to f64
 # rounding, so the card's 1.2-1.3e-3 is f32 order, not a port fault
-# (``scripts/lm_grad_probe.py``; ROADMAP queue 3, note m).
+# (``scripts/lm_grad_probe.py``; ROADMAP queue 3, note m).  The stub
+# families' batches carry seeded normal frames or patches.
 TRAIN_B, TRAIN_S, TRAIN_LR = 2, 24, 1e-3
+STUB_ARCHS = ["whisper-large-v3", "qwen2-vl-2b"]
 TRAIN_ARCHS = LM_ARCHS + ["deepseek-moe-16b", "qwen3-moe-30b-a3b",
-                          "mamba2-780m", "jamba-1-5-large-398b"]
+                          "mamba2-780m", "jamba-1-5-large-398b"] + STUB_ARCHS
 TRAIN_GRAD_LIMIT = {"gemma3-12b": 2e-3}
 
 
-def _train_batch(vocab):
+def _train_batch(cfg):
     import numpy as np
     rng = np.random.default_rng(1)
-    tokens = rng.integers(0, vocab, (TRAIN_B, TRAIN_S)).astype(np.int32)
-    labels = rng.integers(0, vocab, (TRAIN_B, TRAIN_S)).astype(np.int32)
+    tokens = rng.integers(0, cfg.vocab, (TRAIN_B, TRAIN_S)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab, (TRAIN_B, TRAIN_S)).astype(np.int32)
     labels[0, :5] = -1
     labels[1, -3:] = -1
-    return {"tokens": tokens, "labels": labels}
+    return {"tokens": tokens, "labels": labels,
+            **random_stub_inputs(cfg, TRAIN_B, rng)}
 
 
 def _train_state(cfg, device):
@@ -924,7 +929,7 @@ def test_cuda_lm_train_step_gives_every_leaf_a_gradient(cuda, arch):
     state = _train_state(cfg, cuda)
     step = make_train_step(cfg, cosine_schedule(TRAIN_LR, 0, 10))
     before = fa_ops.LAUNCHES
-    loss, _, grads = step.loss_and_grads(state, _train_batch(cfg.vocab))
+    loss, _, grads = step.loss_and_grads(state, _train_batch(cfg))
     torch.cuda.synchronize()
     assert fa_ops.LAUNCHES == before            # the plain route
     assert torch.isfinite(loss)
@@ -943,7 +948,7 @@ def test_cuda_lm_f32_train_step_matches_cpu(cuda, arch):
     from repro_torch.models import layers as lm_layers
     from repro_torch.optim import cosine_schedule, tree_leaves
     cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
-    batch = _train_batch(cfg.vocab)
+    batch = _train_batch(cfg)
     runs = {}
     dispatch = lm_layers.moe_dispatch
     for dev in ("cpu", cuda):
@@ -1152,3 +1157,144 @@ def test_cuda_mamba_prefill_launches_row4_once_per_attention_layer(cuda,
     torch.cuda.synchronize()
     assert fa_ops.SM90_LAUNCHES - before[1] == n_attn
     assert torch.isfinite(logits).all() and cache["len"] == 43
+
+
+# The stub families (whisper smoke: an encoder of 2 layers over 30 frames
+# and cross-attention in each of 2 decoder layers; qwen2-vl smoke: 16
+# patches before the tokens).  A prefill launches row 4 once in every
+# encoder layer (not causal), and twice in every decoder layer: its
+# self-attention (causal) and its cross-attention onto the encoder's
+# output (not causal, T 30 keys); qwen2-vl once a layer at its own
+# positions, never at a caller's (the kernels mask by index).  Each
+# kernel output against its plain version on the layer's own q, k, v.
+# Row 4 also at whisper-large-v3's full encoder and cross shapes.
+@pytest.mark.cuda
+@pytest.mark.parametrize("positions", ["own", "caller"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", STUB_ARCHS)
+def test_cuda_stub_prefill_kernel_route_matches_plain(cuda, arch, dtype,
+                                                      positions):
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer
+    from repro_torch.models import layers as lm_layers
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=dtype)
+    if positions == "caller" and cfg.frontend != "vision_stub":
+        pytest.skip("only qwen2-vl takes the caller's positions")
+    model = Transformer(cfg, device=cuda, seed=5)
+    rng = np.random.default_rng(6)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (3, 40)),
+             **random_stub_inputs(cfg, 3, rng)}
+    if positions == "caller":
+        n = cfg.n_patches + 40
+        batch["positions"] = np.broadcast_to(
+            np.minimum(np.arange(n), n - 8)[None, :, None], (3, n, 3)).copy()
+    seen = []
+    kernel = lm_layers.flash_attention
+
+    def spy(q, k, v, **kw):
+        out = kernel(q, k, v, **kw)
+        seen.append((q, k, v, kw, out))
+        return out
+    before = (fa_ops.LAUNCHES, fa_ops.SM90_LAUNCHES)
+    lm_layers.flash_attention = spy
+    try:
+        got, cache_k = model.prefill(batch, 64)
+    finally:
+        lm_layers.flash_attention = kernel
+    torch.cuda.synchronize()
+    n = (cfg.encoder.n_layers + 2 * cfg.n_layers if cfg.encoder is not None
+         else cfg.n_layers if positions == "own" else 0)
+    assert (fa_ops.LAUNCHES - before[0], fa_ops.SM90_LAUNCHES - before[1]) \
+        == (n, n if dtype == "bfloat16" else 0)
+    assert len(seen) == n and torch.isfinite(got).all()
+    if cfg.encoder is not None:
+        # encoder layers, then each decoder layer's self- and cross-step
+        want_causal = ([False] * cfg.encoder.n_layers
+                       + [True, False] * cfg.n_layers)
+        assert [kw["causal"] for *_, kw, _ in seen] == want_causal
+        assert all(k.shape[1] == cfg.encoder.seq_len
+                   for _, k, _, kw, _ in seen if not kw["causal"])
+    model.use_kernel = False
+    want, cache_p = model.prefill(batch, 64)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES - before[0] == n
+    for a, b in zip(cache_k["layers"], cache_p["layers"]):
+        assert torch.equal(a["pos"], b["pos"])
+    if dtype == "float32":
+        # the layers' own q, k, v give scores of ~100 and outputs of ~10,
+        # where the f32 kernel and the plain version each sit some 1e-5
+        # from the same attention in f64: the kernel at most twice as far
+        # off as the plain version (chip_smoke.py's f32 layer rule)
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+        for q, k, v, kw, out in seen:
+            exact = attention_f64(q, k, v, **kw)
+            plain = flash_attention_ref(q, k, v, **kw)
+            assert (out.double() - exact).abs().max() \
+                <= 2 * (plain.double() - exact).abs().max()
+        return
+    for q, k, v, kw, out in seen:
+        assert q.dtype == k.dtype == v.dtype == torch.bfloat16
+        _assert_bf16_close(out, flash_attention_ref(q, k, v, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["encoder", "cross", "self"])
+def test_cuda_flash_attention_at_whisper_full_shapes(cuda, case, dtype):
+    """whisper-large-v3's encoder self-attention (1500 frames, not causal),
+    its cross-attention of a 64-token prompt onto 1500 frames, and its
+    decoder's causal self-attention over that prompt, 20 heads of 64,
+    batch 2."""
+    s, t = {"encoder": (1500, 1500), "cross": (64, 1500),
+            "self": (64, 64)}[case]
+    causal = case == "self"
+    g = torch.Generator().manual_seed(11)
+    dt = getattr(torch, dtype)
+    q = torch.randn(2, s, 20, 64, generator=g).to(cuda, dt)
+    k = torch.randn(2, t, 20, 64, generator=g).to(cuda, dt)
+    v = torch.randn(2, t, 20, 64, generator=g).to(cuda, dt)
+    before = fa_ops.LAUNCHES
+    out = fa_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal)
+    if dtype == "float32":
+        assert (out - want).abs().max() <= FA_ATOL_F32
+    else:
+        _assert_bf16_close(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", STUB_ARCHS)
+def test_cuda_stub_decode_matches_cpu(cuda, arch):
+    """f32 smoke: prefill and 4 greedy decode steps on the card against
+    the CPU's (the same f32 draw), tokens equal; whisper's decode steps
+    attend to the cached ``enc_out`` on the plain route."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_decode_step, make_prefill
+    from repro_torch.models import Transformer, init_params
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(7))
+    rng = np.random.default_rng(8)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, 12)),
+             **random_stub_inputs(cfg, 2, rng)}
+    runs = {}
+    for dev in ("cpu", cuda):
+        model = Transformer(cfg, params, device=dev)
+        prefill, decode = make_prefill(cfg, 32), make_decode_step(cfg)
+        logits, cache = prefill(model, batch)
+        toks, last = [], [logits.cpu()]
+        for _ in range(4):
+            nxt = logits[:, -1].argmax(-1)[:, None]
+            toks.append(nxt.cpu())
+            logits, cache = decode(model, cache, {"tokens": nxt})
+            last.append(logits.cpu())
+        runs[str(dev)] = (torch.cat(toks, 1), last)
+    (t0, l0), (t1, l1) = runs["cpu"], runs[str(cuda)]
+    assert torch.equal(t0, t1)
+    for a, b in zip(l1, l0):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)

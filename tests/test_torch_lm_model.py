@@ -34,7 +34,9 @@ from repro_torch.configs import get_config
 from repro_torch.models import Transformer, init_params, params_from_jax
 
 DENSE = ["gemma3-12b", "yi-9b", "starcoder2-3b", "chatglm3-6b"]
-UNSERVED = {"whisper-large-v3": "4e", "qwen2-vl-2b": "4e"}
+# served since ROADMAP item 4e (test_torch_lm_encoder.py and
+# test_torch_lm_vision.py hold them to the reference)
+STUB_SERVED = ["qwen2-vl-2b", "whisper-large-v3"]
 # served since ROADMAP item 4d (test_torch_lm_mamba.py holds them to the
 # reference)
 MAMBA_SERVED = ["jamba-1-5-large-398b", "mamba2-780m"]
@@ -221,25 +223,30 @@ def test_note_k_reference_decode_differs_from_its_forward_past_the_ring():
     assert np.abs(ref_dec - ref_fwd).max() > 0.1
 
 
-@pytest.mark.parametrize("arch", sorted(UNSERVED) + MAMBA_SERVED)
+@pytest.mark.parametrize("arch", STUB_SERVED + MAMBA_SERVED)
 def test_unserved_families_raise(arch):
-    """The encoder and stub families raise naming item 4e; the Mamba
-    families, which raised naming 4d before it was ported, now build,
-    draw their parameters and take a prompt."""
+    """The families that raised at build before their items were ported
+    (the encoder and stub families: 4e; the Mamba families: 4d) now
+    build, draw their parameters and take a prompt, with their stub's
+    inputs (frames for whisper, patches before the tokens for qwen2-vl:
+    the cache's ``len`` counts them)."""
     cfg = get_config(arch, smoke=True)
-    if arch in MAMBA_SERVED:
-        model = Transformer(cfg, device="cpu")
-        assert len(init_params(cfg, torch.Generator().manual_seed(0))
-                   ["layers"]) == cfg.n_layers
-        logits, cache = model.prefill({"tokens": [[1, 2, 3, 4]]}, 8)
-        assert logits.shape == (1, 1, cfg.vocab)
-        assert torch.isfinite(logits).all() and cache["len"] == 4
-        return
-    item = UNSERVED[arch]
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        Transformer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        init_params(cfg, torch.Generator().manual_seed(0))
+    model = Transformer(cfg, device="cpu")
+    assert len(init_params(cfg, torch.Generator().manual_seed(0))
+               ["layers"]) == cfg.n_layers
+    batch = {"tokens": [[1, 2, 3, 4]]}
+    rng = np.random.default_rng(0)
+    if cfg.frontend == "audio_stub":
+        batch["encoder_embeds"] = rng.normal(
+            size=(1, cfg.encoder.seq_len, cfg.d_model))
+    if cfg.frontend == "vision_stub":
+        batch["patch_embeds"] = rng.normal(size=(1, cfg.n_patches,
+                                                 cfg.d_model))
+    logits, cache = model.prefill(batch, 32)
+    assert logits.shape == (1, 1, cfg.vocab)
+    assert torch.isfinite(logits).all()
+    assert cache["len"] == 4 + (cfg.n_patches
+                                if cfg.frontend == "vision_stub" else 0)
 
 
 @pytest.mark.parametrize("arch", DENSE)

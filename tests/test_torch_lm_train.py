@@ -168,16 +168,18 @@ def test_forward_train_loss_is_the_masked_mean_cross_entropy():
 
 @pytest.mark.parametrize("use_kernel", [True, False])
 @pytest.mark.parametrize("on_gpu", [True, False])
-@pytest.mark.parametrize("cross", [True, False])
+@pytest.mark.parametrize("index_positions", [True, False])
 @pytest.mark.parametrize("decode", [True, False])
 @pytest.mark.parametrize("differentiated", [True, False])
-def test_attention_route(use_kernel, on_gpu, cross, decode, differentiated):
-    """Only a prompt's self-attention on the GPU, allowed by the caller
+def test_attention_route(use_kernel, on_gpu, index_positions, decode,
+                         differentiated):
+    """Only a prompt's attention (self- or cross-attention) on the GPU,
+    allowed by the caller, at the positions 0..s-1 the kernels mask by,
     and not recorded by autograd, goes to the flash kernels."""
-    want = (use_kernel and on_gpu and not cross and not decode
+    want = (use_kernel and on_gpu and index_positions and not decode
             and not differentiated)
-    assert L.kernel_route(use_kernel=use_kernel, on_gpu=on_gpu, cross=cross,
-                          decode=decode,
+    assert L.kernel_route(use_kernel=use_kernel, on_gpu=on_gpu,
+                          index_positions=index_positions, decode=decode,
                           differentiated=differentiated) is want
 
 

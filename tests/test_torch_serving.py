@@ -144,6 +144,23 @@ def test_bf16_engine_serves_the_same_tokens_on_either_route():
     assert all(0 <= t < cfg.vocab for _, g, _ in runs[0] for t in g)
 
 
+@pytest.mark.parametrize("arch,needs", [
+    ("qwen2-vl-2b", "patch_embeds"), ("whisper-large-v3", "encoder_embeds")])
+def test_engine_refuses_the_stub_families(arch, needs):
+    """The engine passes tokens only, as the reference's does: the
+    reference's engine fails in its first prefill on the stub's missing
+    input, and the port's refuses such a config when it is built, naming
+    the input and the factories that serve it."""
+    rc = ref_config(arch, smoke=True)
+    ref = RefEngine(jax.tree.map(np.asarray, ref_init_params(
+        jax.random.PRNGKey(0), rc)), rc, batch_slots=2, max_seq=16)
+    ref.submit(RefRequest(rid=0, prompt=[1, 2, 3], max_new_tokens=2))
+    with pytest.raises(KeyError, match=needs):
+        ref.run()
+    with pytest.raises(ValueError, match=f"{needs}.*make_prefill"):
+        ServeEngine(None, get_config(arch, smoke=True), device="cpu")
+
+
 def test_engine_defaults_to_the_gpu():
     cfg = get_config("gemma3-12b", smoke=True)
     if torch.cuda.is_available():

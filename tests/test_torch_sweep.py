@@ -4,7 +4,9 @@
   ``Drift`` rows on the same inputs, under each tolerance class.
 * The committed port-owned reports (``tests/torch_goldens/reports/``)
   are what the live reference gives now, regenerated through
-  ``scripts/torch_reference_reports.py``.
+  ``scripts/torch_reference_reports.py`` (``check_live_reference``, run
+  by ``test_torch_sweep_live_scan.py``, ``..._live_fleet_event.py`` and
+  ``..._live_single_event.py``, one group of goldens each).
 * ``python -m repro_torch.sweep --check --filter scan --device cpu``
   checks the seven scan goldens the port runs, each in its own class, and
   names the one it cannot run yet; with no filter it checks those, the
@@ -154,27 +156,40 @@ def test_diff_reports_is_the_reference_diff(tolerance):
         diff.diff_reports(dict(golden, tolerance="loose"), current)
 
 
-def test_committed_reports_are_the_live_reference(tmp_path):
-    """Regenerate every report with the live reference: the committed
-    files are byte for byte what it gives now."""
+def check_live_reference(tmp_path, names: list) -> None:
+    """Regenerate the reports of goldens ``names`` with the live reference:
+    the committed files are byte for byte what it gives now, the kernel
+    path's too for those of them that have one, and the provenance names
+    them.  The three ``test_torch_sweep_live_*.py`` files each check one
+    group (scan, fleet event, single-edge event), so that under ``--dist
+    loadfile`` the groups regenerate on separate workers; together they
+    cover every committed report."""
     mod = _script()
     assert [s.name for s in mod.ported_goldens()] == PORTED
-    mod.generate(tmp_path, log=lambda *_: None)
+    assert sorted(SCAN_GOLDENS + EVENT_GOLDENS
+                  + SINGLE_EVENT_GOLDENS) == PORTED
+    assert sorted(p.name for p in REPORTS.iterdir()) == \
+        [f"{n}.json" for n in PORTED]
+    assert sorted(p.name for p in runner.KERNEL_REPORT_DIR.iterdir()) == \
+        [f"{n}.json" for n in sorted(runner.KERNEL_PATH_REPORTS)]
+    mod.generate(tmp_path, names=names, log=lambda *_: None)
     written = sorted(p.name for p in (tmp_path / "reports").iterdir())
-    assert written == sorted(p.name for p in REPORTS.iterdir())
-    assert written == [f"{n}.json" for n in PORTED]
+    assert written == sorted(f"{n}.json" for n in names)
     for name in written:
         assert (tmp_path / "reports" / name).read_text() == \
             (REPORTS / name).read_text(), name
-    kernel = sorted(p.name for p in (tmp_path / "kernel_reports").iterdir())
-    assert kernel == [f"{n}.json" for n in sorted(runner.KERNEL_PATH_REPORTS)]
+    kernel_names = sorted(set(names) & set(runner.KERNEL_PATH_REPORTS))
+    kernel_dir = tmp_path / "kernel_reports"
+    kernel = (sorted(p.name for p in kernel_dir.iterdir())
+              if kernel_dir.exists() else [])
+    assert kernel == [f"{n}.json" for n in kernel_names]
     for name in kernel:
-        assert (tmp_path / "kernel_reports" / name).read_text() == \
+        assert (kernel_dir / name).read_text() == \
             (runner.KERNEL_REPORT_DIR / name).read_text(), name
     prov = json.loads((tmp_path / "PROVENANCE.json").read_text())
     assert prov["jax"] == jax.__version__
-    assert prov["scenarios"] == PORTED
-    assert prov["kernel_path_scenarios"] == sorted(runner.KERNEL_PATH_REPORTS)
+    assert prov["scenarios"] == sorted(names)
+    assert prov["kernel_path_scenarios"] == kernel_names
 
 
 def test_sweep_list_lint_and_usage():

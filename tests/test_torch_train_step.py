@@ -320,7 +320,10 @@ def test_train_step_refuses_the_gradient_exchange():
 def test_prefill_and_decode_step_factories():
     """``make_prefill`` and ``make_decode_step`` run the serving model's
     prefill and decode step; decode inputs other than tokens (the
-    encoder's frames) raise, naming item 4e."""
+    encoder's frames) go to the decode step as its ``batch_extras``, as
+    in the reference: on whisper smoke the factories' steps equal the
+    model's, and a step whose cache has no ``enc_out`` encodes the
+    extras' frames."""
     from repro_torch.launch import make_decode_step, make_prefill
     from repro_torch.models import Transformer
     cfg = dataclasses.replace(get_config("yi-9b", smoke=True),
@@ -334,6 +337,18 @@ def test_prefill_and_decode_step_factories():
     got, cache = decode(model, cache, {"tokens": toks[:, 8:]})
     want, _ = model.decode_step(want_cache, toks[:, 8:])
     assert torch.equal(got, want) and cache["len"] == 9
-    with pytest.raises(NotImplementedError, match="item 4e"):
-        decode(model, cache, {"tokens": toks[:, 8:],
-                              "encoder_embeds": np.zeros((2, 4, 64))})
+    wcfg = dataclasses.replace(get_config("whisper-large-v3", smoke=True),
+                               dtype="float32")
+    model = Transformer(wcfg, device="cpu", seed=3)
+    frames = np.random.default_rng(5).normal(
+        size=(2, wcfg.encoder.seq_len, wcfg.d_model))
+    prefill, decode = make_prefill(wcfg, 32), make_decode_step(wcfg)
+    prompt = {"tokens": toks[:, :8] % wcfg.vocab, "encoder_embeds": frames}
+    got, cache = prefill(model, prompt)
+    want, want_cache = model.prefill(prompt, 32)
+    assert torch.equal(got, want)
+    step = {"tokens": toks[:, 8:] % wcfg.vocab, "encoder_embeds": frames}
+    del cache["enc_out"]
+    got, cache = decode(model, cache, step)
+    want, _ = model.decode_step(want_cache, step["tokens"])
+    assert torch.equal(got, want) and cache["len"] == 9
