@@ -13,8 +13,8 @@ Phases, one JSON line each; any failed check exits non-zero:
      fleet larger than L2 (``LARGE``);
   4. the main path: ``Experiment.from_scenario(...).run`` on the card for a
      fleet of E = 1024 sites (4 regions x 256), k = 8 streams, windows of
-     N = 256 tuples, 4 generated windows cycled to T = 100 (200 before
-     slice 14), through both kernels (``use_kernel=True``), with the
+     N = 256 tuples, 4 generated windows cycled to T = 60 (100 before
+     slice 19, 200 before slice 14), through both kernels (``use_kernel=True``), with the
      launch counts asserted;
   5. the same scenario at T = 20 with the plain versions on the card,
      held against the kernel path;
@@ -61,7 +61,8 @@ Phases, one JSON line each; any failed check exits non-zero:
      k = 8, N = 256, over ``ADAPTIVE["T"]`` generated windows whose
      regional correlations flip at the middle; launches asserted (row 1 =
      T + re-plans, row 2 = re-plans), windows/sec beside the same windows
-     planned every window, the stage split with ``window_step/gate``, the
+     planned every window, the stage split with ``window_step/gate`` over
+     the first ``ADAPTIVE["n_prof"]`` windows (all T before slice 19), the
      plain versions on the card against the kernels, and the adaptive
      golden on the card against the live reference's counters;
  14. slice 9's path: chaos fault injection at the main path's width (its
@@ -233,7 +234,18 @@ Phases, one JSON line each; any failed check exits non-zero:
      inputs through ``make_train_step`` (every loss finite and near
      ln(vocab)), and the smoke family's f32 step on the card against the
      CPU; no flash launch (asserted);
- 34. the kernels line, then ``{"ok": true, "device": {...}}`` last.
+ 34. slice 19's cross-pod gradient exchange (``POD_TRAIN``): the driver
+     with ``--pods 2 --edge-exchange`` on starcoder2-3b at full width cut
+     to 12 of 30 layers (25 steps of 8 x 512 tokens, two pods of 4 x 512,
+     budget 0.4, windows of 10: the step split into the pods' forward and
+     backward, the exchange and AdamW, tokens/sec, peak memory, the sync
+     fraction and all-reduced bytes per window, at least one replan, every
+     loss finite); two exchanged smoke steps (full sync, then the
+     controller's plan) on the card against the CPU, every skipped
+     stream's gradient the step's momentum bitwise; the same steps on two
+     gloo ranks sharing the card, one pod a rank, bitwise in parameters;
+     no flash launch (asserted);
+ 35. the kernels line, then ``{"ok": true, "device": {...}}`` last.
 
 Phase 12's sweep also runs the six fleet event goldens and the seven
 single-edge event goldens (all twenty-one goldens), their counters held
@@ -263,7 +275,7 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 
 MAIN = {"n_regions": 4, "sites_per_region": 256, "k": 8, "window": 256,
-        "pool": 4, "T": 100, "T_plain": 20}
+        "pool": 4, "T": 60, "T_plain": 20}
 GOLDEN_REF_WAN_BYTES = 11080   # live JAX reference, fleet_scan, CPU
 # slice 7: the live JAX reference's WAN bytes (CPU, jax 0.9): the
 # single-edge goldens (cubic), and fleet_scan under the other families
@@ -278,7 +290,7 @@ SINGLE = {"k": 8, "window": 4096, "pool": 4, "T": 50, "T_plain": 5}
 ADAPTIVE_REF = {"wan_bytes": 21096, "planner_invocations": 6,
                 "plans_reused": 6, "drift_fires": 7}
 ADAPTIVE = {"n_regions": 4, "sites_per_region": 256, "k": 8, "window": 256,
-            "T": 12, "strength": [0.9, 0.65, 0.4, 0.15]}
+            "T": 12, "n_prof": 3, "strength": [0.9, 0.65, 0.4, 0.15]}
 # slice 9: the chaos goldens' live reference (CPU, jax 0.9), on its CPU
 # path and, for the region golden, on its kernel path (Pallas in interpret
 # mode, the fused fit), which the kernels' path is held to; the committed
@@ -295,7 +307,7 @@ CHAOS_REF_KERNEL_PATH = {"fleet_scan_chaos_region": {
 # dark for [30, 50), sites 0-31 joining at window 10, site 5 down for
 # [60, 70) by two flaps, and random flaps; resumed from a checkpoint at
 # window ``cut``, inside the outage
-CHAOS = {"T": 100, "cut": 40,
+CHAOS = {"T": 80, "cut": 40,
          "spec": {"outages": [[30, 20, 1]],
                   "joins": [[10, s] for s in range(32)],
                   "flaps": [[60, 5, "down"], [70, 5, "up"]],
@@ -334,19 +346,20 @@ EVENT_REF = {"fleet_event_batched_rebalance": {"wan_bytes": 10816,
 SINGLE_EVENT = {"k": 8, "window": 4096, "T": 8, "seed": 21,
                 "straggle_mod": 13}
 # slice 12: the paper's comparison on one edge (benchmarks/fig5_smartcity.py:
-# smartcity, windows of 256 tuples, 16 windows, seed 9; the planner's
-# defaults, the f64 IPM) at one of its budgets, model and mean imputation
-# beside three baselines; the iid relaxations of benchmarks/fig9_iid.py
-# (smartcity, 12 windows of 256, seed 13, budget 0.3, m = 1); and the host
+# smartcity, windows of 256 tuples, seed 9; the planner's defaults, the
+# f64 IPM) at one of its budgets over 12 of its 16 windows, model and mean
+# imputation beside three baselines; the iid relaxations of
+# benchmarks/fig9_iid.py (smartcity, windows of 256, seed 13, budget 0.3,
+# m = 1) over 8 of its 12 windows; and the host
 # engine: fleet_event_host_engine's planner and controller on
 # benchmarks/fleet_bench.py's heterogeneous fleet (4 regions x 4 sites,
 # k = 6, windows of 128 tuples) over T windows
-BASELINE = {"data": {"dataset": "smartcity", "n_points": 4096,
+BASELINE = {"data": {"dataset": "smartcity", "n_points": 3072,
                      "window": 256, "seed": 9, "options": {}},
             "budget_fraction": 0.26,
             "methods": ["model", "mean", "approx_iot", "s_voila", "srs"],
             "queries": ["AVG", "VAR", "MIN", "MAX"]}
-IID = {"data": {"dataset": "smartcity", "n_points": 3072, "window": 256,
+IID = {"data": {"dataset": "smartcity", "n_points": 2048, "window": 256,
                 "seed": 13, "options": {}},
        "budget_fraction": 0.3, "m_lags": 1,
        "modes": ["iid", "thinning", "m_dependence"]}
@@ -373,7 +386,7 @@ SHARDED = {"T": 10, "T_ranks": 4, "T_event": 2, "world": 2,
 # main-width payload takes ~490 ms, every retry timer fires before its
 # first copy lands, and each window ships four copies, more than the raw
 # tuples.  A fixed rule zeroes ~1% of the (site, stream) counts a window.
-EVENT = {"T": 8, "T_parity": 4, "T_plain": 4, "n_prof": 3,
+EVENT = {"T": 6, "T_parity": 4, "T_plain": 4, "n_prof": 3,
          "wan": {"latency_scale": 1.0, "jitter_ms": 30.0, "drop_prob": 0.1,
                  "bandwidth_bytes_per_ms": 40.0, "hetero_links": True},
          "transport": {"window_period_ms": 100.0,
@@ -518,6 +531,26 @@ ENC_TRAIN = {"arch": "whisper-large-v3", "steps": 4, "batch": 4, "seq": 448,
 VLM_TRAIN = {"arch": "qwen2-vl-2b", "steps": 4, "batch": 4, "seq": 512,
              "seed": 33, "loss_band": 2.5, "fixed_lr": 1e-4,
              "fixed_steps": 4}
+# slice 19: the paper's cross-pod gradient exchange.  (a) The driver with
+# ``--pods 2 --edge-exchange`` on starcoder2-3b at full width (d 3072)
+# cut to 12 of 30 layers (1.91 B parameters; with two pods' f32
+# gradients and the exchanged tree ~24 bytes a parameter, the whole
+# model's 4.31 B would not fit), the reference test's exchange settings
+# (budget 0.4, a window of 10) for 25 steps of 8 x 512 tokens, each pod
+# taking 4 x 512 as the single-card train path does: at least one replan,
+# every loss finite.  (b) One exchanged step of starcoder2 smoke in f32
+# (``smoke_batch`` rows, two pods) on the card against the CPU from full
+# sync, then, after the controller's replan at ``smoke_budget``, a second
+# step: the loss, grad norm, telemetry (2 x the grad norm's limit: squared
+# norms) and every exchanged gradient leaf within ``TRAIN``'s limits, and
+# every skipped stream's gradient the step's momentum bitwise.  (c) The
+# same two steps on two gloo ranks sharing the card, each rank one pod on
+# its half of the batch (``make_grad_exchange``, ``n_pods=1``), bitwise
+# this process's stacked steps in parameters.
+POD_TRAIN = {"arch": "starcoder2-3b", "n_layers": 12, "pods": 2,
+             "dcn_budget": 0.4, "window": 10, "steps": 25, "batch": 8,
+             "seq": 512, "lr": 8e-3, "seed": 34, "smoke_batch": (4, 24),
+             "smoke_budget": 0.4, "timeout_s": 240}
 # a fleet of the main path's kind whose data (134 MB for stream_stats_fleet,
 # 268 MB for polyfit) does not fit in the 50 MB L2: (E, k, N)
 LARGE = (4096, 8, 1024)
@@ -1033,16 +1066,20 @@ def main() -> int:
                                         card_line).items():
             stub_paths.setdefault(n, {})[phase] = count
 
-    # ---- 34. the kernels line and the result -----------------------------
+    # ---- 34. slice 19: the cross-pod gradient exchange --------------------
+    pod_train = lm_pod_train_path(torch, card_line)
+
+    # ---- 35. the kernels line and the result -----------------------------
     # launches: rows 1 and 2 on the runtime paths driven with the counts
     # at 0 (main_path, adaptive_path, chaos_path, event_path, and
     # single_event_path, baseline_path, iid_path and host_engine_path,
     # which launch neither; sharded_path in this process and
     # sharded_path_ranks summed over its two ranks), row 3 on the kernel
     # entry points, row 4 there and in the LM serve runs, dense, MoE and
-    # the Mamba hybrid's (and 0 times in the LM training runs, asserted: it
-    # has no backward), and in the stubs' serve runs (whisper's encoder,
-    # cross-attention and decoder self-attention apart; qwen2-vl's prefill)
+    # the Mamba hybrid's (and 0 times in the LM training runs, the
+    # exchanged one included, asserted: it has no backward), and in the
+    # stubs' serve runs (whisper's encoder, cross-attention and decoder
+    # self-attention apart; qwen2-vl's prefill)
     by_path = {n: ({"main_path": launches[n], "adaptive_path": adaptive[n],
                     "chaos_path": chaos[n], "event_path": event[n],
                     "single_event_path": single_event[n],
@@ -1061,7 +1098,9 @@ def main() -> int:
                                                   ssm_serve[n],
                                               "lm_ssm_train_path":
                                                   ssm_train[n],
-                                              **stub_paths[n]}
+                                              **stub_paths[n],
+                                              "lm_pod_train_path":
+                                                  pod_train[n]}
                                              if n in lm else {})})
                for n in KERNELS}
     emit({"kernels": [dict(name=n, route="cuda", source=KERNELS[n][0],
@@ -3066,6 +3105,298 @@ def stub_train_path(torch, settings: dict, phase: str,
     return launches
 
 
+def lm_pod_train_path(torch, card_line: str) -> dict:
+    """Phase 34: the paper's cross-pod gradient exchange (``POD_TRAIN``):
+    (a) the driver with ``--pods 2 --edge-exchange`` on starcoder2-3b at
+    full width cut to 12 layers; (b) two exchanged smoke steps (full sync,
+    then the controller's plan) on the card against the CPU; (c) the same
+    steps on two gloo ranks sharing the card, bitwise (b)'s card steps.
+    Every check raises.  Returns the flash kernels' launches in the
+    phase, asserted 0."""
+    import gc
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import (EdgeGradController, ExchangePlan,
+                                   full_sync_plan, stream_sizes,
+                                   synced_bytes)
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa_ops.LAUNCHES = 0
+    fa_ops.SM90_LAUNCHES = 0
+    s = POD_TRAIN
+
+    # ---- (a) the driver at full width, 12 layers --------------------------
+    stats = {}
+    t0 = time.perf_counter()
+    losses = train_mod.main(
+        ["--arch", s["arch"], "--full", "--n-layers", str(s["n_layers"]),
+         "--pods", str(s["pods"]), "--edge-exchange", "--dcn-budget",
+         str(s["dcn_budget"]), "--exchange-window", str(s["window"]),
+         "--steps", str(s["steps"]), "--batch", str(s["batch"]), "--seq",
+         str(s["seq"]), "--lr", str(s["lr"]), "--log-every", "5", "--seed",
+         str(s["seed"]), "--device", "cuda"], stats=stats)
+    run_s = time.perf_counter() - t0
+    full_bytes = 4 * stats["params"]
+    emit({"phase": "lm_pod_train_driver", "nvidia_smi": card_line,
+          "arch": stats["arch"], "layers": s["n_layers"],
+          "d_model": get_config(s["arch"]).d_model, "params": stats["params"],
+          "pods": s["pods"], "batch": [s["batch"], s["seq"]],
+          "pod_batch": [s["batch"] // s["pods"], s["seq"]],
+          "dcn_budget": s["dcn_budget"], "window": s["window"],
+          "steps": stats["step"], "losses": stats["loss"],
+          "grad_norms": stats["grad_norm"],
+          "fwd_bwd_ms": stats["fwd_bwd_ms"],
+          "exchange_ms": stats["exchange_ms"], "opt_ms": stats["opt_ms"],
+          "median_step_ms": stats["median_step_ms"],
+          "median_pods_fwd_bwd_ms": stats["median_fwd_bwd_ms"],
+          "median_exchange_ms": stats["median_exchange_ms"],
+          "median_opt_ms": stats["median_opt_ms"],
+          "tokens_per_sec": stats["tokens_per_sec"],
+          "peak_mem_bytes": stats["peak_mem_bytes"],
+          "sync_fraction_per_window": stats["sync_fraction"],
+          "replanned_at": stats["replanned_at"],
+          "allreduce_bytes_per_step_full_sync": full_bytes,
+          "allreduce_bytes_per_step_per_window": [
+              f * full_bytes for f in stats["sync_fraction"]],
+          "seconds": run_s})
+    if len(stats["loss"]) != s["steps"] or not stats["replanned_at"] \
+            or not _finite(stats["loss"] + losses + stats["exchange_ms"]):
+        raise AssertionError(f"the exchanged driver run: losses "
+                             f"{stats['loss']}, replanned at "
+                             f"{stats['replanned_at']}")
+    del stats
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) two exchanged smoke steps, card against CPU -------------------
+    t0 = time.perf_counter()
+    cfg, cpu1 = _pod_smoke_run(torch, "cpu", [None])
+    tree = cpu1[0]["before"].params
+    sizes = stream_sizes(tree, cfg)
+    full = full_sync_plan(tree, cfg)
+    ctl = EdgeGradController(sizes=sizes,
+                             dcn_budget_fraction=s["smoke_budget"],
+                             n_pods=s["pods"], window=1)
+    ctl.observe({k: cpu1[0][k] for k in ("pod_disagreement",
+                                         "pod_magnitude")})
+    plan = ctl.replan(full)
+    skipped = [k for k, v in plan.sync.items() if not v]
+    if not skipped:
+        raise AssertionError(f"the controller synced every smoke stream at "
+                             f"budget {s['smoke_budget']}: nothing to impute")
+    plans = [full, plan]
+    # each step from the CPU's state before it on both devices (two f32
+    # orders part ways after a step: a sign flip on a near-zero gradient
+    # moves a parameter by 2 lr)
+    _, cpu = _pod_smoke_run(torch, "cpu", plans)
+    starts = [step["before"] for step in cpu]
+    _, card = _pod_smoke_run(torch, "cuda", plans, starts=starts)
+    rows = []
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        row = {"step": i + 1, "loss_rel": abs(a["loss"] - b["loss"])
+               / abs(b["loss"]),
+               "grad_norm_rel": abs(a["grad_norm"] - b["grad_norm"])
+               / b["grad_norm"],
+               "telemetry_rel": max(
+                   float(np.max(np.abs(a[k] - b[k])
+                                / np.maximum(np.abs(b[k]), 1e-30)))
+                   for k in ("pod_disagreement", "pod_magnitude")),
+               "grad_err_over_leaf_max": max(
+                   float((x - y).abs().max() / y.abs().max())
+                   for x, y in zip(a["grads"], b["grads"])
+                   if float(y.abs().max()) > 0),
+               "param_max_abs_diff": max(
+                   float((x - y).abs().max())
+                   for x, y in zip(a["params"], b["params"])),
+               "skipped_streams": a["skipped"],
+               "skipped_equal_momentum": a["skipped_is_momentum"]}
+        row["ok"] = (row["loss_rel"] <= TRAIN["loss_rtol"]
+                     and row["grad_norm_rel"] <= TRAIN["gnorm_rtol"]
+                     and row["telemetry_rel"] <= 2 * TRAIN["gnorm_rtol"]
+                     and row["grad_err_over_leaf_max"] <= TRAIN["grad_limit"]
+                     and row["param_max_abs_diff"] <= 2 * TRAIN["smoke_lr"]
+                     and a["skipped_is_momentum"] and b["skipped_is_momentum"])
+        rows.append(row)
+    sent, total = synced_bytes(plan, tree, cfg)
+    emit({"phase": "lm_pod_train_card_vs_cpu", "nvidia_smi": card_line,
+          "arch": cfg.name, "batch": list(s["smoke_batch"]),
+          "pods": s["pods"], "budget": s["smoke_budget"],
+          "streams": len(sizes), "skipped": skipped,
+          "sync_fraction": plan.fraction_synced(sizes),
+          "limits": {"loss_rtol": TRAIN["loss_rtol"],
+                     "gnorm_rtol": TRAIN["gnorm_rtol"],
+                     "telemetry_rtol": 2 * TRAIN["gnorm_rtol"],
+                     "grad_limit": TRAIN["grad_limit"]},
+          "rows": rows, "seconds": time.perf_counter() - t0})
+    if not all(r["ok"] for r in rows):
+        raise AssertionError(f"the exchanged smoke steps, card against CPU: "
+                             f"{rows}")
+
+    # ---- (c) the rank route: two gloo ranks share the card ----------------
+    world = s["pods"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_pod_rank,
+                                 args=(world, tmp, plans, starts),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > s["timeout_s"]:
+                    raise AssertionError(f"the {world} pod ranks did not "
+                                         f"finish in {s['timeout_s']} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                p.join(timeout=30)
+        ranks_s = time.perf_counter() - t0
+        per_rank = []
+        for r in range(world):
+            with np.load(os.path.join(tmp, f"rank{r}.npz")) as data:
+                got = dict(data)
+            same = {f"step{i + 1}/param{j}": np.array_equal(
+                        got[f"step{i + 1}/param{j}"], p.numpy())
+                    for i, step in enumerate(card)
+                    for j, p in enumerate(step["params"])}
+            tel = max(float(np.max(np.abs(got[f"step{i + 1}/{k}"]
+                                          - step[k])
+                                   / np.maximum(np.abs(step[k]), 1e-30)))
+                      for i, step in enumerate(card)
+                      for k in ("pod_disagreement", "pod_magnitude"))
+            per_rank.append({"rank": r, "bitwise_params": all(same.values()),
+                             "differs": [k for k, v in same.items()
+                                         if not v][:10],
+                             "telemetry_rel": tel})
+    emit({"phase": "lm_pod_train_ranks", "nvidia_smi": card_line,
+          "world": world, "backend": "gloo", "per_rank": per_rank,
+          "allreduce_bytes_per_step": {"full_sync": total,
+                                       "replanned": sent},
+          "ranks_seconds": ranks_s})
+    if not all(r["bitwise_params"] and r["telemetry_rel"] <= 1e-6
+               for r in per_rank):
+        raise AssertionError(f"the rank route against the stacked steps: "
+                             f"{per_rank}")
+
+    launches = {"flash_attention": fa_ops.SM90_LAUNCHES,
+                "flash_attention_f32": fa_ops.LAUNCHES - fa_ops.SM90_LAUNCHES}
+    emit({"phase": "lm_pod_train_path", "nvidia_smi": card_line,
+          "launches": launches, "seconds": time.perf_counter() - t_phase})
+    if launches != {"flash_attention": 0, "flash_attention_f32": 0}:
+        raise AssertionError(f"flash kernel launches in the exchanged "
+                             f"training phase {launches}")
+    return launches
+
+
+def _pod_smoke_run(torch, dev: str, plans, rank=None, starts=None):
+    """starcoder2 smoke in f32 on ``dev``, one exchanged step a plan
+    (None: full sync) on seeded batches of ``POD_TRAIN["smoke_batch"]``:
+    stacked over both pods, or (``rank``) as that gloo rank's pod on its
+    half of each batch.  The steps run on from the seeded parameters, or
+    each from its own state of ``starts`` (host ``TrainState``s), as the
+    CPU tests take each step from the reference's state before it.
+    Returns (the config, per step: the state before it (host), the loss,
+    grad norm and telemetry, the exchanged gradients and the parameters
+    after it as CPU tensors, the skipped streams and whether each one's
+    gradient is the step's momentum bitwise on ``dev``)."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import (TrainState, adamw_init, cosine_schedule,
+                                   full_sync_plan, make_grad_exchange,
+                                   make_stacked_exchange, stream_leaves,
+                                   tree_leaves, tree_map)
+    s = POD_TRAIN
+    cfg = dataclasses.replace(get_config(s["arch"], smoke=True),
+                              dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(s["seed"]))
+    state = adamw_init(tree_map(lambda t: t.to(dev), params))
+    rng = np.random.default_rng(s["seed"])
+    rows, cols = s["smoke_batch"]
+    lr = cosine_schedule(TRAIN["smoke_lr"], 0, 10)
+
+    def moved(st, to):
+        # a copy: the step updates the state in place
+        return TrainState(**{f: tree_map(
+            lambda t: t.detach().to(to, copy=True), getattr(st, f))
+            for f in ("params", "m", "v")}, step=st.step)
+    out = []
+    for i, plan in enumerate(plans):
+        if starts is not None:
+            state = moved(starts[i], dev)
+        before = moved(state, "cpu")
+        plan = plan or full_sync_plan(state.params, cfg)
+        batch = {"tokens": rng.integers(0, cfg.vocab, (rows, cols)),
+                 "labels": rng.integers(0, cfg.vocab, (rows, cols))}
+        batch["labels"][0, :5] = -1
+        if rank is None:
+            ex, n_pods = make_stacked_exchange(plan, cfg=cfg), s["pods"]
+        else:
+            part = rows // s["pods"]
+            batch = {k: v[rank * part:(rank + 1) * part]
+                     for k, v in batch.items()}
+            ex, n_pods = make_grad_exchange(plan, cfg=cfg), 1
+        step = make_train_step(cfg, lr, grad_exchange=ex, n_pods=n_pods)
+        loss, metrics, grads = step.loss_and_grads(state, batch)
+        g, m = tree_leaves(grads), tree_leaves(state.m)
+        skipped = [k for k, v in plan.sync.items() if not v]
+        streams = stream_leaves(grads, cfg)
+        is_m = all(torch.equal(g[j], m[j]) for k in skipped
+                   for j in streams[k])
+        host_g = [t.detach().cpu().clone() for t in g]
+        state, metrics = step.apply(state, grads, loss, metrics)
+        del grads, g
+        out.append({"before": before, "loss": float(metrics["loss"]),
+                    "grad_norm": float(metrics["grad_norm"]),
+                    **{k: metrics[k].cpu().numpy()
+                       for k in ("pod_disagreement", "pod_magnitude")},
+                    "grads": host_g,
+                    "params": [t.detach().cpu().clone()
+                               for t in tree_leaves(state.params)],
+                    "skipped": skipped, "skipped_is_momentum": is_m})
+    return cfg, out
+
+
+def _pod_rank(rank: int, world: int, tmp: str, plans, starts) -> None:
+    """One rank of phase 34 (c) (spawned): its pod's half of the smoke
+    batches on the shared card over gloo, each step from its state of
+    ``starts``; its parameters and telemetry after each step to
+    ``rank<r>.npz``."""
+    import datetime
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{tmp}/rendezvous", rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=POD_TRAIN["timeout_s"]))
+    try:
+        _, steps = _pod_smoke_run(torch, "cuda", plans, rank=rank,
+                                  starts=starts)
+        arrays = {}
+        for i, step in enumerate(steps):
+            for j, p in enumerate(step["params"]):
+                arrays[f"step{i + 1}/param{j}"] = p.numpy()
+            for k in ("pod_disagreement", "pod_magnitude"):
+                arrays[f"step{i + 1}/{k}"] = step[k]
+        np.savez(os.path.join(tmp, f"rank{rank}.npz"), **arrays)
+    finally:
+        dist.destroy_process_group()
+
+
 def _update_sample(params, grads, n: int = 4096) -> list:
     """About ``n`` evenly spaced elements of every parameter leaf and of
     its gradient, before the update (the update scales the gradients in
@@ -3590,7 +3921,7 @@ def adaptive_path(torch) -> dict:
             or not 0 < rep.wan_bytes < rep.full_bytes):
         raise AssertionError(f"adaptive path output out of range: nrmse "
                              f"{rep.nrmse}, wan {rep.wan_bytes}")
-    profile_main_path(ex, windows, torch, n_prof=T,
+    profile_main_path(ex, windows, torch, n_prof=a["n_prof"],
                       out_name="profile_adaptive.txt")
 
     # the plain versions on the card: the gate's decisions do not depend

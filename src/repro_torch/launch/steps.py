@@ -3,14 +3,15 @@
 
 ``make_train_step(cfg, lr_fn)`` takes the loss and gradients of
 :func:`repro_torch.models.transformer.forward_train` with microbatched
-gradient accumulation, then one AdamW step.  The reference's cross-pod
-gradient exchange (``grad_exchange``, ``n_pods`` > 1) comes with LM
-sharding (ROADMAP queue 1, item 4f).
+gradient accumulation, then one AdamW step, with the reference's
+cross-pod gradient exchange (``grad_exchange``, the paper's technique;
+see :mod:`repro_torch.optim.edge_exchange`) between them.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
@@ -36,10 +37,13 @@ def make_train_step(cfg: ModelConfig, lr_fn: Callable, *, microbatches: int = 1,
                     cast_params_bf16: bool = False):
     """Returns ``train_step(state, batch) -> (state, metrics)``; the state
     is updated in place (and returned), ``metrics`` holds ``loss``,
-    ``grad_norm`` (0-d tensors) and ``lr``.  The step's two halves are
-    its attributes, for callers that time them apart:
+    ``grad_norm`` (0-d tensors) and ``lr``.  The step's parts are its
+    attributes, for callers that time them apart:
+    ``train_step.local_grads(state, batch) -> (loss, metrics, grads)``,
+    ``train_step.exchange(grads, momentum) -> (grads, metrics)``,
     ``train_step.loss_and_grads(state, batch) -> (loss, metrics, grads)``
-    and ``train_step.apply(state, grads, loss, metrics)``.
+    (the two before, the exchange's metrics merged) and
+    ``train_step.apply(state, grads, loss, metrics)``.
 
     ``microbatches``: the batch is cut into that many equal parts, their
     gradients summed in f32 and divided by the count (the loss likewise,
@@ -53,14 +57,22 @@ def make_train_step(cfg: ModelConfig, lr_fn: Callable, *, microbatches: int = 1,
     taken with respect to those copies, as the reference takes them with
     respect to its cast tree; the update casts them to f32.
 
+    ``grad_exchange`` (:mod:`repro_torch.optim.edge_exchange`): with
+    ``n_pods`` > 1 the batch is cut into ``n_pods`` pods as into
+    microbatches, each pod's loss and gradients taken in turn (its own
+    microbatches included), and the exchange combines the list of the
+    pods' gradient trees (``make_stacked_exchange``); the loss is the
+    pods' mean, and the pods' own metrics (an MoE's aux losses) are
+    dropped, as in the reference.  With ``n_pods`` == 1 the exchange is
+    applied to the one gradient tree (``make_grad_exchange``: each rank
+    of a group one pod).  ``n_pods`` > 1 with no exchange is the plain
+    step.
+
     The batch's entries besides ``tokens`` and ``labels`` (the modality
     stubs' ``encoder_embeds``, ``patch_embeds``, ``positions``) go into
     ``forward_train`` with them, cut into the microbatches alike.
     """
-    if grad_exchange is not None or n_pods > 1:
-        raise NotImplementedError(
-            "the cross-pod gradient exchange (grad_exchange, n_pods > 1) is "
-            "not ported yet (ROADMAP queue 1, item 4f)")
+    pods = n_pods if grad_exchange is not None and n_pods > 1 else 1
 
     def bf16(p, stacked: bool):
         # the reference casts its leaves of two or more dims, which counts
@@ -79,13 +91,7 @@ def make_train_step(cfg: ModelConfig, lr_fn: Callable, *, microbatches: int = 1,
             return type(tree)(fwd_tree(t, stacked) for t in tree)
         return bf16(tree, stacked)
 
-    def loss_and_grads(state: TrainState, batch: dict):
-        params = (fwd_tree(state.params) if cast_params_bf16
-                  else state.params)
-        leaves = tree_leaves(params)
-        for p in leaves:
-            if not p.requires_grad:
-                p.requires_grad_(True)
+    def grads_of(params, leaves, batch: dict):
         if microbatches == 1:
             loss, metrics = forward_train(params, batch, cfg)
             grads = torch.autograd.grad(loss, leaves)
@@ -111,6 +117,35 @@ def make_train_step(cfg: ModelConfig, lr_fn: Callable, *, microbatches: int = 1,
                 {k: v / microbatches for k, v in aux_sum.items()},
                 tree_unflatten(params, g_sum))
 
+    def local_grads(state: TrainState, batch: dict):
+        params = (fwd_tree(state.params) if cast_params_bf16
+                  else state.params)
+        leaves = tree_leaves(params)
+        for p in leaves:
+            if not p.requires_grad:
+                p.requires_grad_(True)
+        if pods == 1:
+            return grads_of(params, leaves, batch)
+        losses, grads_p = [], []
+        for pod in _split_microbatches(batch, pods):
+            loss, _, grads = grads_of(params, leaves, pod)
+            losses.append(loss)
+            grads_p.append(grads)
+        loss = losses[0]
+        for x in losses[1:]:
+            loss = loss + x
+        return loss * float(np.float32(1.0 / pods)), {}, grads_p
+
+    def exchange(grads, momentum):
+        if grad_exchange is None:
+            return grads, {}
+        return grad_exchange(grads, momentum)
+
+    def loss_and_grads(state: TrainState, batch: dict):
+        loss, metrics, grads = local_grads(state, batch)
+        grads, ex_metrics = exchange(grads, state.m)
+        return loss, {**metrics, **ex_metrics}, grads
+
     def apply(state: TrainState, grads, loss, metrics: dict):
         lr = lr_fn(state.step)
         state, opt_metrics = adamw_update(
@@ -121,6 +156,8 @@ def make_train_step(cfg: ModelConfig, lr_fn: Callable, *, microbatches: int = 1,
         loss, metrics, grads = loss_and_grads(state, batch)
         return apply(state, grads, loss, metrics)
 
+    train_step.local_grads = local_grads
+    train_step.exchange = exchange
     train_step.loss_and_grads = loss_and_grads
     train_step.apply = apply
     return train_step

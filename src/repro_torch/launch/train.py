@@ -24,15 +24,28 @@ default: starcoder2 smoke, 150 steps of 8 x 64 tokens at lr 8e-3.
     at those families' full depth the zero rows' gradients overflow to
     NaN in both packages (ROADMAP queue 3, note o).
 
-The mesh flags (``--host-devices``, ``--pods``, ``--model-parallel``) and
-the paper's gradient exchange (``--edge-exchange``) need LM sharding
-(ROADMAP queue 1, item 4f) and raise ``NotImplementedError``.
+  * the paper's cross-pod gradient exchange: ``--pods P --edge-exchange``
+    cuts each batch into P pods, takes their gradients in turn on the one
+    device and combines them with
+    :func:`~repro_torch.optim.edge_exchange.make_stacked_exchange`,
+    starting from full sync; :class:`~repro_torch.optim.edge_exchange.
+    EdgeGradController` observes every step's telemetry and re-plans
+    every ``--exchange-window`` steps within ``--dcn-budget`` of full
+    sync's bytes (a changed plan prints ``[train] replanned: sync
+    fraction=...``).  ``--pods`` alone, or ``--edge-exchange`` with one
+    pod, trains plain, as the reference does.  Checkpoints do not carry
+    the plan: a restored run starts from full sync.
+
+The mesh flags ``--host-devices`` and ``--model-parallel`` need LM
+sharding (ROADMAP queue 1, item 4f-ii) and raise ``NotImplementedError``.
 
 An MoE model's aux losses (``moe_lb``, ``moe_z``) are logged beside the
-loss.  Each step's two halves, the loss with its gradients and the optimizer,
-are timed apart (with a device synchronize between them on the GPU); the
-run ends with a summary line of the median step, tokens/sec and the peak
-device memory, which ``main(argv, stats=d)`` also writes into ``d``.
+loss.  Each step's parts, the loss with its gradients, the exchange and
+the optimizer, are timed apart (with a device synchronize between them
+on the GPU); the run ends with a summary line of the median step,
+tokens/sec and the peak device memory, which ``main(argv, stats=d)``
+also writes into ``d`` (with the exchange, also the sync fraction after
+each window).
 """
 from __future__ import annotations
 
@@ -81,13 +94,11 @@ def build_argparser():
 
 def _refuse_sharding(args) -> None:
     for flag, on in (("--host-devices", args.host_devices != 0),
-                     ("--pods > 1", args.pods > 1),
-                     ("--model-parallel > 1", args.model_parallel > 1),
-                     ("--edge-exchange", args.edge_exchange)):
+                     ("--model-parallel > 1", args.model_parallel > 1)):
         if on:
             raise NotImplementedError(
                 f"{flag} needs LM sharding, not ported yet (ROADMAP queue 1, "
-                f"item 4f); the port trains on one device")
+                f"item 4f-ii); the port trains on one device")
 
 
 def config_from_args(args):
@@ -149,6 +160,10 @@ def main(argv=None, stats: Optional[dict] = None):
                                     train_state_template, train_state_to_jax)
     from repro_torch.models.transformer import MOE_AUX
     from repro_torch.optim.adamw import adamw_init, cosine_schedule, tree_map
+    from repro_torch.optim.edge_exchange import (EdgeGradController,
+                                                 full_sync_plan,
+                                                 make_stacked_exchange,
+                                                 stream_sizes)
 
     device = resolve_device(args.device)
     cfg = config_from_args(args)
@@ -179,14 +194,32 @@ def main(argv=None, stats: Optional[dict] = None):
         gen = torch.Generator(device=device).manual_seed(args.seed)
         state = adamw_init(init_params(cfg, gen, device=device))
 
-    train_step = make_train_step(cfg, lr, microbatches=args.microbatches)
+    # ---- exchange plan / controller --------------------------------------
+    controller = plan = None
+    if args.edge_exchange and args.pods > 1:
+        plan = full_sync_plan(state.params, cfg)
+        controller = EdgeGradController(
+            sizes=stream_sizes(state.params, cfg),
+            dcn_budget_fraction=args.dcn_budget, n_pods=args.pods,
+            window=args.exchange_window)
+
+    def build_step(plan_now):
+        ex = (make_stacked_exchange(plan_now, cfg=cfg)
+              if plan_now is not None else None)
+        return make_train_step(cfg, lr, microbatches=args.microbatches,
+                               grad_exchange=ex,
+                               n_pods=args.pods if ex else 1)
+
+    train_step = build_step(plan)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
 
     data = LMBatcher(cfg.vocab, args.batch, args.seq, seed=args.seed,
                      extras=stub_extras(cfg))
     record = {"step": [], "loss": [], "grad_norm": [], "fwd_bwd_ms": [],
-              "opt_ms": []}
+              "exchange_ms": [], "opt_ms": []}
+    if controller is not None:
+        record.update(sync_fraction=[], replanned_at=[])
     losses = []
     t0 = time.time()
     try:
@@ -201,21 +234,38 @@ def main(argv=None, stats: Optional[dict] = None):
                      for k, v in next(it).items()}
             sync()
             t_a = time.perf_counter()
-            loss, metrics, grads = train_step.loss_and_grads(state, batch)
+            loss, metrics, grads = train_step.local_grads(state, batch)
             sync()
             t_b = time.perf_counter()
-            state, metrics = train_step.apply(state, grads, loss, metrics)
-            del grads
+            grads, ex_metrics = train_step.exchange(grads, state.m)
             sync()
             t_c = time.perf_counter()
+            state, metrics = train_step.apply(state, grads, loss,
+                                              {**metrics, **ex_metrics})
+            del grads
+            sync()
+            t_d = time.perf_counter()
             loss = float(metrics["loss"])
             gnorm = float(metrics["grad_norm"])
             aux = {k: float(metrics[k]) for k in MOE_AUX if k in metrics}
             for k, val in (("step", step + 1), ("loss", loss),
                            ("grad_norm", gnorm),
                            ("fwd_bwd_ms", 1e3 * (t_b - t_a)),
-                           ("opt_ms", 1e3 * (t_c - t_b)), *aux.items()):
+                           ("exchange_ms", 1e3 * (t_c - t_b)),
+                           ("opt_ms", 1e3 * (t_d - t_c)), *aux.items()):
                 record.setdefault(k, []).append(val)
+            if controller is not None:
+                controller.observe(metrics)
+                if (step + 1) % args.exchange_window == 0:
+                    new_plan = controller.replan(plan)
+                    frac = new_plan.fraction_synced(controller.sizes)
+                    record["sync_fraction"].append(frac)
+                    if new_plan.sync != plan.sync:
+                        plan = new_plan
+                        train_step = build_step(plan)
+                        record["replanned_at"].append(step + 1)
+                        print(f"[train] replanned: sync fraction={frac:.2f}",
+                              flush=True)
             if (step + 1) % args.log_every == 0 or step == start_step:
                 losses.append(loss)
                 print(f"[train] step={step + 1} loss={loss:.4f} "
@@ -233,17 +283,20 @@ def main(argv=None, stats: Optional[dict] = None):
     summary = {}
     if record["step"]:
         fb = statistics.median(record["fwd_bwd_ms"])
+        ex = statistics.median(record["exchange_ms"])
         op = statistics.median(record["opt_ms"])
         step_ms = statistics.median(
-            [a + b for a, b in zip(record["fwd_bwd_ms"], record["opt_ms"])])
+            [a + b + c for a, b, c in zip(record["fwd_bwd_ms"],
+                                          record["exchange_ms"],
+                                          record["opt_ms"])])
         summary = {"median_step_ms": step_ms, "median_fwd_bwd_ms": fb,
-                   "median_opt_ms": op,
+                   "median_exchange_ms": ex, "median_opt_ms": op,
                    "tokens_per_sec": args.batch * args.seq / (step_ms / 1e3),
                    "peak_mem_bytes": (torch.cuda.max_memory_allocated(device)
                                       if device.type == "cuda" else None)}
         peak = summary["peak_mem_bytes"]
         print(f"[train] median step {step_ms:.1f} ms (forward+backward "
-              f"{fb:.1f}, optimizer {op:.1f}), "
+              f"{fb:.1f}, exchange {ex:.1f}, optimizer {op:.1f}), "
               f"{summary['tokens_per_sec']:.0f} tokens/s, peak memory "
               f"{'not measured (cpu)' if peak is None else f'{peak:,} B'}",
               flush=True)

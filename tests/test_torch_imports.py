@@ -33,6 +33,7 @@ def test_every_module_of_the_port_is_imported_here():
               "repro_torch.planning.engine", "repro_torch.models.transformer",
               "repro_torch.serving.engine", "repro_torch.launch",
               "repro_torch.launch.train", "repro_torch.optim",
+              "repro_torch.optim.edge_exchange",
               "repro_torch.data.lm_data"):
         assert m in mods
 

@@ -1,7 +1,8 @@
 """The port's training driver (``python -m repro_torch.launch.train``) on
 the CPU: the reference test's run lowers the loss, a failed run resumed
-from its checkpoint ends bitwise where an uninterrupted run ends, and the
-flags of LM sharding (ROADMAP queue 1, item 4f) raise.
+from its checkpoint ends bitwise where an uninterrupted run ends, the
+exchange flags run, and the mesh flags of LM sharding (ROADMAP queue 1,
+item 4f-ii) raise.
 
 The reference's own driver is not run here: on this container its
 single-device run fails inside ``mesh_context`` (ROADMAP queue 3, note
@@ -75,9 +76,23 @@ def test_restore_without_a_checkpoint_starts_fresh(tmp_path, capsys):
                                    ["--model-parallel", "2"],
                                    ["--edge-exchange"]],
                          ids=lambda f: f[0])
-def test_sharding_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="item 4f"):
-        main(flags + ["--steps", "1", "--device", "cpu"])
+def test_sharding_flags_raise(flags, capsys):
+    """The mesh flags raise (item 4f-ii); ``--pods`` and
+    ``--edge-exchange`` run since the exchange was ported: either alone
+    trains plain, as the reference's driver does (the exchange needs both,
+    ``tests/test_torch_pod_train.py``), bitwise the run without it."""
+    run = ["--steps", "2", "--batch", "4", "--seq", "8", "--log-every", "1",
+           "--device", "cpu"]
+    if flags[0] in ("--host-devices", "--model-parallel"):
+        with pytest.raises(NotImplementedError, match="item 4f-ii"):
+            main(flags + run)
+        return
+    got, plain = {}, {}
+    main(flags + run, stats=got)
+    main(run, stats=plain)
+    assert "replanned" not in capsys.readouterr().out
+    assert "sync_fraction" not in got
+    assert got["loss"] == plain["loss"] and all(np.isfinite(got["loss"]))
 
 
 def test_width_and_depth_overrides():

@@ -54,7 +54,8 @@ from repro_torch.launch import make_train_step
 from repro_torch.models import (params_from_jax, params_to_jax,
                                 train_state_from_jax, train_state_template,
                                 train_state_to_jax)
-from repro_torch.optim import cosine_schedule, global_norm, tree_leaves
+from repro_torch.optim import (cosine_schedule, global_norm, tree_leaves,
+                               tree_map)
 
 ARCH = "starcoder2-3b"
 B, S, STEPS = 4, 24, 3
@@ -309,12 +310,38 @@ def test_stacked_layout_round_trips_bitwise():
 
 
 def test_train_step_refuses_the_gradient_exchange():
+    """Since the exchange was ported (``tests/test_torch_pod_train.py``),
+    as in the reference: ``n_pods`` > 1 with no exchange is the plain
+    step, bitwise; an exchange with ``n_pods`` == 1 (the rank route) is
+    applied to the one gradient tree with the step's momentum, its
+    metrics merged."""
     _, pc = _cfgs()
-    with pytest.raises(NotImplementedError, match="item 4f"):
-        make_train_step(pc, cosine_schedule(LR, 0, 10), n_pods=2)
-    with pytest.raises(NotImplementedError, match="item 4f"):
-        make_train_step(pc, cosine_schedule(LR, 0, 10),
-                        grad_exchange=lambda g, m: (g, {}))
+    lr = cosine_schedule(LR, 0, 10)
+    before = _ref_run(1, False)[1][0]
+    batch = _batches()[1]
+    plain, plain_m = make_train_step(pc, lr)(_port_state(before), batch)
+    pods, pods_m = make_train_step(pc, lr, n_pods=2)(_port_state(before),
+                                                     batch)
+    assert sorted(pods_m) == sorted(plain_m)
+    assert float(pods_m["loss"]) == float(plain_m["loss"])
+    for a, b in zip(tree_leaves(plain.params), tree_leaves(pods.params)):
+        assert torch.equal(a, b)
+    seen = []
+
+    def double(grads, momentum):
+        seen.append(momentum)
+        return tree_map(lambda g: 2 * g, grads), {"doubled": len(seen)}
+    state = _port_state(before)
+    _, want_m, want = make_train_step(pc, lr).loss_and_grads(state, batch)
+    step = make_train_step(pc, lr, grad_exchange=double)
+    loss, metrics, grads = step.loss_and_grads(state, batch)
+    assert len(seen) == 1 and seen[0] is state.m
+    assert sorted(metrics) == sorted([*want_m, "doubled"])
+    for a, b in zip(tree_leaves(grads), tree_leaves(want)):
+        assert torch.equal(a, 2 * b)
+    _, m = step.apply(state, grads, loss, metrics)
+    assert m["doubled"] == 1 and float(m["loss"]) == float(plain_m["loss"])
+    assert float(m["grad_norm"]) == 2 * float(plain_m["grad_norm"])
 
 
 def test_prefill_and_decode_step_factories():
