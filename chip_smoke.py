@@ -551,6 +551,40 @@ POD_TRAIN = {"arch": "starcoder2-3b", "n_layers": 12, "pods": 2,
              "dcn_budget": 0.4, "window": 10, "steps": 25, "batch": 8,
              "seq": 512, "lr": 8e-3, "seed": 34, "smoke_batch": (4, 24),
              "smoke_budget": 0.4, "timeout_s": 240}
+# slice 20: LM sharding's mesh half on two ranks, spawned once for the
+# phase: on two cards over NCCL where the machine has two, else both on the
+# one card over gloo (every collective of a CUDA tensor staged through
+# host memory).  (a) starcoder2-3b at full width cut to 12 of its 30 layers
+# (the exchange phase's cut), model = 2: ``steps`` f32 steps of 4 x 512
+# tokens, timed, printed and finite.  The first step is held against the
+# unsplit step taken on each rank from the same seeded state at full
+# width cut to ``held_layers`` layers, in f64 (every f32 of the model read
+# as f64):
+# loss, grad norm and each gradient leaf within ``f64_limit`` of its
+# largest magnitude (the CPU tests' limit: the same function); the same
+# step in f32 is printed.  At this seeded init two summation orders part
+# far from the rounding they start from: at 2 layers the split f64 step
+# is 3.6e-11 of a leaf's largest from the unsplit one and the f32 step
+# 1.6e-2; at 12 layers (first gradient norm 8.9e11) the f64 loss alone
+# is 2.0e-6 off and the f32 loss 2.4e-4 (measured on an H100 80GB HBM3
+# at 700 W), so no f32 limit holds at full width while the CPU tests' f64
+# steps at smoke size agree to 1e-13.  (b)
+# qwen3-moe-30b-a3b at full width cut to 2 of its 48 layers, bf16 forward
+# copies (``cast_params_bf16``), data = 2: one step in G = 2 dispatch
+# groups of 1024 tokens, each layer's routes against the one-process
+# grouped dispatch on the same tokens (equal, or a near tie within
+# ``near_tie`` relative).  (c) gemma3-12b FULL's bf16 prefill of 4 x 512
+# under model = 2, row 4 on each rank's 8 of 16 heads and 4 of 8 KV heads
+# (48 launches a rank), held against its plain version on layer
+# ``prefill_layer``; the logits' distance from the f32 prefill at most
+# ``LM["kernel_over_plain"]`` times the unsplit bf16 prefill's (f64 of the
+# 12 B weights, 96 GB, does not fit the card)
+MESH = {"train_arch": "starcoder2-3b", "train_layers": 12, "steps": 5,
+        "batch": (4, 512), "lr": 1e-4, "seed": 35,
+        "moe_arch": "qwen3-moe-30b-a3b", "moe_layers": 2,
+        "prefill_arch": "gemma3-12b", "prefill_layer": 5, "near_tie": 1e-6,
+        "held_layers": 2, "f64_limit": 1e-10, "world": 2, "timeout_s": 300,
+        "smoke": False}
 # a fleet of the main path's kind whose data (134 MB for stream_stats_fleet,
 # 268 MB for polyfit) does not fit in the 50 MB L2: (E, k, N)
 LARGE = (4096, 8, 1024)
@@ -1069,7 +1103,10 @@ def main() -> int:
     # ---- 34. slice 19: the cross-pod gradient exchange --------------------
     pod_train = lm_pod_train_path(torch, card_line)
 
-    # ---- 35. the kernels line and the result -----------------------------
+    # ---- 35. slice 20: LM sharding's mesh half on two ranks ----------------
+    mesh_path = lm_mesh_path(torch, card_line)
+
+    # ---- 36. the kernels line and the result -----------------------------
     # launches: rows 1 and 2 on the runtime paths driven with the counts
     # at 0 (main_path, adaptive_path, chaos_path, event_path, and
     # single_event_path, baseline_path, iid_path and host_engine_path,
@@ -1100,7 +1137,9 @@ def main() -> int:
                                                   ssm_train[n],
                                               **stub_paths[n],
                                               "lm_pod_train_path":
-                                                  pod_train[n]}
+                                                  pod_train[n],
+                                              "lm_mesh_path_ranks":
+                                                  mesh_path[n]}
                                              if n in lm else {})})
                for n in KERNELS}
     emit({"kernels": [dict(name=n, route="cuda", source=KERNELS[n][0],
@@ -3395,6 +3434,548 @@ def _pod_rank(rank: int, world: int, tmp: str, plans, starts) -> None:
         np.savez(os.path.join(tmp, f"rank{rank}.npz"), **arrays)
     finally:
         dist.destroy_process_group()
+
+
+def lm_mesh_path(torch, card_line: str, settings: dict = MESH) -> dict:
+    """Phase 35: LM sharding's mesh half (``MESH``).  The unsplit gemma3
+    prefills run here first (f32, then bf16), then two ranks are spawned
+    once for the three sharded runs (:func:`_mesh_rank`).  Every check
+    raises.  Returns row 4's launches summed over the ranks (the f32 flash
+    kernel's asserted 0)."""
+    import dataclasses
+    import gc
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer
+
+    t_phase = time.perf_counter()
+    s = settings
+    dev_type = "cuda" if torch.cuda.is_available() else "cpu"
+    n_dev = torch.cuda.device_count() if dev_type == "cuda" else 0
+    backend = "nccl" if n_dev >= s["world"] else "gloo"
+    smoke = s["smoke"]
+
+    # ---- the unsplit gemma3 prefills: the f32 yardstick and bf16 ----------
+    gc.collect()
+    if dev_type == "cuda":
+        torch.cuda.empty_cache()
+    cfg16 = get_config(s["prefill_arch"], smoke=smoke)
+    tokens = _mesh_tokens(cfg16, s)
+    unsplit = {}
+    t0 = time.perf_counter()
+    for dt in ("float32", "bfloat16"):
+        # the f32 yardstick on the plain route, bf16 on row 4 as the ranks
+        model = Transformer(dataclasses.replace(cfg16, dtype=dt),
+                            device=dev_type, seed=s["seed"],
+                            use_kernel=dt == "bfloat16")
+        with torch.no_grad():
+            logits, _ = model.prefill({"tokens": tokens}, tokens.shape[1])
+        unsplit[dt] = logits[:, -1].float().cpu()
+        del model, logits
+        gc.collect()
+        if dev_type == "cuda":
+            torch.cuda.empty_cache()
+    unsplit_s = time.perf_counter() - t0
+
+    # ---- the ranks ----------------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_mesh_rank,
+                                 args=(s["world"], tmp, backend, s,
+                                       card_line),
+                                 nprocs=s["world"], join=False,
+                                 start_method="spawn")
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > s["timeout_s"]:
+                    raise AssertionError(f"the mesh ranks did not finish in "
+                                         f"{s['timeout_s']} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                p.join(timeout=30)
+        ranks_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(s["world"]):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+
+    # ---- (a) tensor-parallel training --------------------------------------
+    tr = [r["train"] for r in ranks]
+    held = tr[0]["held"]
+    limits = {"loss_rel": s["f64_limit"], "grad_norm_rel": s["f64_limit"],
+              "grad_err_over_leaf_max": s["f64_limit"]}
+    emit({"phase": "lm_mesh_train", "nvidia_smi": card_line,
+          "backend": backend, "arch": tr[0]["arch"],
+          "layers": tr[0]["layers"], "params": tr[0]["params"],
+          "mesh": tr[0]["mesh"], "batch": list(s["batch"]),
+          "losses": tr[0]["losses"], "grad_norms": tr[0]["grad_norms"],
+          "held_layers": tr[0]["held_layers"], "held_first_step_f64": held[
+              "f64"], "limits_f64": limits, "first_step_f32_spread": held[
+              "f32"],
+          "per_rank": [{"rank": i, "step_ms": t["step_ms"],
+                        "median_step_ms": t["median_step_ms"],
+                        "tokens_per_sec": t["tokens_per_sec"],
+                        "peak_mem_bytes": t["peak_mem_bytes"],
+                        "flash_launches": t["flash_launches"],
+                        "held_seconds": {k: v["seconds"]
+                                         for k, v in t["held"].items()}}
+                       for i, t in enumerate(tr)]})
+    ok = (all(held["f64"][k] <= lim for k, lim in limits.items())
+          and all(_finite(t["losses"] + t["grad_norms"]) for t in tr)
+          and len(tr[0]["losses"]) == s["steps"]
+          and all(t["flash_launches"] == 0 for t in tr))
+    if not ok:
+        raise AssertionError(f"the tensor-parallel step against the unsplit "
+                             f"one: {held}, losses {tr[0]['losses']}")
+
+    # ---- (b) FSDP and the grouped dispatch ----------------------------------
+    moe = [r["moe"] for r in ranks]
+    rows = _mesh_route_check(torch, moe, s)
+    emit({"phase": "lm_mesh_moe", "nvidia_smi": card_line,
+          "backend": backend, "arch": moe[0]["arch"],
+          "layers": moe[0]["layers"], "params": moe[0]["params"],
+          "mesh": moe[0]["mesh"], "groups": moe[0]["groups"],
+          "tokens_per_group": moe[0]["tokens_per_group"],
+          "loss": moe[0]["loss"], "grad_norm": moe[0]["grad_norm"],
+          "moe_lb": moe[0]["moe_lb"], "moe_z": moe[0]["moe_z"],
+          "per_layer": rows,
+          "per_rank": [{"rank": i, "step_ms": m["step_ms"],
+                        "peak_mem_bytes": m["peak_mem_bytes"]}
+                       for i, m in enumerate(moe)]})
+    if not (all(r["routes_equal_or_near_tie"] for r in rows)
+            and _finite([moe[0]["loss"], moe[0]["grad_norm"]])):
+        raise AssertionError(f"the data-parallel MoE step's routes against "
+                             f"the one-process grouped dispatch: {rows}")
+
+    # ---- (c) the tensor-parallel prefill -----------------------------------
+    pre = [r["prefill"] for r in ranks]
+    tp = torch.from_numpy(pre[0]["last_logits"])
+    f32, u16 = unsplit["float32"], unsplit["bfloat16"]
+    d_tp, d_u = _rms(tp - f32), _rms(u16 - f32)
+    launches = [p["sm90_launches"] for p in pre]
+    n_layers = cfg16.n_layers
+    emit({"phase": "lm_mesh_prefill", "nvidia_smi": card_line,
+          "backend": backend, "arch": cfg16.name, "layers": n_layers,
+          "batch": list(tokens.shape), "mesh": pre[0]["mesh"],
+          "local_heads": pre[0]["local_heads"],
+          "rms_tp_minus_f32": d_tp, "rms_unsplit_minus_f32": d_u,
+          "rms_f32": _rms(f32), "ratio": d_tp / d_u,
+          "limit": LM["kernel_over_plain"],
+          "argmax_agree_tp_unsplit": float(
+              (tp.argmax(-1) == u16.argmax(-1)).float().mean()),
+          "row4_launches_per_rank": launches,
+          "f32_launches_per_rank": [p["f32_launches"] for p in pre],
+          "prefill_ms_per_rank": [p["prefill_ms"] for p in pre],
+          "row4_check": pre[0]["row4"]})
+    if not (d_tp <= LM["kernel_over_plain"] * d_u
+            and launches == [n_layers] * s["world"]
+            and all(p["f32_launches"] == 0 for p in pre)):
+        raise AssertionError(f"the tensor-parallel prefill: distance from "
+                             f"f32 {d_tp} against the unsplit {d_u}, row 4 "
+                             f"launches {launches}")
+    phase_s = time.perf_counter() - t_phase
+    emit({"phase": "lm_mesh_path", "nvidia_smi": card_line,
+          "backend": backend, "world": s["world"], "devices": n_dev,
+          "unsplit_prefills_seconds": unsplit_s, "ranks_seconds": ranks_s,
+          "rank_seconds": [{k: r[k]["seconds"]
+                            for k in ("train", "moe", "prefill")}
+                           for r in ranks],
+          "seconds": phase_s})
+    return {"flash_attention": sum(launches),
+            "flash_attention_f32": sum(p["f32_launches"] for p in pre)}
+
+
+def _mesh_tokens(cfg, s: dict):
+    import numpy as np
+    rows, cols = (2, 24) if s["smoke"] else s["batch"]
+    return np.random.default_rng(s["seed"]).integers(0, cfg.vocab,
+                                                     (rows, cols))
+
+
+def _mesh_rank(rank: int, world: int, tmp: str, backend: str, s: dict,
+               card_line: str) -> None:
+    """One rank of phase 35 (spawned): the three sharded runs in turn, its
+    results to ``rank<r>.pkl``."""
+    import datetime
+    import pickle
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import torch
+    import torch.distributed as dist
+    if torch.cuda.is_available():
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(
+        backend, init_method=f"file://{tmp}/rendezvous", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=s["timeout_s"]))
+    try:
+        out = {}
+        for name, run in (("train", lambda: _mesh_train(torch, s)),
+                          ("moe", lambda: _mesh_moe(torch, s)),
+                          ("prefill",
+                           lambda: _mesh_prefill(torch, s, card_line))):
+            t0 = time.perf_counter()
+            out[name] = run()
+            out[name]["seconds"] = time.perf_counter() - t0
+        with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_dev(torch):
+    if torch.cuda.is_available():
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def _mesh_sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _mesh_batch(cfg, s: dict, step: int) -> dict:
+    import numpy as np
+    rows, cols = (2, 24) if s["smoke"] else s["batch"]
+    rng = np.random.default_rng(s["seed"] + 1 + step)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (rows, cols)),
+             "labels": rng.integers(0, cfg.vocab, (rows, cols))}
+    batch["labels"][0, :5] = -1
+    return batch
+
+
+def _widened():
+    """``scripts/lm_grad_probe.py``'s ``widened(True)``: every f32 of the
+    port's LM stack read as f64 inside."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "lm_grad_probe", os.path.join(HERE, "scripts", "lm_grad_probe.py"))
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    return probe.widened(True)
+
+
+def _mesh_train(torch, s: dict) -> dict:
+    """(a): starcoder2-3b under model = 2.  The first step at
+    ``held_layers`` layers against the unsplit one in f64 (held) and in
+    f32 (printed; :func:`_mesh_held_step`), then ``steps`` timed f32
+    steps at ``train_layers``."""
+    import dataclasses
+    import gc
+    import statistics
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import make_train_step
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import adamw_init, cosine_schedule
+    from repro_torch.parallel.sharding import lm_shards, mesh_context
+    dev = _mesh_dev(torch)
+    full = get_config(s["train_arch"], smoke=s["smoke"])
+    cfg = dataclasses.replace(full, dtype="float32",
+                              n_layers=full.n_layers if s["smoke"]
+                              else s["train_layers"])
+    mesh = make_local_mesh(model_parallel=s["world"])
+    lr = cosine_schedule(s["lr"], 0, 10)
+
+    # ---- the held first step: f64, then f32 -------------------------------
+    held_cfg = dataclasses.replace(cfg, n_layers=s["held_layers"])
+    held = {}
+    for prec in ("f64", "f32"):
+        t0 = time.perf_counter()
+        with (_widened() if prec == "f64" else contextlib.nullcontext()):
+            held[prec] = _mesh_held_step(torch, held_cfg, mesh, s, lr, dev)
+        held[prec]["seconds"] = time.perf_counter() - t0
+
+    # ---- the timed steps, in f32 -----------------------------------------
+    shards = lm_shards(cfg, mesh)
+    state = adamw_init(_mesh_params(torch, cfg, s, dev, shards))
+    step_fn = make_train_step(cfg, lr)
+    fa_ops.LAUNCHES = 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, gnorms, step_ms = [], [], []
+    with mesh_context(mesh):
+        for i in range(s["steps"]):
+            batch = _mesh_batch_on(torch, cfg, s, i, dev)
+            _mesh_sync(torch, dev)
+            t_a = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            _mesh_sync(torch, dev)
+            step_ms.append(1e3 * (time.perf_counter() - t_a))
+            losses.append(float(metrics["loss"]))
+            gnorms.append(float(metrics["grad_norm"]))
+    med = statistics.median(step_ms)
+    rows, cols = (2, 24) if s["smoke"] else s["batch"]
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "params": cfg.param_count(), "mesh": mesh.shape,
+           "losses": losses, "grad_norms": gnorms, "step_ms": step_ms,
+           "median_step_ms": med, "tokens_per_sec": rows * cols / med * 1e3,
+           "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
+                              if dev.type == "cuda" else None),
+           "flash_launches": fa_ops.LAUNCHES, "held_layers": held_cfg.n_layers,
+           "held": held}
+    del state
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_params(torch, cfg, s: dict, dev, shards=None):
+    """The seeded parameters, whole or (``shards``) this rank's."""
+    from repro_torch.models import init_params
+    gen = torch.Generator(device=dev).manual_seed(s["seed"])
+    place = None if shards is None else (
+        lambda path, t: shards.at(path).shard(t))
+    return init_params(cfg, gen, device=dev, place=place)
+
+
+def _mesh_batch_on(torch, cfg, s: dict, step: int, dev) -> dict:
+    return {k: torch.as_tensor(v).to(dev)
+            for k, v in _mesh_batch(cfg, s, step).items()}
+
+
+def _mesh_held_step(torch, cfg, mesh, s: dict, lr, dev) -> dict:
+    """One step's loss and gradients from the seeded state on batch 0,
+    unsplit and then split, on every rank; each rank holds its gradient
+    shards against its slices of the unsplit gradients, and every rank
+    gets all the ranks' errors: the loss's, the grad norm's and each
+    leaf's largest over the whole leaf's largest, the worst first."""
+    import gc
+
+    import torch.distributed as dist
+    from repro_torch.launch import make_train_step
+    from repro_torch.models.transformer import forward_train
+    from repro_torch.optim import TrainState, global_norm, tree_leaves
+    from repro_torch.parallel.sharding import (leaf_paths, lm_shards,
+                                               mesh_context)
+    batch = _mesh_batch_on(torch, cfg, s, 0, dev)
+    params = _mesh_params(torch, cfg, s, dev)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, _ = forward_train(params, batch, cfg)
+    want = list(torch.autograd.grad(loss, leaves))
+    want_loss, want_norm = float(loss.detach()), float(global_norm(want))
+    del params, leaves, loss
+    gc.collect()
+    shards = lm_shards(cfg, mesh)
+    # parameters only: this step's moments are not taken
+    state = TrainState(params=_mesh_params(torch, cfg, s, dev, shards),
+                       m={}, v={}, step=0)
+    with mesh_context(mesh):
+        loss, _, grads = make_train_step(cfg, lr).loss_and_grads(state,
+                                                                 batch)
+        gnorm = float(global_norm(grads, shards))
+    errs = []
+    for (path, _), g, w in zip(leaf_paths(state.params), tree_leaves(grads),
+                               want):
+        scale = float(w.abs().max())
+        d = float((g - shards.at(path).shard(w)).abs().max())
+        errs.append((d / scale if scale > 0 else d, path))
+    del state, grads, want
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, errs)
+    errs = sorted((e for r in every for e in r), reverse=True)
+    return {"loss_rel": abs(float(loss) - want_loss) / abs(want_loss),
+            "grad_norm_rel": abs(gnorm - want_norm) / want_norm,
+            "grad_err_over_leaf_max": errs[0][0],
+            "leaves": len(errs) // len(every),
+            "worst_leaves": errs[:4], "want_loss": want_loss,
+            "want_grad_norm": want_norm}
+
+
+def _mesh_moe(torch, s: dict) -> dict:
+    """(b): qwen3-moe under data = 2, one step; each layer's first
+    ``moe_apply`` (the forward's; the backward recomputes it) recorded:
+    its input rows on this rank, the gathered router, the routes and the
+    capacity."""
+    import dataclasses
+    import gc
+
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_train_step
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import init_params
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.optim import adamw_init, cosine_schedule
+    from repro_torch.parallel.sharding import lm_shards, mesh_context
+    dev = _mesh_dev(torch)
+    cfg = get_config(s["moe_arch"], smoke=s["smoke"])
+    if not s["smoke"]:
+        cfg = dataclasses.replace(cfg, n_layers=s["moe_layers"])
+    mesh = make_local_mesh()
+    shards = lm_shards(cfg, mesh)
+    gen = torch.Generator(device=dev).manual_seed(s["seed"])
+    state = adamw_init(init_params(
+        cfg, gen, device=dev, place=lambda path, t: shards.at(path).shard(t)))
+    step_fn = make_train_step(cfg, cosine_schedule(s["lr"], 0, 10),
+                              cast_params_bf16=True)
+    batch = shards.local_batch(_mesh_batch(cfg, s, 0))
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    calls = []
+    apply, router, dispatch = (lm_layers.moe_apply, lm_layers.moe_router,
+                               lm_layers.moe_dispatch)
+
+    def spy_apply(params, x, m):
+        if len(calls) < cfg.n_layers:
+            calls.append({"x": x.detach().float().cpu().numpy()})
+        return apply(params, x, m)
+
+    def spy_router(r, xt, k):
+        out = router(r, xt, k)
+        if len(calls) <= cfg.n_layers and "router" not in calls[-1]:
+            calls[-1]["router"] = r.detach().float().cpu().numpy()
+            calls[-1]["topi"] = out[3].cpu().numpy()
+        return out
+
+    def spy_dispatch(topi, cap):
+        out = dispatch(topi, cap)
+        if len(calls) <= cfg.n_layers and "rank_c" not in calls[-1]:
+            calls[-1]["rank_c"] = out[2].cpu().numpy()
+            calls[-1]["sort_idx"] = out[0].cpu().numpy()
+            calls[-1]["cap"] = cap
+        return out
+    lm_layers.moe_apply, lm_layers.moe_router, lm_layers.moe_dispatch = (
+        spy_apply, spy_router, spy_dispatch)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        with mesh_context(mesh):
+            _mesh_sync(torch, dev)
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            _mesh_sync(torch, dev)
+            ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        lm_layers.moe_apply, lm_layers.moe_router, lm_layers.moe_dispatch = (
+            apply, router, dispatch)
+    t_local = batch["tokens"].numel()
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "params": cfg.param_count(), "mesh": mesh.shape,
+           "groups": mesh.size("data"), "tokens_per_group": t_local,
+           "loss": float(metrics["loss"]),
+           "grad_norm": float(metrics["grad_norm"]),
+           "moe_lb": float(metrics["moe_lb"]),
+           "moe_z": float(metrics["moe_z"]), "step_ms": ms,
+           "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
+                              if dev.type == "cuda" else None),
+           "calls": calls, "top_k": cfg.moe.top_k}
+    del state
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _mesh_route_check(torch, moe: list, s: dict) -> list:
+    """Each layer's routes on the data ranks against the one-process
+    grouped dispatch (``moe_apply``'s router and dispatch under
+    ``dispatch_groups(2)``) on the ranks' own inputs, concatenated in
+    rank order.  The router's product is taken a group at a time, at the
+    ranks' shape, so that both sides run the same GEMM (a token's gates
+    do not depend on the others')."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as lm_layers
+    cfg = get_config(s["moe_arch"], smoke=s["smoke"])
+    m, k = cfg.moe, cfg.moe.top_k
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    groups = len(moe)
+    rows = []
+    for layer in range(moe[0]["layers"]):
+        per = [r["calls"][layer] for r in moe]
+        x = np.concatenate([c["x"].reshape(-1, c["x"].shape[-1])
+                            for c in per])
+        router = torch.as_tensor(per[0]["router"], device=dev)
+        xt = torch.as_tensor(x, device=dev).to(cfg.activation_dtype)
+        tg = xt.shape[0] // groups
+        routed = [lm_layers.moe_router(router, xt[g * tg:(g + 1) * tg], k)
+                  for g in range(groups)]
+        probs = torch.cat([r[1] for r in routed])
+        topi = torch.cat([r[3] for r in routed])
+        cap = lm_layers.moe_capacity(tg, m)
+        equal, near, drops = True, True, []
+        p_sorted = torch.sort(probs, dim=-1, descending=True).values
+        gap = ((p_sorted[:, k - 1] - p_sorted[:, k])
+               / p_sorted[:, k - 1]).cpu().numpy()
+        for g, c in enumerate(per):
+            ti = topi[g * tg:(g + 1) * tg]
+            sort_idx, _, rank_c = lm_layers.moe_dispatch(ti, cap)
+            same = (np.array_equal(ti.cpu().numpy(), c["topi"])
+                    and np.array_equal(sort_idx.cpu().numpy(), c["sort_idx"])
+                    and np.array_equal(rank_c.cpu().numpy(), c["rank_c"])
+                    and c["cap"] == cap)
+            if not same:
+                differ = np.any(ti.cpu().numpy() != c["topi"], axis=1)
+                near = near and bool(
+                    (gap[g * tg:(g + 1) * tg][differ] <= s["near_tie"]).all())
+            equal = equal and same
+            drops.append(int((c["rank_c"] == c["cap"]).sum()))
+        rows.append({"layer": layer, "tokens_per_group": tg, "capacity": cap,
+                     "routes_bitwise": equal,
+                     "routes_equal_or_near_tie": equal or near,
+                     "dropped_entries_per_group": drops})
+    return rows
+
+
+def _mesh_prefill(torch, s: dict, card_line: str) -> dict:
+    """(c): gemma3-12b's bf16 prefill under model = 2; rank 0 holds row 4
+    against its plain version on one layer's local q, k, v."""
+    import gc
+
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import make_prefill
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import Transformer
+    from repro_torch.models import layers as lm_layers
+    dev = _mesh_dev(torch)
+    rank = dist.get_rank()
+    cfg = get_config(s["prefill_arch"], smoke=s["smoke"])
+    mesh = make_local_mesh(model_parallel=s["world"])
+    model = Transformer(cfg, device=dev, seed=s["seed"], mesh=mesh)
+    tokens = _mesh_tokens(cfg, s)
+    prefill = make_prefill(cfg, tokens.shape[1])
+    captured = {}
+
+    def capture(i, q, k, v, kw, out):
+        if i == s["prefill_layer"]:
+            captured["qkv"] = (q, k, v, kw)
+    fa_ops.LAUNCHES = fa_ops.SM90_LAUNCHES = 0
+    _mesh_sync(torch, dev)
+    t0 = time.perf_counter()
+    with torch.no_grad(), _attention_spy(lm_layers, capture):
+        logits, cache = prefill(model, {"tokens": tokens})
+    _mesh_sync(torch, dev)
+    ms = 1e3 * (time.perf_counter() - t0)
+    sm90 = fa_ops.SM90_LAUNCHES
+    f32 = fa_ops.LAUNCHES - sm90
+    row4 = None
+    if rank == 0 and dev.type == "cuda":
+        q, k, v, kw = captured["qkv"]
+        err, line = row4_check_and_time(torch, q, k, v, kw,
+                                        "lm_mesh_prefill_rank0", card_line)
+        row4 = {"shape": list(q.shape), "kv_shape": list(k.shape),
+                "max_abs_err": err, **line}
+    out = {"mesh": mesh.shape, "last_logits": logits[:, -1].float().cpu()
+           .numpy(), "sm90_launches": sm90, "f32_launches": f32,
+           "prefill_ms": ms, "row4": row4,
+           "local_heads": [int(model.layers[0].mixer["wq"].shape[1]),
+                           int(cache["layers"][0]["k"].shape[2])]}
+    del model, cache, captured
+    gc.collect()
+    return out
 
 
 def _update_sample(params, grads, n: int = 4096) -> list:

@@ -66,9 +66,20 @@ class _Wide:
         return getattr(torch, name)
 
 
+# the LM stack's modules whose ``torch.float32`` an f64 run reads as f64
+# (the sharded step's too: ``tests/test_torch_lm_mesh_ranks.py`` and
+# ``chip_smoke.py``'s mesh phase widen their runs with :func:`widened`)
+WIDE_MODULES = ("models.config", "models.layers", "models.transformer",
+                "launch.steps", "optim.adamw", "optim.edge_exchange",
+                "parallel.sharding", "parallel.collectives")
+
+
 @contextlib.contextmanager
 def widened(on: bool):
-    mods = (C, L, T)
+    """Every f32 of the port's LM stack read as f64 inside (the modules'
+    ``torch`` swapped) when ``on``."""
+    import importlib
+    mods = [importlib.import_module(f"repro_torch.{n}") for n in WIDE_MODULES]
     if not on:
         yield
         return

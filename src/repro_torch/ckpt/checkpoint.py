@@ -249,3 +249,51 @@ class CheckpointManager:
         if step is None:
             return None, None
         return restore(self.directory, step, abstract_state, device), step
+
+
+def save_train_state(manager: Optional[CheckpointManager], state, step: int,
+                     cfg, shards=None) -> None:
+    """Save a training state (the port's per-layer ``TrainState``) as
+    checkpoint ``step`` in the reference's stacked layout.  ``shards``
+    (``parallel.sharding.LMShards``): the state is this rank's shards;
+    every rank of the mesh calls this, each leaf is gathered whole and
+    moved to the host one at a time, and the rank that holds ``manager``
+    (rank 0; the others pass None) writes it, so the file is the one an
+    unsharded run writes."""
+    from repro_torch.models.convert import train_state_to_jax
+    from repro_torch.optim.adamw import TrainState
+    if shards is not None:
+        from repro_torch.parallel.sharding import map_paths
+
+        def whole(tree):
+            return map_paths(lambda p, t: shards.at(p).gather(t).cpu(), tree)
+        state = TrainState(params=whole(state.params), m=whole(state.m),
+                           v=whole(state.v), step=state.step)
+    if manager is not None:
+        manager.save(train_state_to_jax(state, cfg), step)
+
+
+def restore_train_state(manager: CheckpointManager, cfg, device=None,
+                        shards=None, step: Optional[int] = None):
+    """(training checkpoint ``step`` (default the newest) as the port's
+    ``TrainState`` on ``device``, its step), or (None, None).
+    ``shards``: each leaf is cut to this rank's shard of the mesh it
+    restores onto, whatever mesh saved it (a checkpoint holds whole
+    leaves)."""
+    from repro_torch.models.convert import (train_state_from_jax,
+                                            train_state_template)
+    from repro_torch.optim.adamw import TrainState
+    saved, step = manager.restore(train_state_template(cfg), device="cpu",
+                                  step=step)
+    if saved is None:
+        return None, None
+    host = train_state_from_jax(saved, cfg)
+    dev = resolve_device(device)
+
+    def placed(tree):
+        if shards is not None:
+            tree = shards.shard(tree)
+        from repro_torch.optim.adamw import tree_map
+        return tree_map(lambda t: t.to(dev), tree)
+    return TrainState(params=placed(host.params), m=placed(host.m),
+                      v=placed(host.v), step=host.step), step

@@ -6,6 +6,13 @@
 gradient accumulation, then one AdamW step, with the reference's
 cross-pod gradient exchange (``grad_exchange``, the paper's technique;
 see :mod:`repro_torch.optim.edge_exchange`) between them.
+
+Under an active LM mesh (``parallel.sharding.mesh_context``) of more
+than one rank the step is one rank's part of the reference's sharded
+step: the state is this rank's shards (``LMShards.shard``), the batch
+its rows (``LMShards.local_batch``), the forward reads the tree gathered
+over ``"data"`` and split over ``"model"``, the gradients are summed over
+the batch ranks and cut back to the shards, and AdamW runs on the shards.
 """
 from __future__ import annotations
 
@@ -18,6 +25,10 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import MOE_AUX, forward_train
 from repro_torch.optim.adamw import (TrainState, adamw_update, tree_leaves,
                                      tree_map, tree_unflatten)
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel.sharding import (active_mesh, batch_axes,
+                                           lm_shards, map_paths,
+                                           mesh_context)
 
 
 def _split_microbatches(batch: dict, n: int) -> list:
@@ -71,6 +82,20 @@ def make_train_step(cfg: ModelConfig, lr_fn: Callable, *, microbatches: int = 1,
     The batch's entries besides ``tokens`` and ``labels`` (the modality
     stubs' ``encoder_embeds``, ``patch_embeds``, ``positions``) go into
     ``forward_train`` with them, cut into the microbatches alike.
+
+    Under an active mesh of more than one rank (read when the step runs)
+    the state holds this rank's shards and the batch its rows.  The
+    forward copy (cast first, with ``cast_params_bf16``) is gathered over
+    ``"data"`` once a step, or, with ``cfg.zero3 == "block"``, each
+    decoder period block inside the layer loop; the gradients of the
+    gathered copy are reduce-scattered to the shards, summed over the
+    batch ranks (each rank's loss is its tokens' share of the whole
+    batch's mean), in f32.  With a ``"pod"`` axis and an exchange the
+    pods are the exchange's: each pod's ranks take its gradients over
+    ``"data"`` alone and ``grad_exchange`` (``make_grad_exchange`` over
+    the pod group, ``n_pods`` 1) combines them; without one the pods are
+    batch ranks like the data ranks.  The reported loss is the whole
+    batch's on every rank.
     """
     pods = n_pods if grad_exchange is not None and n_pods > 1 else 1
 
@@ -117,7 +142,40 @@ def make_train_step(cfg: ModelConfig, lr_fn: Callable, *, microbatches: int = 1,
                 {k: v / microbatches for k, v in aux_sum.items()},
                 tree_unflatten(params, g_sum))
 
+    def sharded_grads(state: TrainState, batch: dict, mesh):
+        shards = lm_shards(cfg, mesh)
+        pod_region = grad_exchange is not None and mesh.size("pod") > 1
+        axes = ("data",) if pod_region else batch_axes(mesh)
+        block = cfg.zero3 == "block"
+
+        def per_block(path: str) -> bool:
+            return block and path.startswith("['layers']")
+
+        def gathered(path, t):
+            if per_block(path):
+                return t
+            g = shards.at(path).gather(t, ("data",))
+            return t if g is t else g.detach().requires_grad_()
+        params = (fwd_tree(state.params) if cast_params_bf16
+                  else state.params)
+        fwd = map_paths(gathered, params)
+        leaves = tree_leaves(fwd)
+        for p in leaves:
+            if not p.requires_grad:
+                p.requires_grad_(True)
+        with mesh_context(mesh, {"batch": axes}):
+            loss, metrics, grads = grads_of(fwd, leaves, batch)
+        grads = shards.reduce_grads(grads, axes, scattered=per_block)
+        loss = C.all_reduce(loss, mesh.group(axes))
+        if pod_region:
+            loss = C.all_reduce(loss, mesh.group("pod")) \
+                * float(np.float32(1.0 / mesh.size("pod")))
+        return loss, metrics, grads
+
     def local_grads(state: TrainState, batch: dict):
+        mesh = active_mesh()
+        if mesh is not None and mesh.world > 1:
+            return sharded_grads(state, batch, mesh)
         params = (fwd_tree(state.params) if cast_params_bf16
                   else state.params)
         leaves = tree_leaves(params)
@@ -148,8 +206,12 @@ def make_train_step(cfg: ModelConfig, lr_fn: Callable, *, microbatches: int = 1,
 
     def apply(state: TrainState, grads, loss, metrics: dict):
         lr = lr_fn(state.step)
+        mesh = active_mesh()
+        shards = (lm_shards(cfg, mesh) if mesh is not None and mesh.world > 1
+                  else None)
         state, opt_metrics = adamw_update(
-            state, grads, lr, weight_decay=weight_decay, clip_norm=clip_norm)
+            state, grads, lr, weight_decay=weight_decay, clip_norm=clip_norm,
+            shards=shards)
         return state, {**metrics, **opt_metrics, "loss": loss}
 
     def train_step(state: TrainState, batch: dict):

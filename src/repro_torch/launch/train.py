@@ -4,17 +4,28 @@ point behind ``examples/train_lm.py``).
     python -m repro_torch.launch.train [--arch starcoder2-3b] [--full] ...
 
 Trains any architecture of the zoo (smoke or full config) on the
-synthetic Markov token stream, on one device: the GPU by default
-(``--device cpu`` for the CPU).  With no arguments it runs the example's
-default: starcoder2 smoke, 150 steps of 8 x 64 tokens at lr 8e-3.
+synthetic Markov token stream: the GPU by default (``--device cpu`` for
+the CPU).  With no arguments it runs the example's default: starcoder2
+smoke, 150 steps of 8 x 64 tokens at lr 8e-3.
 
+  * the mesh: one process per mesh position over ``torch.distributed``
+    (:mod:`repro_torch.launch.mesh`), ``(pods, data, model)`` with FSDP
+    over ``data`` and tensor parallelism over the ``--model-parallel``
+    ranks (:mod:`repro_torch.parallel.sharding`); the ``[train] ...
+    mesh={...}`` line prints it.  ``--host-devices N`` starts N CPU
+    ranks over gloo itself, as the reference forces N CPU devices;
+    without it the world comes from the environment (``torchrun``'s
+    ``env://``: NCCL on the GPU, rank r on ``cuda:(r % device_count)``),
+    or the driver runs alone.  Each rank holds its shards of the state
+    and takes its rows of each batch; only rank 0 logs and saves;
   * checkpoints: ``--ckpt-dir`` with a save every ``--ckpt-every`` steps
     and at the end, in the reference's format and stacked layout (the
     reference's ``repro.ckpt.restore`` reads them, and the port reads the
-    reference's); ``--restore`` resumes from the newest one.  A resumed
-    run first draws the batches of the steps it skips, so it trains on
-    the batches an uninterrupted run would (the reference's restart
-    starts the stream over);
+    reference's); ``--restore`` resumes from the newest one.  A sharded
+    run saves whole leaves, so a run saved on one mesh resumes on
+    another.  A resumed run first draws the batches of the steps it
+    skips, so it trains on the batches an uninterrupted run would (the
+    reference's restart starts the stream over);
   * fault injection: ``--fail-at-step N`` raises before step N;
     rerunning with ``--restore`` continues from the last checkpoint;
   * ``--d-model`` and ``--n-layers`` override the config's width and
@@ -25,19 +36,19 @@ default: starcoder2 smoke, 150 steps of 8 x 64 tokens at lr 8e-3.
     NaN in both packages (ROADMAP queue 3, note o).
 
   * the paper's cross-pod gradient exchange: ``--pods P --edge-exchange``
-    cuts each batch into P pods, takes their gradients in turn on the one
-    device and combines them with
-    :func:`~repro_torch.optim.edge_exchange.make_stacked_exchange`,
-    starting from full sync; :class:`~repro_torch.optim.edge_exchange.
-    EdgeGradController` observes every step's telemetry and re-plans
-    every ``--exchange-window`` steps within ``--dcn-budget`` of full
-    sync's bytes (a changed plan prints ``[train] replanned: sync
-    fraction=...``).  ``--pods`` alone, or ``--edge-exchange`` with one
-    pod, trains plain, as the reference does.  Checkpoints do not carry
-    the plan: a restored run starts from full sync.
-
-The mesh flags ``--host-devices`` and ``--model-parallel`` need LM
-sharding (ROADMAP queue 1, item 4f-ii) and raise ``NotImplementedError``.
+    cuts each batch into P pods.  Alone, the driver takes their gradients
+    in turn on the one device and combines them with
+    :func:`~repro_torch.optim.edge_exchange.make_stacked_exchange`; on
+    ranks the pods are the mesh's ``pod`` axis and
+    :func:`~repro_torch.optim.edge_exchange.make_grad_exchange` runs over
+    each pod group.  Both start from full sync;
+    :class:`~repro_torch.optim.edge_exchange.EdgeGradController` observes
+    every step's telemetry and re-plans every ``--exchange-window`` steps
+    within ``--dcn-budget`` of full sync's bytes (rank 0 plans and sends
+    the plan to the others; a changed plan prints ``[train] replanned:
+    sync fraction=...``).  ``--pods`` alone, or ``--edge-exchange`` with
+    one pod, trains plain, as the reference does.  Checkpoints do not
+    carry the plan: a restored run starts from full sync.
 
 An MoE model's aux losses (``moe_lb``, ``moe_z``) are logged beside the
 loss.  Each step's parts, the loss with its gradients, the exchange and
@@ -92,15 +103,6 @@ def build_argparser():
     return ap
 
 
-def _refuse_sharding(args) -> None:
-    for flag, on in (("--host-devices", args.host_devices != 0),
-                     ("--model-parallel > 1", args.model_parallel > 1)):
-        if on:
-            raise NotImplementedError(
-                f"{flag} needs LM sharding, not ported yet (ROADMAP queue 1, "
-                f"item 4f-ii); the port trains on one device")
-
-
 def config_from_args(args):
     """The architecture's config with the width and depth overrides."""
     from repro_torch.configs import get_config
@@ -144,31 +146,108 @@ def main(argv=None, stats: Optional[dict] = None):
     """Train as ``argv`` says (None: ``sys.argv[1:]``; empty: the
     example's default) and return the logged losses.  ``stats``, when
     given, receives every step's loss, grad norm and times and the run's
-    summary."""
+    summary (rank 0's, on ranks)."""
     if argv is None:
         argv = sys.argv[1:]
-    args = build_argparser().parse_args(list(argv) or DEFAULT_ARGV)
-    _refuse_sharding(args)
+    argv = list(argv) or DEFAULT_ARGV
+    args = build_argparser().parse_args(argv)
+    import os
+
+    import torch.distributed as dist
+    if args.host_devices:
+        if args.device not in (None, "cpu"):
+            raise ValueError(f"--host-devices runs CPU ranks; drop --device "
+                             f"{args.device}")
+        args.device = "cpu"
+        if args.host_devices > 1 and not dist.is_initialized():
+            return _spawn_host_ranks(args.host_devices, argv, stats)
+    if dist.is_initialized() or int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return _train(args, stats)
+    # torchrun: the world from the environment
+    from repro_torch import resolve_device
+    dev = resolve_device(args.device)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method="env://")
+    try:
+        return _train(args, stats)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_host_ranks(n: int, argv: list, stats: Optional[dict]):
+    """The driver on ``n`` CPU ranks of a gloo group (spawned processes,
+    each with its share of the cores); rank 0's losses and stats come
+    back."""
+    import os
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_host_rank, args=(n, argv, tmp), nprocs=n,
+                           join=True, start_method="spawn")
+        with open(os.path.join(tmp, "rank0.pkl"), "rb") as f:
+            losses, rank_stats = pickle.load(f)
+    if stats is not None:
+        stats.update(rank_stats)
+    return losses
+
+
+def _host_rank(rank: int, n: int, argv: list, tmp: str) -> None:
+    """One spawned rank: the gloo group, then the driver on ``argv``."""
+    import datetime
+    import os
+    import pickle
 
     import torch
+    import torch.distributed as dist
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+    dist.init_process_group(
+        "gloo", init_method=f"file://{tmp}/rendezvous", rank=rank,
+        world_size=n, timeout=datetime.timedelta(seconds=600))
+    try:
+        stats = {}
+        losses = main(argv, stats=stats)
+        if rank == 0:
+            with open(os.path.join(tmp, "rank0.pkl"), "wb") as f:
+                pickle.dump((losses, stats), f)
+    finally:
+        dist.destroy_process_group()
 
-    from repro_torch import resolve_device
-    from repro_torch.ckpt import CheckpointManager
+
+def _train(args, stats: Optional[dict]):
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.ckpt import (CheckpointManager, restore_train_state,
+                                  save_train_state)
     from repro_torch.data.lm_data import LMBatcher
+    from repro_torch.launch.mesh import make_local_mesh, rank_device
     from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import (init_params, train_state_from_jax,
-                                    train_state_template, train_state_to_jax)
+    from repro_torch.models import init_params
     from repro_torch.models.transformer import MOE_AUX
-    from repro_torch.optim.adamw import adamw_init, cosine_schedule, tree_map
+    from repro_torch.optim.adamw import adamw_init, cosine_schedule
     from repro_torch.optim.edge_exchange import (EdgeGradController,
                                                  full_sync_plan,
+                                                 make_grad_exchange,
                                                  make_stacked_exchange,
                                                  stream_sizes)
+    from repro_torch.parallel.collectives import broadcast_object
+    from repro_torch.parallel.sharding import lm_shards, mesh_context
 
-    device = resolve_device(args.device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    device = rank_device(rank, args.device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    ranks = world > 1
     cfg = config_from_args(args)
-    print(f"[train] arch={cfg.name} device={device} "
-          f"params~{cfg.param_count():,}", flush=True)
+    # alone, the pods are stacked in one process
+    mesh = make_local_mesh(args.model_parallel, args.pods if ranks else 1)
+    shards = lm_shards(cfg, mesh) if ranks else None
+    log = print if rank == 0 else (lambda *a, **k: None)
+    log(f"[train] arch={cfg.name} device={device} mesh={mesh.shape} "
+        f"params~{cfg.param_count():,}", flush=True)
 
     def sync():
         if device.type == "cuda":
@@ -178,37 +257,40 @@ def main(argv=None, stats: Optional[dict] = None):
 
     # ---- state init / restore -------------------------------------------
     ckpt = CheckpointManager(args.ckpt_dir, keep=2) if args.ckpt_dir else None
+    saver = ckpt if rank == 0 else None
     start_step = 0
     state = None
     if args.restore and ckpt is not None:
-        saved, step = ckpt.restore(train_state_template(cfg), device="cpu")
-        if saved is not None:
-            host = train_state_from_jax(saved, cfg)
-            state = dataclasses.replace(
-                host, **{f: tree_map(lambda t: t.to(device), getattr(host, f))
-                         for f in ("params", "m", "v")})
+        state, step = restore_train_state(ckpt, cfg, device, shards)
+        if state is not None:
             start_step = step
-            print(f"[train] restored step {step} from {args.ckpt_dir}",
-                  flush=True)
+            log(f"[train] restored step {step} from {args.ckpt_dir}",
+                flush=True)
     if state is None:
         gen = torch.Generator(device=device).manual_seed(args.seed)
-        state = adamw_init(init_params(cfg, gen, device=device))
+        place = None if shards is None else (
+            lambda path, t: shards.at(path).shard(t))
+        state = adamw_init(init_params(cfg, gen, device=device, place=place))
 
     # ---- exchange plan / controller --------------------------------------
     controller = plan = None
     if args.edge_exchange and args.pods > 1:
-        plan = full_sync_plan(state.params, cfg)
+        shapes = init_params(cfg, None, device="meta")
+        plan = full_sync_plan(shapes, cfg)
         controller = EdgeGradController(
-            sizes=stream_sizes(state.params, cfg),
+            sizes=stream_sizes(shapes, cfg),
             dcn_budget_fraction=args.dcn_budget, n_pods=args.pods,
             window=args.exchange_window)
 
     def build_step(plan_now):
-        ex = (make_stacked_exchange(plan_now, cfg=cfg)
-              if plan_now is not None else None)
+        ex, n_pods = None, 1
+        if plan_now is not None and ranks:      # a pod a slice of "pod"
+            ex = make_grad_exchange(plan_now, group=mesh.group("pod"),
+                                    cfg=cfg, shards=shards)
+        elif plan_now is not None:
+            ex, n_pods = make_stacked_exchange(plan_now, cfg=cfg), args.pods
         return make_train_step(cfg, lr, microbatches=args.microbatches,
-                               grad_exchange=ex,
-                               n_pods=args.pods if ex else 1)
+                               grad_exchange=ex, n_pods=n_pods)
 
     train_step = build_step(plan)
     if device.type == "cuda":
@@ -222,16 +304,22 @@ def main(argv=None, stats: Optional[dict] = None):
         record.update(sync_fraction=[], replanned_at=[])
     losses = []
     t0 = time.time()
+    meshed = mesh_context(mesh)
+    meshed.__enter__()
     try:
         it = iter(data)
         for _ in range(start_step):     # the batches the resumed steps drew
             next(it)
         for step in range(start_step, args.steps):
             if step == args.fail_at_step:
-                print(f"[train] INJECTED FAILURE at step {step}", flush=True)
+                log(f"[train] INJECTED FAILURE at step {step}", flush=True)
                 raise RuntimeError("injected node failure")
+            batch = next(it)
+            if shards is not None:          # this rank's rows
+                batch = shards.local_batch(batch, args.microbatches,
+                                           pod_region=plan is not None)
             batch = {k: torch.as_tensor(v).to(device)
-                     for k, v in next(it).items()}
+                     for k, v in batch.items()}
             sync()
             t_a = time.perf_counter()
             loss, metrics, grads = train_step.local_grads(state, batch)
@@ -257,27 +345,30 @@ def main(argv=None, stats: Optional[dict] = None):
             if controller is not None:
                 controller.observe(metrics)
                 if (step + 1) % args.exchange_window == 0:
-                    new_plan = controller.replan(plan)
+                    new_plan = controller.replan(plan) if rank == 0 else None
+                    if ranks:
+                        new_plan = broadcast_object(new_plan)
                     frac = new_plan.fraction_synced(controller.sizes)
                     record["sync_fraction"].append(frac)
                     if new_plan.sync != plan.sync:
                         plan = new_plan
                         train_step = build_step(plan)
                         record["replanned_at"].append(step + 1)
-                        print(f"[train] replanned: sync fraction={frac:.2f}",
-                              flush=True)
+                        log(f"[train] replanned: sync fraction={frac:.2f}",
+                            flush=True)
             if (step + 1) % args.log_every == 0 or step == start_step:
                 losses.append(loss)
-                print(f"[train] step={step + 1} loss={loss:.4f} "
+                log(f"[train] step={step + 1} loss={loss:.4f} "
                       f"gnorm={gnorm:.3f} " + "".join(
                           f"{k}={v:.4f} " for k, v in aux.items())
                       + f"({time.time() - t0:.1f}s)", flush=True)
             if ckpt is not None and (step + 1) % args.ckpt_every == 0:
-                ckpt.save(train_state_to_jax(state, cfg), step + 1)
+                save_train_state(saver, state, step + 1, cfg, shards)
         if ckpt is not None:
-            ckpt.save(train_state_to_jax(state, cfg), args.steps)
+            save_train_state(saver, state, args.steps, cfg, shards)
             ckpt.wait()
     finally:
+        meshed.__exit__(None, None, None)
         data.close()
 
     summary = {}
@@ -295,16 +386,16 @@ def main(argv=None, stats: Optional[dict] = None):
                    "peak_mem_bytes": (torch.cuda.max_memory_allocated(device)
                                       if device.type == "cuda" else None)}
         peak = summary["peak_mem_bytes"]
-        print(f"[train] median step {step_ms:.1f} ms (forward+backward "
+        log(f"[train] median step {step_ms:.1f} ms (forward+backward "
               f"{fb:.1f}, exchange {ex:.1f}, optimizer {op:.1f}), "
               f"{summary['tokens_per_sec']:.0f} tokens/s, peak memory "
               f"{'not measured (cpu)' if peak is None else f'{peak:,} B'}",
               flush=True)
     if stats is not None:
         stats.update(record, **summary, arch=cfg.name, device=str(device),
-                     params=cfg.param_count(),
+                     params=cfg.param_count(), mesh=mesh.shape,
                      tokens_per_step=args.batch * args.seq)
-    print(f"[train] done. first logged loss={losses[0]:.4f} "
+    log(f"[train] done. first logged loss={losses[0]:.4f} "
           f"last={losses[-1]:.4f}" if losses else "[train] done.",
           flush=True)
     return losses

@@ -3,10 +3,22 @@
 Port of ``repro.models.layers``: RMSNorm, the RoPE variants (1d,
 chatglm's 2d half, qwen2-vl's M-RoPE), GQA attention (full,
 sliding-window, block-banded, cross) with the ring KV cache, the gated
-MLP, the top-k MoE with capacity buckets (one dispatch group, the
-reference's ``G = 1``: its grouped dispatch over the batch shards comes
-with LM sharding), and the Mamba2 mixer (the chunked SSD over a prompt,
-the single-step recurrence from its conv and SSM states in decode).
+MLP, the top-k MoE with capacity buckets (grouped dispatch: one group per
+batch shard, :func:`moe_groups`), and the Mamba2 mixer (the chunked SSD
+over a prompt, the single-step recurrence from its conv and SSM states in
+decode).
+
+Under an active LM mesh (``parallel.sharding.mesh_context``) with more
+than one ``model`` rank, attention, the MLP, the MoE's experts and (in
+``models.transformer``) the vocabulary run on this rank's shards, the
+split the partition rules give the weights (:func:`tp_group`): heads
+over ``model`` (K and V whole where the ranks do not divide them), the
+MLP's width, the experts; a replicated input enters through
+``collectives.copy_to`` and a partial product leaves through an
+all-reduce (:func:`_row_parallel`).  Where the reference pins an
+activation's layout (``shard(...)`` on q, K and V, the attention and MLP
+outputs, the MoE's buckets and expert outputs) the rank's own cut is
+that layout, and nothing is called.
 
 Parameters are mappings of tensors (an ``nn.ParameterDict`` in the model)
 with the reference's names and layouts: ``wq`` (d, H, hd), ``wk`` and
@@ -35,7 +47,9 @@ masters of training.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import types
 from typing import Optional
 
 import numpy as np
@@ -43,6 +57,40 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel.sharding import _divisible, active_mesh, rule_axes
+
+
+# ---------------------------------------------------------------- meshes
+
+def tp_group(n: int):
+    """The ``model`` group when the active mesh splits a dim of ``n``
+    (heads, the MLP's width, the experts, the vocabulary) over
+    ``"model"``, as the partition rules split the weights along it; else
+    None (no mesh, one model rank, or a dim the axis does not divide,
+    which stays whole on every rank)."""
+    mesh = active_mesh()
+    if mesh is None or mesh.size("model") == 1 or \
+            not _divisible(n, mesh, "model"):
+        return None
+    return mesh.group("model")
+
+
+def tp_rank() -> int:
+    mesh = active_mesh()
+    return 0 if mesh is None else mesh.coord("model")
+
+
+def _row_parallel(eq: str, a, w, tp):
+    """``einsum(eq, a, w)`` whose contracted dim is split over the model
+    ranks: each rank's partial product of the operands in f32 (f64 for
+    f64), summed over the ranks and rounded once to a's type, as the
+    unsplit product rounds once."""
+    if tp is None:
+        return torch.einsum(eq, a, w)
+    acc = torch.promote_types(a.dtype, torch.float32)
+    part = torch.einsum(eq, a.to(acc), w.to(acc))
+    return C.reduce_from(part, tp).to(a.dtype)
 
 
 # ---------------------------------------------------------------- init utils
@@ -256,10 +304,27 @@ def attention_apply(params, x, positions, cfg: ModelConfig, *, window: int = 0,
     b, s, d = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     n_rep = h // kv
+    wk, wv = params["wk"], params["wv"]
+    tp = tp_group(h)
+    if tp is not None:
+        # this rank's heads: wq and wo hold them; K and V are split too
+        # where the rank count divides KV, else whole on every rank, and
+        # each rank takes the K and V heads its query heads read
+        x = C.copy_to(x, tp)
+        if kv_x is not None:
+            kv_x = C.copy_to(kv_x, tp)
+        h = params["wq"].shape[1]
+        if tp_group(kv) is None:
+            idx = (tp_rank() * h + torch.arange(h, device=wk.device)) // n_rep
+            wk, wv = C.copy_to(wk, tp)[:, idx], C.copy_to(wv, tp)[:, idx]
+            kv = h
+        else:
+            kv = wk.shape[1]
+        n_rep = h // kv
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(x.dtype))
     src = kv_x if kv_x is not None else x
-    k = torch.einsum("btd,dgk->btgk", src, params["wk"].to(x.dtype))
-    v = torch.einsum("btd,dgk->btgk", src, params["wv"].to(x.dtype))
+    k = torch.einsum("btd,dgk->btgk", src, wk.to(x.dtype))
+    v = torch.einsum("btd,dgk->btgk", src, wv.to(x.dtype))
     if rope and kv_x is None and cfg.rope != "none":
         q = apply_rope(q, positions, cfg.rope, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope, cfg.rope_theta)
@@ -291,14 +356,14 @@ def attention_apply(params, x, positions, cfg: ModelConfig, *, window: int = 0,
         out = flash_attention(q.to(x.dtype).contiguous(),
                               k.to(x.dtype).contiguous(), v.contiguous(),
                               causal=causal, window=window)
-        return torch.einsum("bshk,hkd->bsd", out, wo), cache
+        return _row_parallel("bshk,hkd->bsd", out, wo, tp), cache
 
     # block-banded path for sliding-window layers (train/prefill)
     if (cfg.attn_impl == "banded" and window > 0 and kv_x is None
             and slot_pos is None and s % window == 0 and s // window >= 2):
         out = _banded_attention(q, k, v, q_pos, window, n_rep,
                                 1.0 / math.sqrt(hd))
-        return torch.einsum("bshk,hkd->bsd", out, wo), cache
+        return _row_parallel("bshk,hkd->bsd", out, wo, tp), cache
 
     scores = _gqa_scores(q, k, n_rep) / math.sqrt(hd)      # (B,H,S,T) f32
 
@@ -322,7 +387,7 @@ def attention_apply(params, x, positions, cfg: ModelConfig, *, window: int = 0,
             -1e30, dtype=torch.float32, device=scores.device))
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = _gqa_out(probs, v, n_rep)
-    return torch.einsum("bshk,hkd->bsd", out, wo), cache
+    return _row_parallel("bshk,hkd->bsd", out, wo, tp), cache
 
 
 # ---------------------------------------------------------------- gated MLP
@@ -344,11 +409,16 @@ def _silu(g):
     return g * (1.0 / (1.0 + torch.exp(-g)))
 
 
-def mlp_apply(params, x):
+def mlp_apply(params, x, tp=None):
+    """The gated MLP.  ``tp``: the model group its width is split over
+    (:func:`tp_group` of the full width); ``wi`` and ``wg`` hold this
+    rank's columns and ``wo`` its rows, whose partial products are summed
+    over the group."""
+    x = C.copy_to(x, tp)
     h = torch.einsum("bsd,df->bsf", x, params["wi"].to(x.dtype))
     g = torch.einsum("bsd,df->bsf", x, params["wg"].to(x.dtype))
     h = _silu(g) * h
-    return torch.einsum("bsf,fd->bsd", h, params["wo"].to(x.dtype))
+    return _row_parallel("bsf,fd->bsd", h, params["wo"].to(x.dtype), tp)
 
 
 # ---------------------------------------------------------------- MoE
@@ -405,7 +475,7 @@ def moe_dispatch(topi, cap: int):
                                            torch.full_like(rank, cap))
 
 
-def moe_experts(params, xt, topw, routes, cap: int):
+def moe_experts(params, xt, topw, routes, cap: int, tp=None):
     """The routed experts' combined output (T, d) in xt's type, for the
     tokens ``xt`` (T, d) on ``routes`` (:func:`moe_dispatch`) with their
     renormalized weights ``topw`` (T, k).  The buckets (E, cap, d) hold
@@ -414,13 +484,24 @@ def moe_experts(params, xt, topw, routes, cap: int):
     type; each token sums its k rows times their weights.  The combine
     follows the reference's compiled bf16 form: the weights rounded to
     xt's type, the k products summed in f32 (f64 for f64 input) in slot
-    order and rounded once."""
+    order and rounded once.
+
+    ``tp``: the model group the experts are split over; ``params`` hold
+    this rank's E / ranks experts.  Each rank buckets and runs only its
+    own experts and scatters only their rows, the others' read as 0, and
+    the partial sums are all-reduced over the group before the rounding
+    (the reference's ``_combine_manual``)."""
     sort_idx, sorted_e, rank_c = routes
     t, d = xt.shape
     k = topw.shape[1]
-    e = params["router"].shape[1]
+    e = params["wi"].shape[0]
     dt = xt.dtype
     acc_t = torch.promote_types(dt, torch.float32)
+    if tp is not None:
+        local = sorted_e - tp_rank() * e
+        mine = (local >= 0) & (local < e)
+        sorted_e = torch.clamp(local, 0, e - 1)
+        rank_c = torch.where(mine, rank_c, torch.full_like(rank_c, cap))
     # buckets with one spare slot per expert for the dropped entries
     bkt = xt.new_zeros((e, cap + 1, d)).index_put(
         (sorted_e, rank_c), xt[sort_idx // k])[:, :cap]
@@ -439,38 +520,108 @@ def moe_experts(params, xt, topw, routes, cap: int):
     acc = prod[:, 0]
     for j in range(1, k):
         acc = acc + prod[:, j]
-    return acc.to(dt)
+    return C.reduce_from(acc, tp).to(dt)
+
+
+# process-wide, as the active mesh is (``parallel.sharding._state``)
+_DISPATCH = types.SimpleNamespace(groups=None)
+
+
+@contextlib.contextmanager
+def dispatch_groups(groups: int):
+    """Inside, :func:`moe_apply` with no mesh of more than one rank cuts
+    one process's tokens into ``groups`` dispatch groups, as a mesh of
+    that many batch shards would (the unsplit step that a sharded one's
+    grouped dispatch is held against, and the grouped math held against
+    the reference without ranks)."""
+    prev = _DISPATCH.groups
+    _DISPATCH.groups = groups
+    try:
+        yield
+    finally:
+        _DISPATCH.groups = prev
+
+
+def moe_groups(n_tokens: int):
+    """(local groups, batch group, batch ranks) of the grouped dispatch
+    (the reference's ``_moe_batch_axes``).  The reference cuts the T
+    tokens into G groups, one per batch shard (G the product of the active
+    rules' batch axes), when ``T % G == 0`` and ``T / G >= 8``, and each
+    group sorts and buckets its own tokens with its own capacity.  On the
+    ranks of a mesh this rank's ``n_tokens`` are one group, and the batch
+    group is the process group the aux losses' sums cross.  In one
+    process, :func:`dispatch_groups` sets G."""
+    mesh, axes = active_mesh(), rule_axes("batch")
+    groups = _DISPATCH.groups if mesh is None or mesh.world == 1 else None
+    if groups is not None:
+        ok = groups > 1 and n_tokens % groups == 0 \
+            and n_tokens // groups >= 8
+        return (groups if ok else 1), None, 1
+    if mesh is None or mesh.size(axes) == 1:
+        return 1, None, 1
+    if n_tokens < 8:
+        raise NotImplementedError(
+            f"{n_tokens} tokens a rank: the reference dispatches fewer than "
+            f"8 a batch shard as one group of all the ranks' tokens, which "
+            f"the port does not gather")
+    return 1, mesh.group(axes), mesh.size(axes)
 
 
 def moe_apply(params, x, m):
-    """Top-k MoE, capacity-bucketed, in one dispatch group (the
-    reference's ``moe_apply`` outside a mesh).  x: (B, S, d).  Returns
-    (out (B, S, d), ``{"moe_lb", "moe_z"}`` f32 0-d).
+    """Top-k MoE, capacity-bucketed, grouped dispatch (:func:`moe_groups`;
+    one group outside a mesh).  x: (B, S, d).  Returns (out (B, S, d),
+    ``{"moe_lb", "moe_z"}`` f32 0-d).
 
     Every token of x takes capacity, the padding of a left-padded prompt
     too, as in the reference.  The shared experts' output is added to the
     routed experts' in f32 and the sum rounded once, as the reference's
-    compiled bf16 layer does."""
+    compiled bf16 layer does.  The aux losses are over all the batch's
+    tokens, every group's and every batch rank's: the probability sums,
+    the expert counts and the z-loss's sum are all-reduced over the batch
+    group.
+
+    Under a mesh that splits the experts over ``"model"`` the router
+    ``(d, E)`` holds this rank's columns and is gathered whole before the
+    top-k, so every rank routes every token alike; each rank runs its own
+    experts (:func:`moe_experts`)."""
     b, s, d = x.shape
     T = b * s
     dt = x.dtype
     xt = x.reshape(T, d)
     e, k = m.n_experts, m.top_k
-    gates, probs, topv, topi = moe_router(params["router"], xt, k)
+    tp = tp_group(e)
+    router = C.gather_from(params["router"], 1, tp)
+    gates, probs, topv, topi = moe_router(router, xt, k)
     topw = topv / torch.clamp(topv.sum(dim=-1, keepdim=True), min=1e-9)
-    cap = moe_capacity(T, m)
-    out = moe_experts(params, xt, topw, moe_dispatch(topi, cap), cap)
+    n_groups, batch_group, ranks = moe_groups(T)
+    tg = T // n_groups
+    cap = moe_capacity(tg, m)
+    xe, we = C.copy_to(xt, tp), C.copy_to(topw, tp)
+    outs = [moe_experts(params, xe[g * tg:(g + 1) * tg],
+                        we[g * tg:(g + 1) * tg],
+                        moe_dispatch(topi[g * tg:(g + 1) * tg], cap), cap,
+                        tp=tp)
+            for g in range(n_groups)]
+    out = outs[0] if n_groups == 1 else torch.cat(outs)
     if "shared" in params:
         acc_t = torch.promote_types(dt, torch.float32)
-        sh = mlp_apply(params["shared"], x).reshape(T, d)
+        fs = m.n_shared * (m.d_ff_shared or m.d_ff_expert)
+        sh = mlp_apply(params["shared"], x, tp=tp_group(fs)).reshape(T, d)
         out = (out.to(acc_t) + sh.to(acc_t)).to(dt)
 
     # aux losses: load balance (Switch) and the router's z-loss
-    me = probs.sum(dim=0) * (1.0 / T)
-    ce = torch.bincount(topi.reshape(-1), minlength=e).to(torch.float32) \
-        * (1.0 / (T * k))
+    counts = torch.bincount(topi.reshape(-1), minlength=e)
+    lse2 = torch.logsumexp(gates, dim=-1).square()
+    if batch_group is None:
+        me = probs.sum(dim=0) * (1.0 / T)
+        z = lse2.mean()
+    else:
+        T = T * ranks
+        me = C.sum_over(probs.sum(dim=0), batch_group) * (1.0 / T)
+        counts = C.all_reduce(counts, batch_group)
+        z = C.sum_over(lse2.sum(), batch_group) / T
+    ce = counts.to(torch.float32) * (1.0 / (T * k))
     lb = e * torch.sum(me * ce)
-    z = torch.logsumexp(gates, dim=-1).square().mean()
     return out.reshape(b, s, d), {"moe_lb": lb, "moe_z": m.router_zloss * z}
 
 

@@ -37,9 +37,23 @@ ring.  Besides text, the two modality stubs:
   caller's M-RoPE positions (``positions``, (B, P + S, 3)) or 0..P+S-1 on
   all three sections.  Logits cover the tokens only, and the cache's
   ``len`` counts the patches too.
+
+Under an LM mesh (``parallel.sharding``): :func:`forward_train` runs on
+this rank's rows with the tree gathered over ``"data"`` (one period
+block at a time under ``cfg.zero3 == "block"``), normalises its loss by
+the whole batch's token count and adds the aux losses' share of its
+batch rank, so the batch ranks' losses sum to the unsplit loss; a
+``Transformer`` built with ``mesh`` holds its model rank's shards and
+rings of its KV heads.  The embedding and the logits split the
+vocabulary over ``"model"`` (:func:`_embed_tokens`, :func:`_lm_logits`);
+the residual stream, which the reference pins to ``("batch", "seq",
+"embed")``, is whole on every model rank.  Mamba2 mixers and the
+encoder do not split over ``"model"`` (:func:`refuse_model_split`).
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 from typing import Optional
 
@@ -51,6 +65,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel.sharding import (_drop, active_mesh, flat_pspecs,
+                                           gather_block_constraint,
+                                           lm_shards, map_paths,
+                                           mesh_context, rule_axes)
 
 # parameter groups that are matrices, cast to the activation type at load
 # (the MoE's nested ``shared`` group too; ``cross``: a decoder layer's
@@ -121,38 +140,66 @@ def _cast_group(group: str, leaves: dict, fn) -> dict:
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator], *,
-                device=None, dtype: Optional[torch.dtype] = None) -> dict:
+                device=None, dtype: Optional[torch.dtype] = None,
+                place=None) -> dict:
     """Random parameters from ``generator`` (on ``device``; None: torch's
     default generator), drawn in f32 layer by layer: ``{"embed",
     "final_norm", "layers": [...], "lm_head"?, "encoder"?}``, the encoder's
     ``{"layers": [...], "final_norm"}`` drawn last.  With ``dtype`` each
     matrix is cast to it as soon as it is drawn (the norms stay f32), so a
     bf16 model never holds its f32 weights whole; the values are those of
-    the f32 draw, cast."""
+    the f32 draw, cast.  ``place(path, tensor)``, when given, maps each
+    leaf (at its ``keystr`` path) as soon as it is drawn and cast, as a
+    rank keeps its shard of it (``parallel.sharding.Sharding.shard``)."""
     def cast(t):
         return t if dtype is None else t.to(dtype)
+
+    def placed(tree, path: str):
+        return tree if place is None else map_paths(place, tree, path)
 
     def cast_layer(p):
         return {g: _cast_group(g, leaves, lambda t, n, g=g: t if dtype is None
                                else t.to(_leaf_type(g, n, dtype)))
                 for g, leaves in p.items()}
 
-    layers = [cast_layer(_position_init(generator, cfg, i % cfg.period,
-                                        device))
+    layers = [placed(cast_layer(_position_init(generator, cfg, i % cfg.period,
+                                               device)), f"['layers'][{i}]")
               for i in range(cfg.n_layers)]
-    params = {"embed": cast(L._embed_init(generator, (cfg.vocab, cfg.d_model),
-                                          device)),
-              "final_norm": L.rmsnorm_init(cfg.d_model, device),
+    params = {"embed": placed(cast(L._embed_init(
+                  generator, (cfg.vocab, cfg.d_model), device)), "['embed']"),
+              "final_norm": placed(L.rmsnorm_init(cfg.d_model, device),
+                                   "['final_norm']"),
               "layers": layers}
     if not cfg.tie_embeddings:
-        params["lm_head"] = cast(L._dense_init(
-            generator, (cfg.vocab, cfg.d_model), in_axis=-1, device=device))
+        params["lm_head"] = placed(cast(L._dense_init(
+            generator, (cfg.vocab, cfg.d_model), in_axis=-1, device=device)),
+            "['lm_head']")
     if cfg.encoder is not None:
         params["encoder"] = {
-            "layers": [cast_layer(_encoder_layer_init(generator, cfg, device))
-                       for _ in range(cfg.encoder.n_layers)],
-            "final_norm": L.rmsnorm_init(cfg.d_model, device)}
+            "layers": [placed(cast_layer(_encoder_layer_init(generator, cfg,
+                                                             device)),
+                              f"['encoder']['layers'][{i}]")
+                       for i in range(cfg.encoder.n_layers)],
+            "final_norm": placed(L.rmsnorm_init(cfg.d_model, device),
+                                 "['encoder']['final_norm']")}
     return params
+
+
+def refuse_model_split(cfg: ModelConfig, mesh) -> None:
+    """Tensor parallelism covers attention, the MLP, the MoE's experts
+    and the vocabulary: a Mamba2 mixer or the whisper encoder and its
+    cross-attention under more than one ``model`` rank raise (ROADMAP
+    queue 1, item 4f-iii).  ``data`` and ``pod`` split every family."""
+    if mesh is None or mesh.size("model") == 1:
+        return
+    what = [w for w, on in (("Mamba2 mixers", "mamba" in cfg.pattern),
+                            ("the encoder and cross-attention",
+                             cfg.encoder is not None)) if on]
+    if what:
+        raise NotImplementedError(
+            f"{cfg.name}: {' and '.join(what)} under model parallelism are "
+            f"not split yet (ROADMAP queue 1, item 4f-iii); use a mesh of "
+            f"data and pod ranks")
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -214,15 +261,29 @@ class Transformer(nn.Module):
     """
 
     def __init__(self, cfg: ModelConfig, params: Optional[dict] = None, *,
-                 device=None, seed: int = 0, use_kernel: bool = True):
+                 device=None, seed: int = 0, use_kernel: bool = True,
+                 mesh=None):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
         self.use_kernel = use_kernel
+        self.mesh = mesh
         dt = cfg.activation_dtype
+        place = None
+        if mesh is not None:
+            if mesh.size(("pod", "data")) > 1:
+                raise ValueError("a served model splits over model ranks "
+                                 "only: its mesh has no data or pod ranks")
+            refuse_model_split(cfg, mesh)
+            specs = {p: _drop(spec, "data") for p, spec in flat_pspecs(
+                init_params(cfg, None, device="meta"), mesh).items()}
+            place = functools.partial(_place, mesh, specs)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = init_params(cfg, gen, device=self.device, dtype=dt)
+            params = init_params(cfg, gen, device=self.device, dtype=dt,
+                                 place=place)
+        elif place is not None:
+            params = map_paths(place, params)
         self.embed = _frozen(params["embed"].to(device=self.device, dtype=dt))
         self.final_norm = _norm(params["final_norm"], self.device)
         self.lm_head = (None if cfg.tie_embeddings else _frozen(
@@ -243,6 +304,11 @@ class Transformer(nn.Module):
                 raise ValueError(
                     f"{cfg.name}: {len(self.encoder)} encoder layers given, "
                     f"the config has {cfg.encoder.n_layers}")
+
+    def _meshed(self):
+        """The model's mesh made active (nothing without one)."""
+        return (contextlib.nullcontext() if self.mesh is None
+                else mesh_context(self.mesh))
 
     @property
     def head(self) -> torch.Tensor:
@@ -267,6 +333,10 @@ class Transformer(nn.Module):
         """Logits (B, S, V) in f32 at every position of ``batch["tokens"]``
         (the patches' positions left out): the full forward the
         reference's cache tests compare with."""
+        with self._meshed():
+            return self._forward(batch)
+
+    def _forward(self, batch: dict) -> torch.Tensor:
         x, positions, enc_out, pad, own = self._inputs(batch)
         x = _stack(self, x, positions, enc_out=enc_out,
                    use_kernel=self.use_kernel, index_positions=own)
@@ -276,7 +346,12 @@ class Transformer(nn.Module):
     def prefill(self, batch: dict, max_seq: int):
         """Run the prompt (and the patches before it) through the stack,
         returning (last_logits (B,1,V) f32, cache); an encoder-decoder
-        model's cache also holds the encoder's output."""
+        model's cache also holds the encoder's output.  Under a mesh of
+        model ranks each rank runs its heads and its rings hold them."""
+        with self._meshed():
+            return self._prefill(batch, max_seq)
+
+    def _prefill(self, batch: dict, max_seq: int):
         cfg = self.cfg
         x, positions, enc_out, _, own = self._inputs(batch)
         b, s = x.shape[0], x.shape[1]
@@ -297,6 +372,10 @@ class Transformer(nn.Module):
         cache), the cache updated in place.  An encoder-decoder model
         attends to the cache's ``enc_out``, or where the cache has none to
         the encoding of ``batch_extras["encoder_embeds"]``."""
+        with self._meshed():
+            return self._decode_step(cache, tokens, batch_extras)
+
+    def _decode_step(self, cache: dict, tokens, batch_extras):
         cfg = self.cfg
         tokens = _tokens(tokens, self.device)
         b = tokens.shape[0]
@@ -318,6 +397,11 @@ class Transformer(nn.Module):
         logits = _lm_logits(self.head, cfg, x)
         cache["len"] = pos_scalar + 1
         return logits, cache
+
+
+def _place(mesh, specs: dict, path: str, t: torch.Tensor) -> torch.Tensor:
+    from repro_torch.parallel.sharding import Sharding
+    return Sharding(mesh, specs[path]).shard(t)
 
 
 def _norm(leaves: dict, device) -> nn.ParameterDict:
@@ -373,7 +457,7 @@ def _apply_position(p: dict, kind: str, window: int, x, u, positions,
                              .to(dt), cfg.moe)
     elif "mlp" in p:
         h = L.mlp_apply(p["mlp"], L.rmsnorm(p["norm2"], u, cfg.norm_eps)
-                        .to(dt))
+                        .to(dt), tp=L.tp_group(cfg.d_ff))
     if "moe" in p or "mlp" in p:
         u = x.to(torch.float32) + h.to(torch.float32)
         x = u.to(dt)
@@ -433,11 +517,15 @@ def _window(cfg: ModelConfig, pos: int) -> int:
 
 
 def _period_block(x, aux_sum: dict, positions, enc_out, layers: list,
-                  cfg: ModelConfig):
+                  cfg: ModelConfig, gather=None):
     """One period block of the training stack: its layers in order, from
     the block's input rounded to the activation type, as the reference's
     scan carries it.  Returns the block's output and ``aux_sum`` with each
-    MoE layer's aux losses added in layer order."""
+    MoE layer's aux losses added in layer order.  ``gather``: ZeRO-3's
+    per-block gather of the block's shards (``cfg.zero3 == "block"``),
+    inside the recomputed region, so one block is gathered at a time."""
+    if gather is not None:
+        layers = gather(layers)
     u = x.to(torch.float32)
     aux_sum = dict(aux_sum)
     for pos, p in enumerate(layers):
@@ -471,6 +559,10 @@ def forward_train(params: dict, batch: dict, cfg: ModelConfig, *,
     the forward (``layers.kernel_route``)."""
     device = params["embed"].device
     enc = params.get("encoder")
+    mesh = active_mesh()
+    refuse_model_split(cfg, mesh)
+    block_gather = (mesh is not None and cfg.zero3 == "block"
+                    and mesh.size("data") > 1)
 
     def encode(embeds):
         return _encode(enc["layers"], enc["final_norm"], cfg,
@@ -482,11 +574,14 @@ def forward_train(params: dict, batch: dict, cfg: ModelConfig, *,
             for k in MOE_AUX} if cfg.moe is not None else {})
     for start in range(0, cfg.n_layers, cfg.period):
         block = layers[start:start + cfg.period]
+        gather = (functools.partial(_gather_block, lm_shards(cfg, mesh), start)
+                  if block_gather else None)
         if remat:
             x, aux = checkpoint(_period_block, x, aux, positions, enc_out,
-                                block, cfg, use_reentrant=False)
+                                block, cfg, gather, use_reentrant=False)
         else:
-            x, aux = _period_block(x, aux, positions, enc_out, block, cfg)
+            x, aux = _period_block(x, aux, positions, enc_out, block, cfg,
+                                   gather)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     logits = _lm_logits(head, cfg, x[:, pad:])               # (B,S,V) f32
@@ -497,13 +592,22 @@ def forward_train(params: dict, batch: dict, cfg: ModelConfig, *,
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, safe[..., None])[..., 0]
     ce = (logz - gold) * mask
-    ntok = torch.clamp(mask.sum(), min=1.0)
+    axes = rule_axes("batch")
+    group = None if mesh is None else mesh.group(axes)
+    ntok = torch.clamp(mask.sum() if group is None
+                       else C.all_reduce(mask.sum(), group), min=1.0)
     loss = ce.sum() / ntok
     metrics = {"ce": loss, "ntokens": ntok}
     for k, v in aux.items():
-        loss = loss + v / max(cfg.n_layers, 1)
+        loss = loss + (v / max(cfg.n_layers, 1) if group is None
+                       else v / max(cfg.n_layers, 1) / mesh.size(axes))
         metrics[k] = v
     return loss, metrics
+
+
+def _gather_block(shards, start: int, layers: list) -> list:
+    return [gather_block_constraint(p, shards, f"['layers'][{start + j}]")
+            for j, p in enumerate(layers)]
 
 
 def _tokens(tokens, device) -> torch.Tensor:
@@ -522,8 +626,19 @@ def _floats(a, device) -> torch.Tensor:
 
 
 def _embed_tokens(embed, cfg: ModelConfig, tokens):
-    """The embedding cast to the activation type, then gathered."""
-    x = embed.to(cfg.activation_dtype)[tokens]
+    """The embedding cast to the activation type, then gathered.  Under
+    a mesh that splits the vocabulary over ``"model"`` each rank looks up
+    the tokens of its rows (the others read 0) and the ranks' rows are
+    summed: one term of each sum is not 0, so the row is exact."""
+    tp = L.tp_group(cfg.vocab)
+    if tp is None:
+        x = embed.to(cfg.activation_dtype)[tokens]
+    else:
+        n = embed.shape[0]
+        local = tokens - L.tp_rank() * n
+        mine = ((local >= 0) & (local < n))[..., None]
+        x = embed.to(cfg.activation_dtype)[torch.clamp(local, 0, n - 1)]
+        x = C.reduce_from(x * mine.to(x.dtype), tp)
     if cfg.scale_embed:
         # sqrt(d_model) rounded to the activation type first
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
@@ -533,13 +648,18 @@ def _embed_tokens(embed, cfg: ModelConfig, tokens):
 
 def _lm_logits(head, cfg: ModelConfig, x):
     """f32 logits: the f32 product of x and the head cast to x's type,
-    then gemma's softcap ``tanh(l / c) * c`` in f32."""
+    then gemma's softcap ``tanh(l / c) * c`` in f32.  Under a mesh that
+    splits the vocabulary over ``"model"`` each rank takes its rows of
+    the head and the ranks' logits are gathered along the vocabulary, so
+    each logit is the unsplit contraction."""
+    tp = L.tp_group(cfg.vocab)
+    x = C.copy_to(x, tp)
     logits = torch.einsum("bsd,vd->bsv", x.to(torch.float32),
                           head.to(x.dtype).to(torch.float32))
     if cfg.logit_softcap > 0:
         c = cfg.logit_softcap
         logits = torch.tanh(logits / c) * c
-    return logits
+    return C.gather_from(logits, 2, tp)
 
 
 def _prepare_inputs(embed, cfg: ModelConfig, batch: dict, device, encode):
@@ -586,6 +706,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
     ``dtype`` and SSM state (B, nh, p, n) in f32, zeros; under the audio
     stub the encoder's output (B, T, d), zeros until prefill writes it."""
     dtype = dtype or cfg.activation_dtype
+    kv = cfg.n_kv
+    if L.tp_group(cfg.n_heads) is not None:
+        # this rank's heads under a mesh of model ranks
+        ranks = active_mesh().size("model")
+        kv = (cfg.n_kv // ranks if L.tp_group(cfg.n_kv) is not None
+              else cfg.n_heads // ranks)
     extra = {}
     if cfg.frontend == "audio_stub":
         extra["enc_out"] = torch.zeros(
@@ -606,7 +732,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                                    device=device)})
             continue
         eff = ring_size(cfg, i % cfg.period, max_seq)
-        shape = (batch, eff, cfg.n_kv, cfg.head_dim)
+        shape = (batch, eff, kv, cfg.head_dim)
         layers.append({
             "k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),

@@ -77,14 +77,28 @@ def adamw_init(params) -> TrainState:
                       v=tree_map(zeros, params), step=0)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, shards=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, rounded to f32 (a 0-d
     tensor on the leaves' device).  The squares are summed in f64, one
     dot product of each leaf with itself: the reference sums them in f32,
     which overflows to inf once the norm passes ~1.8e19, as starcoder2-3b
     FULL's gradients do at its initialization (2.9e19 in the embedding),
     and an inf norm makes the clip factor 0 and every update a no-op.
-    Where the f32 sum is finite the two agree to its rounding."""
+    Where the f32 sum is finite the two agree to its rounding.
+
+    ``shards`` (``parallel.sharding.LMShards``): the tree holds this
+    rank's shards; each rank sums the squares of the leaves it owns (a
+    leaf replicated over some ranks is counted on the first of them) and
+    the sums are all-reduced over the pod's ranks."""
+    if shards is not None:
+        from repro_torch.parallel.sharding import leaf_paths
+        total = None
+        for path, x in leaf_paths(tree):
+            flat = x.detach().reshape(-1).to(torch.float64)
+            sq = torch.dot(flat, flat) if shards.owned(path) \
+                else torch.zeros((), dtype=torch.float64, device=x.device)
+            total = sq if total is None else total + sq
+        return torch.sqrt(shards.sum_inpod(total)).to(torch.float32)
     total = None
     for x in tree_leaves(tree):
         flat = x.detach().reshape(-1).to(torch.float64)
@@ -114,13 +128,16 @@ def cosine_schedule(peak_lr: float, warmup: int, total: int,
 
 @torch.no_grad()
 def adamw_update(state: TrainState, grads, lr, *, b1=0.9, b2=0.95, eps=1e-8,
-                 weight_decay=0.1, clip_norm=1.0) -> tuple[TrainState, dict]:
+                 weight_decay=0.1, clip_norm=1.0,
+                 shards=None) -> tuple[TrainState, dict]:
     """One AdamW step on ``state`` (f32 params) with ``grads`` (a tree of
     the params' structure, f32 or bf16), in place: the state's params, m
     and v are overwritten leaf by leaf, and so are f32 gradients (scaled
     by the clip factor).  Returns (the state, {"grad_norm", "lr"}); ``grad_norm`` is
-    the unclipped global norm, a 0-d f32 tensor."""
-    gnorm = global_norm(grads)
+    the unclipped global norm, a 0-d f32 tensor.  ``shards``: the state
+    and gradients are this rank's shards (:func:`global_norm`); the
+    update itself is elementwise."""
+    gnorm = global_norm(grads, shards)
     scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state.step + 1
     t = np.float32(step)

@@ -208,7 +208,7 @@ def make_stacked_exchange(plan: ExchangePlan, imputation: str = "momentum",
 
 
 def make_grad_exchange(plan: ExchangePlan, group=None,
-                       imputation: str = "momentum", cfg=None):
+                       imputation: str = "momentum", cfg=None, shards=None):
     """``exchange(grads, momentum) -> (grads, metrics)`` on every rank of
     ``group`` (a ``torch.distributed`` process group; None: the default
     one), each rank one pod holding its own gradients.  A synced stream is
@@ -217,7 +217,13 @@ def make_grad_exchange(plan: ExchangePlan, group=None,
     imputed as in :func:`make_stacked_exchange`, with nothing sent.  The
     telemetry vectors are all-reduced the same way, so every rank ends
     with the same gradients and metrics.  Over gloo the tensors may lie on
-    the CPU or on a card; NCCL needs each rank on a card of its own."""
+    the CPU or on a card; NCCL needs each rank on a card of its own.
+
+    ``shards`` (``parallel.sharding.LMShards``): each pod is itself split
+    over ranks (an LM mesh's ``data`` and ``model`` axes) and ``group``
+    holds the ranks of the other pods at this rank's place; the gradients
+    are this rank's shards.  Each stream's telemetry counts a leaf on the
+    ranks that own it, summed over the pod's ranks first."""
     _check_imputation(imputation)
     import torch.distributed as dist
 
@@ -225,6 +231,10 @@ def make_grad_exchange(plan: ExchangePlan, group=None,
     def exchange(grads, momentum):
         inv = float(np.float32(1.0 / dist.get_world_size(group)))
         leaves = tree_leaves(grads)
+        owned = [True] * len(leaves)
+        if shards is not None:
+            from repro_torch.parallel.sharding import leaf_paths
+            owned = [shards.owned(p) for p, _ in leaf_paths(grads)]
         m_leaves = tree_leaves(momentum)
         out = [None] * len(leaves)
         num, den = [], []
@@ -240,6 +250,8 @@ def make_grad_exchange(plan: ExchangePlan, group=None,
                     dist.all_reduce(s, op=dist.ReduceOp.SUM, group=group)
                     mean = s.mul_(inv).to(leaves[i].dtype)
                     out[i] = mean
+                    if not owned[i]:
+                        continue
                     mf = mean.float()
                     n_s += _sq_sum(leaves[i].float() - mf)
                     d_s += _sq_sum(mf)
@@ -248,6 +260,8 @@ def make_grad_exchange(plan: ExchangePlan, group=None,
         metrics = {}
         if plan.measure and num:
             vec = torch.stack(num + den)
+            if shards is not None:
+                vec = shards.sum_inpod(vec)
             dist.all_reduce(vec, op=dist.ReduceOp.SUM, group=group)
             vec.mul_(inv)
             metrics = {"pod_disagreement": vec[:len(num)],

@@ -1,8 +1,12 @@
-"""Site sharding on ``torch.distributed`` (the site helpers of
-``repro.parallel``; its LM partition rules belong to the LM stack)."""
-from repro_torch.parallel.sharding import (SiteGroup, SiteShard,
-                                           pad_site_axis, site_group,
-                                           site_pad)
+"""Sharding on ``torch.distributed`` (port of ``repro.parallel``): the
+fleet's site helpers, and the LM stack's partition rules over a mesh of
+ranks (``sharding``) with their collectives (``collectives``)."""
+from repro_torch.parallel.sharding import (ACTIVATION_RULES, LMShards,
+                                           SiteGroup, SiteShard,
+                                           mesh_context, pad_site_axis,
+                                           param_partition_spec, site_group,
+                                           site_pad, tree_pspecs)
 
-__all__ = ["SiteGroup", "SiteShard", "pad_site_axis", "site_group",
-           "site_pad"]
+__all__ = ["ACTIVATION_RULES", "LMShards", "SiteGroup", "SiteShard",
+           "mesh_context", "pad_site_axis", "param_partition_spec",
+           "site_group", "site_pad", "tree_pspecs"]

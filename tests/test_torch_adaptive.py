@@ -44,6 +44,10 @@ from repro_torch.core.stats import corr_from_sums
 from repro_torch.data.streams import fleet_like, fleet_windows
 from repro_torch.runtime.state import state_from_numpy
 
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
+
 F32 = TOLERANCE_CLASSES["f32"]
 GOLDENS = pathlib.Path(__file__).parent / "goldens" / "scenarios"
 GOLDEN = "fleet_scan_adaptive_ph"

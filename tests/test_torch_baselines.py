@@ -20,6 +20,7 @@ import pathlib
 
 import numpy as np
 import pytest
+import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
@@ -41,6 +42,10 @@ from repro_torch.runtime.scan import ScanRuntime
 from repro_torch.streaming import EdgeNode
 from repro_torch.sweep.diff import diff_reports
 from repro_torch.sweep.report import serialize_report
+
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
 
 GOLDENS = pathlib.Path(__file__).parent / "goldens" / "scenarios"
 METHODS = ["approx_iot", "neyman_cost", "s_voila", "srs"]

@@ -38,6 +38,10 @@ from repro_torch.runtime.sharded import ShardedScanRuntime
 from repro_torch.runtime.state import ControllerState, state_from_numpy
 from repro_torch.sweep.report import serialize_report
 
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
+
 GOLDENS = pathlib.Path(__file__).parent / "goldens" / "scenarios"
 CHAOS_GOLDENS = ("fleet_scan_chaos_join", "fleet_scan_chaos_region")
 # the live reference (CPU, jax 0.9); the committed goldens say 10752 and

@@ -32,6 +32,10 @@ from repro_torch.ckpt import (CheckpointManager, flatten, latest_step,
                               restore, save)
 from repro_torch.runtime.state import init_state
 
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
+
 GOLDENS = pathlib.Path(__file__).parent / "goldens" / "scenarios"
 NAME = "fleet_scan_chaos_join"      # site 0 joins at window 2, site 4 dark
 CUT = 3                             # from 3 on: the cut lands in the flap

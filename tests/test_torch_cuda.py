@@ -1298,3 +1298,79 @@ def test_cuda_stub_decode_matches_cpu(cuda, arch):
     assert torch.equal(t0, t1)
     for a, b in zip(l1, l0):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+
+
+# ---- LM sharding: the tensor-parallel prefill on two ranks ------------------
+
+def _tp_prefill(dtype: str, mesh=None) -> dict:
+    """gemma3 smoke's prefill on the card (on ``mesh``'s model ranks, or
+    unsplit): the last logits, the flash launches (all, tensor-core) and
+    each ring's heads."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer
+    cfg = dataclasses.replace(get_config("gemma3-12b", smoke=True),
+                              dtype=dtype)
+    model = Transformer(cfg, device="cuda", seed=5, mesh=mesh)
+    toks = np.random.default_rng(6).integers(0, cfg.vocab, (3, 40))
+    before = (fa_ops.LAUNCHES, fa_ops.SM90_LAUNCHES)
+    logits, cache = model.prefill({"tokens": toks}, 64)
+    torch.cuda.synchronize()
+    return {"logits": logits.float().cpu(),
+            "launches": (fa_ops.LAUNCHES - before[0],
+                         fa_ops.SM90_LAUNCHES - before[1]),
+            "ring_heads": {c["k"].shape[2] for c in cache["layers"]},
+            "layers": cfg.n_layers, "kv": cfg.n_kv}
+
+
+def _tp_prefill_rank(rank: int, world: int, tmp: str, backend: str) -> None:
+    import datetime
+    import pickle
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_local_mesh(model_parallel=world)
+        out = {dt: _tp_prefill(dt, mesh) for dt in ("float32", "bfloat16")}
+        with open(f"{tmp}/rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_model_parallel_prefill_on_two_ranks(cuda, tmp_path):
+    """Two model ranks (two cards over NCCL, or both on one card over
+    gloo): each rank launches the flash kernel once a layer on its heads,
+    its rings hold its KV heads, and both ranks' logits are the unsplit
+    prefill's: f32 within rtol and atol 1e-3 (the dense prefill's f32
+    limit above), bf16 within an RMS of 3e-2 of the unsplit logits' (the
+    dense models' bf16 limit, ``tests/test_torch_lm_model.py``)."""
+    import pickle
+    import torch.multiprocessing as mp
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    mp.start_processes(_tp_prefill_rank, args=(2, str(tmp_path), backend),
+                       nprocs=2, join=True, start_method="spawn")
+    ranks = []
+    for r in range(2):
+        with open(tmp_path / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    for dtype in ("float32", "bfloat16"):
+        want = _tp_prefill(dtype)
+        n = want["layers"]
+        assert want["launches"] == (n, n if dtype == "bfloat16" else 0)
+        for got in (r[dtype] for r in ranks):
+            assert got["launches"] == want["launches"]
+            assert got["ring_heads"] == {want["kv"] // 2}
+            assert torch.equal(got["logits"], ranks[0][dtype]["logits"])
+            if dtype == "float32":
+                torch.testing.assert_close(got["logits"], want["logits"],
+                                           rtol=1e-3, atol=1e-3)
+            else:
+                d = got["logits"] - want["logits"]
+                assert float(d.square().mean().sqrt()) <= 3e-2 * float(
+                    want["logits"].square().mean().sqrt())

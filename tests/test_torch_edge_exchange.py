@@ -40,6 +40,10 @@ from repro_torch.configs import get_config
 from repro_torch.models import init_params, params_from_jax, params_to_jax
 from repro_torch.optim import edge_exchange as ex
 
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
+
 TEL_RTOL = 1e-5
 
 

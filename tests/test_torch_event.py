@@ -24,6 +24,7 @@ import pathlib
 
 import numpy as np
 import pytest
+import torch
 
 import repro.runtime.report as ref_report_mod
 import repro_torch.runtime.report as report_mod
@@ -46,6 +47,10 @@ from repro_torch.runtime.step import draw_fleet_samples
 from repro_torch.streaming import AsyncTransport, ReorderCloudNode
 from repro_torch.sweep.diff import diff_reports
 from repro_torch.sweep.report import serialize_report
+
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
 
 GOLDENS = pathlib.Path(__file__).parent / "goldens" / "scenarios"
 E, K, W = 8, 4, 64

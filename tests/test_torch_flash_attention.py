@@ -22,6 +22,10 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import \
     flash_attention_ref as plain_flash
 
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
+
 # the cases and tolerances of tests/test_kernel_flash_attention.py
 CASES = [
     (64, 64, 4, 2, 16, True, 0),       # GQA causal

@@ -22,6 +22,7 @@ import jax
 import jax.experimental
 import numpy as np
 import pytest
+import torch
 
 import repro.runtime.report as ref_report_mod
 import repro_torch.runtime.report as report_mod
@@ -35,6 +36,10 @@ from repro_torch.api.registry import ENGINES
 from repro_torch.api.scenario import ScenarioConfig
 from repro_torch.core.types import PlannerConfig
 from repro_torch.planning import HOST_ENGINE, HostEngine, host_loop_plan
+
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
 
 GOLDENS = pathlib.Path(__file__).parent / "goldens" / "scenarios"
 MODEL_FIELDS = ("coeffs", "loc", "scale", "explained_var")

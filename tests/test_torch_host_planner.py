@@ -42,6 +42,10 @@ from repro_torch.core import stats
 from repro_torch.core.types import PlannerConfig, StreamStats, WindowBatch
 from repro_torch.runtime import threefry
 
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
+
 GOLDENS = pathlib.Path(__file__).parent / "goldens" / "scenarios"
 # the five single-edge event goldens' datasets (k = 5, 5, 5, 2, 3)
 DATA = ["single_event_cubic", "single_event_retransmit",

@@ -24,6 +24,7 @@ import jax.experimental
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core import epsilon as ref_eps
 from repro.core import solver as ref_solver
@@ -31,6 +32,10 @@ from repro.core import stats as ref_stats
 from repro.core.planner import MODELS as REF_MODELS
 from repro.data import streams as ref_streams
 from repro_torch.core import solver
+
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
 
 DATASETS = {2: (ref_streams.mvn_pair, {"rho": 0.8}),
             3: (ref_streams.home_like, {}),

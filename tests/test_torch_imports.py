@@ -10,6 +10,10 @@ import sys
 import pytest
 import torch
 
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)\b", re.MULTILINE)
@@ -34,7 +38,9 @@ def test_every_module_of_the_port_is_imported_here():
               "repro_torch.serving.engine", "repro_torch.launch",
               "repro_torch.launch.train", "repro_torch.optim",
               "repro_torch.optim.edge_exchange",
-              "repro_torch.data.lm_data"):
+              "repro_torch.data.lm_data", "repro_torch.launch.mesh",
+              "repro_torch.parallel.sharding",
+              "repro_torch.parallel.collectives"):
         assert m in mods
 
 
@@ -83,7 +89,8 @@ def test_importing_the_port_leaves_jax_and_repro_out():
             "repro_torch.launch.steps", "repro_torch.launch.train",
             "repro_torch.launch.__main__", "repro_torch.optim",
             "repro_torch.optim.adamw",
-            "repro_torch.data.lm_data"} <= set(res["mods"])
+            "repro_torch.data.lm_data", "repro_torch.launch.mesh",
+            "repro_torch.parallel.collectives"} <= set(res["mods"])
     assert res["bad"] == []
     assert res["libs"] == [] and res["built"] == []
 

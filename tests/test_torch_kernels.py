@@ -21,6 +21,10 @@ from repro_torch.kernels.polyfit.ref import polyfit_ref
 from repro_torch.kernels.stream_stats import ops as ss_ops
 from repro_torch.kernels.stream_stats.ref import fleet_stats_ref
 
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
+
 # tolerances of tests/test_kernel_stream_stats.py and test_kernel_polyfit.py
 SS_RTOL, SS_ATOL = 2e-5, 1e-2
 PF_RTOL, PF_ATOL = 1e-4, 0.5

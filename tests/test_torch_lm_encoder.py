@@ -39,6 +39,10 @@ from repro_torch.models import Transformer, init_params, params_from_jax
 from repro_torch.models import layers as PL
 from repro_torch.models import transformer as PT
 
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
+
 ARCH = "whisper-large-v3"
 DTYPES = ["float32", "bfloat16"]
 B, PROMPT, STEPS, MAX_SEQ = 2, 12, 6, 32

@@ -21,6 +21,10 @@ from repro.models import layers as RL
 from repro_torch.configs import get_config
 from repro_torch.models import layers as PL
 
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
+
 F32_RTOL, F32_ATOL = 1e-4, 1e-5
 BF16_RMS = 1e-2
 DTYPES = ["float32", "bfloat16"]

@@ -57,6 +57,10 @@ from repro_torch.models import layers as PL
 from repro_torch.serving import Request, ServeEngine
 from repro_torch.serving.__main__ import PROMPTS
 
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 MAMBA = ["mamba2-780m", "jamba-1-5-large-398b"]
 DTYPES = ["float32", "bfloat16"]

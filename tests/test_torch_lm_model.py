@@ -33,6 +33,10 @@ from repro.models import transformer as RT
 from repro_torch.configs import get_config
 from repro_torch.models import Transformer, init_params, params_from_jax
 
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
+
 DENSE = ["gemma3-12b", "yi-9b", "starcoder2-3b", "chatglm3-6b"]
 # served since ROADMAP item 4e (test_torch_lm_encoder.py and
 # test_torch_lm_vision.py hold them to the reference)

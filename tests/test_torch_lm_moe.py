@@ -47,6 +47,10 @@ from repro_torch.models import layers as PL
 from repro_torch.serving import Request, ServeEngine
 from repro_torch.serving.__main__ import PROMPTS
 
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
+
 MOE = ["deepseek-moe-16b", "qwen3-moe-30b-a3b"]
 DTYPES = ["float32", "bfloat16"]
 F32_RTOL, F32_ATOL = 3e-5, 1e-6           # sweep/diff.py's "f32" class

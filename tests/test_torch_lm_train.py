@@ -47,6 +47,10 @@ from repro_torch.models import layers as L
 from repro_torch.optim import (adamw_init, adamw_update, cosine_schedule,
                                global_norm, tree_leaves, tree_unflatten)
 
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 DENSE = ["gemma3-12b", "yi-9b", "starcoder2-3b", "chatglm3-6b"]
 B, S = 2, 24            # S > gemma3 smoke's window of 16

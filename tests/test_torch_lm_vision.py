@@ -35,6 +35,10 @@ from repro_torch.configs import get_config
 from repro_torch.models import Transformer, params_from_jax
 from repro_torch.models import layers as PL
 
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
+
 ARCH = "qwen2-vl-2b"
 DTYPES = ["float32", "bfloat16"]
 POSITIONS = ["own", "caller"]

@@ -47,6 +47,10 @@ from repro_torch.models import layers as PL
 from repro_torch.optim import (cosine_schedule, global_norm, tree_leaves,
                                tree_unflatten)
 
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
+
 MAMBA = ["mamba2-780m", "jamba-1-5-large-398b"]
 B, S = 2, 24
 LR = 1e-3

@@ -36,6 +36,10 @@ from repro_torch.core.predictor import heuristic_predictors_multi
 from repro_torch.data.streams import fleet_like
 from repro_torch.planning.batched import fleet_plan
 
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
+
 ULP = TOLERANCE_CLASSES["ulp"]
 F32 = TOLERANCE_CLASSES["f32"]
 SCENARIO = json.loads((pathlib.Path(__file__).parent / "goldens"

@@ -42,6 +42,10 @@ from repro_torch.models import (forward_train, params_from_jax,
 from repro_torch.optim import (cosine_schedule, global_norm, tree_leaves,
                                tree_unflatten)
 
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
+
 MOE = ["deepseek-moe-16b", "qwen3-moe-30b-a3b"]
 B, S = 2, 24
 LR = 1e-3

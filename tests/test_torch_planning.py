@@ -30,6 +30,10 @@ from repro_torch.core.types import CompactModel, PlannerConfig
 from repro_torch.data.streams import fleet_like
 from repro_torch.planning.batched import FleetPlan, fleet_plan
 
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
+
 F32_RTOL, F32_ATOL = TOLERANCE_CLASSES["f32"]
 SOLVE_RTOL = 1e-3
 

@@ -3,8 +3,13 @@ its tolerance classes are in ``test_torch_planning.py``)."""
 import itertools
 
 import pytest
+import torch
 
 from test_torch_planning import check_fleet_plan
+
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
 
 GRID = list(itertools.product(("pearson",), ("linear", "cubic"),
                               ("k_se", "alpha", "exact_mse"), (False, True)))

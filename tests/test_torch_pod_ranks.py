@@ -23,6 +23,10 @@ import numpy as np
 import pytest
 import torch
 
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ARCH = "starcoder2-3b"
 B, S, LR = 4, 16, 1e-3

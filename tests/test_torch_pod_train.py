@@ -44,6 +44,10 @@ from repro_torch.models import params_to_jax, train_state_from_jax
 from repro_torch.optim import cosine_schedule, tree_leaves
 from repro_torch.optim import edge_exchange as ex
 
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
+
 B, S, LR = 4, 24, 1e-3
 N_PODS = 2
 LOSS_RTOL = 1e-5

@@ -14,6 +14,10 @@ from repro.runtime.step import draw_fleet_samples
 from repro_torch.runtime import threefry
 from repro_torch.runtime.step import sample_fleet
 
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
+
 SEEDS = [0, 15, 2**31 - 1]
 SHAPES = [(6, 4, 64), (3, 5, 7), (16, 8, 256)]
 

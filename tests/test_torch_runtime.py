@@ -14,6 +14,7 @@ import pathlib
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.api.experiment import Experiment as RefExperiment
 from repro.api.scenario import ScenarioConfig as RefScenario
@@ -22,6 +23,10 @@ from repro.sweep.diff import TOLERANCE_CLASSES
 from repro_torch.api.experiment import Experiment
 from repro_torch.api.scenario import ScenarioConfig
 from repro_torch.runtime.state import state_from_numpy
+
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
 
 F32_RTOL, F32_ATOL = TOLERANCE_CLASSES["f32"]
 SCENARIO = json.loads((pathlib.Path(__file__).parent / "goldens" / "scenarios"

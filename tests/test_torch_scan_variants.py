@@ -15,12 +15,17 @@ import pathlib
 
 import numpy as np
 import pytest
+import torch
 
 from repro.api.experiment import Experiment as RefExperiment
 from repro.api.scenario import ScenarioConfig as RefScenario
 from repro.sweep.diff import TOLERANCE_CLASSES
 from repro_torch.api.experiment import Experiment
 from repro_torch.api.scenario import ScenarioConfig
+
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
 
 F32 = TOLERANCE_CLASSES["f32"]
 GOLDENS = pathlib.Path(__file__).parent / "goldens" / "scenarios"

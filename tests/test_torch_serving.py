@@ -28,6 +28,10 @@ from repro_torch.models import params_from_jax
 from repro_torch.serving import Request, ServeEngine
 from repro_torch.serving.__main__ import PROMPTS
 
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SLOTS, MAX_SEQ = 4, 96
 

@@ -43,6 +43,10 @@ from repro_torch.runtime.step import sample_fleet
 from repro_torch.sweep.diff import diff_reports
 from repro_torch.sweep.report import serialize_report
 
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
+
 GOLDENS = pathlib.Path(__file__).parent / "goldens" / "scenarios"
 E = 6
 

@@ -29,6 +29,10 @@ import numpy as np
 import pytest
 import torch
 
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SCENARIOS = ROOT / "tests" / "goldens" / "scenarios"
 WORLDS = (2, 4)

@@ -47,6 +47,10 @@ from repro_torch.runtime.state import init_state
 from repro_torch.runtime.step import (PAYLOAD_PLAN_FIELDS, make_window_step,
                                       sample_fleet)
 
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
+
 ULP = TOLERANCE_CLASSES["ulp"]
 F32 = TOLERANCE_CLASSES["f32"]
 SOLVE = (1e-3, 1e-6)

@@ -20,6 +20,7 @@ import jax
 import jax.experimental
 import numpy as np
 import pytest
+import torch
 
 from repro.api.experiment import Experiment as RefExperiment
 from repro.api.scenario import ScenarioConfig as RefScenario
@@ -28,6 +29,10 @@ from repro_torch.api.experiment import Experiment, SingleEdgeRuntime
 from repro_torch.api.scenario import ScenarioConfig
 from repro_torch.sweep.diff import diff_reports
 from repro_torch.sweep.report import serialize_report
+
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
 
 GOLDENS = pathlib.Path(__file__).parent / "goldens" / "scenarios"
 NAMES = ["single_event_cubic", "single_event_drop_gaps",

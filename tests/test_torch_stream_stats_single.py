@@ -15,6 +15,10 @@ from repro.kernels.stream_stats.ops import derived_stats as ref_derived
 from repro.kernels.stream_stats.ops import window_moments_xxt as ref_window
 from repro_torch.kernels.stream_stats import ops as ss_ops
 
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
+
 # the tolerances of tests/test_kernel_stream_stats.py
 RTOL = {"float32": 2e-5, "bfloat16": 3e-2}
 ATOL = 1e-2

@@ -53,6 +53,10 @@ from repro_torch.models import (forward_train, params_from_jax,
 from repro_torch.optim import (cosine_schedule, global_norm, tree_leaves,
                                tree_unflatten)
 
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
+
 STUBS = ["whisper-large-v3", "qwen2-vl-2b"]
 B, S = 2, 24
 LR = 1e-3

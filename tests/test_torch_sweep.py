@@ -41,6 +41,10 @@ from repro.sweep import report as ref_report
 from repro_torch.core.stats import lane_sum, lu_solve4, sqrt
 from repro_torch.sweep import diff, report, runner
 
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 REPORTS = ROOT / "tests" / "torch_goldens" / "reports"
 SCAN_GOLDENS = ["fleet_scan", "fleet_scan_adaptive_ph",

@@ -41,6 +41,10 @@ from repro_torch.core.types import PlannerConfig, WindowBatch
 from repro_torch.sweep.diff import diff_reports
 from repro_torch.sweep.report import serialize_report
 
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
+
 # benchmarks/fig9_iid.py's setting
 FIG9 = {"data": {"dataset": "smartcity", "n_points": 3072, "window": 256,
                  "seed": 13, "options": {}},

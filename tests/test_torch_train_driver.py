@@ -1,8 +1,8 @@
 """The port's training driver (``python -m repro_torch.launch.train``) on
 the CPU: the reference test's run lowers the loss, a failed run resumed
-from its checkpoint ends bitwise where an uninterrupted run ends, the
-exchange flags run, and the mesh flags of LM sharding (ROADMAP queue 1,
-item 4f-ii) raise.
+from its checkpoint ends bitwise where an uninterrupted run ends, and
+the exchange and mesh flags run (the sharded runs themselves are held in
+``test_torch_lm_mesh_ranks.py``).
 
 The reference's own driver is not run here: on this container its
 single-device run fails inside ``mesh_context`` (ROADMAP queue 3, note
@@ -16,6 +16,10 @@ import pytest
 import torch
 
 from repro_torch.launch.train import build_argparser, main
+
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -72,25 +76,41 @@ def test_restore_without_a_checkpoint_starts_fresh(tmp_path, capsys):
     assert len(fresh) == 2 and len(again) == 1
 
 
-@pytest.mark.parametrize("flags", [["--host-devices", "8"], ["--pods", "2"],
+@pytest.mark.parametrize("flags", [["--host-devices", "2"], ["--pods", "2"],
                                    ["--model-parallel", "2"],
                                    ["--edge-exchange"]],
                          ids=lambda f: f[0])
-def test_sharding_flags_raise(flags, capsys):
-    """The mesh flags raise (item 4f-ii); ``--pods`` and
-    ``--edge-exchange`` run since the exchange was ported: either alone
-    trains plain, as the reference's driver does (the exchange needs both,
-    ``tests/test_torch_pod_train.py``), bitwise the run without it."""
-    run = ["--steps", "2", "--batch", "4", "--seq", "8", "--log-every", "1",
-           "--device", "cpu"]
-    if flags[0] in ("--host-devices", "--model-parallel"):
-        with pytest.raises(NotImplementedError, match="item 4f-ii"):
-            main(flags + run)
+def test_sharding_flags_raise(flags, capfd):
+    """The mesh flags run since LM sharding was ported.  ``--host-devices
+    2`` trains on two CPU ranks over gloo, a mesh of two data ranks, each
+    on its half of every batch: its first loss is the one-process run's
+    within f32 (rtol 1e-5), its second within 1e-3 (after one AdamW step
+    taken from two f32 orders of the gradient sums).  ``--model-parallel
+    2`` alone raises: one process does not split into two model ranks, as
+    the reference's ``make_local_mesh`` asserts.  ``--pods`` and
+    ``--edge-exchange`` alone train plain, as the reference's driver does
+    (the exchange needs both, ``tests/test_torch_pod_train.py``), bitwise
+    the run without them."""
+    run = ["--steps", "2", "--batch", "4", "--seq", "8", "--log-every", "1"]
+    if flags[0] == "--model-parallel":
+        with pytest.raises(ValueError, match="do not split"):
+            main(flags + run + ["--device", "cpu"])
         return
     got, plain = {}, {}
+    if flags[0] == "--host-devices":
+        main(flags + run, stats=got)
+        assert "mesh={'data': 2, 'model': 1}" in capfd.readouterr().out
+        main(run + ["--device", "cpu"], stats=plain)
+        assert got["mesh"] == {"data": 2, "model": 1}
+        np.testing.assert_allclose(got["loss"][0], plain["loss"][0],
+                                   rtol=1e-5)
+        np.testing.assert_allclose(got["loss"][1], plain["loss"][1],
+                                   rtol=1e-3)
+        return
+    run += ["--device", "cpu"]
     main(flags + run, stats=got)
     main(run, stats=plain)
-    assert "replanned" not in capsys.readouterr().out
+    assert "replanned" not in capfd.readouterr().out
     assert "sync_fraction" not in got
     assert got["loss"] == plain["loss"] and all(np.isfinite(got["loss"]))
 

@@ -57,6 +57,10 @@ from repro_torch.models import (params_from_jax, params_to_jax,
 from repro_torch.optim import (cosine_schedule, global_norm, tree_leaves,
                                tree_map)
 
+# one intra-op thread: the suite runs several pytest workers on the
+# host's cores, and a torch thread pool in each oversubscribes them
+torch.set_num_threads(1)
+
 ARCH = "starcoder2-3b"
 B, S, STEPS = 4, 24, 3
 LR = 1e-3
